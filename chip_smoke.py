@@ -33,7 +33,30 @@ non-zero before the last line is printed.
    the serve path's shape, with CUDA events, beside the least time the card
    could take for the same work.
 
-Then one line ``{"kernels": [...]}`` and, last,
+The long-context family (``serve.planFamily: "encoder_validator_long"``,
+ring attention over a (dp, sp) grid, kernel K2: attention in stats mode)
+is driven after it:
+
+7. kernels (K2): K2 against its plain version on the card in bf16 and
+   fp32 at the ring's shapes (Dh 16 and 32, causal, Lq != Lk, L=100,
+   L=16384), over rows with a valid key: m as an absolute difference, l
+   and the unnormalized acc relative to the plain l; every value finite,
+   and a row with no valid key has m = -1e30 and l = its key count;
+8. ring: ``forward_long`` at ``long_context_config(16384)`` on a (1, 4)
+   grid laid over one card against the same call at (1, 1): fp32 logits
+   within 1e-4, bf16 severity argmax identical;
+9. serve-long: 32 long and 32 short requests from 8 threads through
+   ``make_local_call_llm`` with the long family on a (1, 1) grid, on a
+   checkpoint the port writes; verdicts equal the one-shot path on the
+   card (the dense forward through K1) and, for 4 requests, on the CPU;
+   32 rows route long; the K2 and K1 counts, set to 0 just before, equal
+   layers × long and × short sub-batches; a profiled repeat gives the
+   card's busy share;
+10. timing (K2): K2, its plain version and ``scaled_dot_product_attention``
+    (the normalized output, the nearest library call) at the long serve
+    shape, beside the bound.
+
+Then one line ``{"kernels": [...]}`` listing K1 and K2 and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -54,8 +77,22 @@ PEAK_BF16_OPS_PER_S = 989e12
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 SOURCE = "vainplex_openclaw_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = "vainplex_openclaw_tpu/ops/flash_attention.py:130"
+# _flash_kernel's stats branch (return_stats=True)
+REPLACES_STATS = "vainplex_openclaw_tpu/ops/flash_attention.py:180"
+LONG_L = 16384  # long_context_config's length on the card
+LONG_THRESHOLD = 1024  # serve.longContext.thresholdTokens, its default
 
-# (name, B, H, Lq, Lk, Dh, causal, masked)
+# (name, B, H, Lq, Lk, Dh, causal, masked), for K2 and, below, K1
+STATS_CASES = [
+    ("ring_shard_sp4", 8, 2, 4096, 4096, 16, False, True),
+    ("ring_dh32", 4, 2, 2048, 2048, 32, False, True),
+    ("causal", 2, 2, 256, 256, 32, True, True),
+    ("cross_length", 2, 2, 96, 200, 64, False, True),
+    ("unaligned_100", 3, 2, 100, 100, 16, False, True),
+    ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
+    ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, True),
+]
+
 KERNEL_CASES = [
     ("serve_path", 32, 4, 64, 64, 16, False, True),
     ("encoder_default_width", 32, 8, 128, 128, 32, False, True),
@@ -514,6 +551,329 @@ def phase_timing() -> dict:
     return record
 
 
+def stats_errors(got, want, rows):
+    """(max |Δm|, max |Δl|/l, max |Δacc|/l) over ``rows`` [B, 1, Lq, 1]:
+    m absolute; l and the unnormalized acc relative to the plain l, since
+    both grow with the key count."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    r = rows[..., 0].expand_as(m)
+    scale = l_w.clamp_min(1e-30)
+    em = float((m - m_w).abs()[r].max())
+    el = float(((l - l_w).abs() / scale)[r].max())
+    ea = float(((acc - acc_w).abs().amax(dim=-1) / scale)[r].max())
+    return em, el, ea
+
+
+def phase_kernels_stats() -> float:
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_stats_reference)
+
+    rng = np.random.default_rng(10)
+    cases = []
+    worst = 0.0
+    for name, B, H, Lq, Lk, Dh, causal, masked in STATS_CASES:
+        for dt_name, dtype in (("bfloat16", torch.bfloat16),
+                               ("float32", torch.float32)):
+            q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, masked,
+                                     "cuda")
+            got = flash_attention(q, k, v, mask, causal=causal,
+                                  return_stats=True)
+            want = flash_attention_stats_reference(q, k, v, mask,
+                                                   causal=causal)
+            torch.cuda.synchronize()
+            acc, m, l = got
+            check(acc.dtype == m.dtype == l.dtype == torch.float32
+                  and acc.shape == q.shape and m.shape == l.shape == q.shape[:3],
+                  f"K2 {name}/{dt_name}: outputs {acc.dtype} "
+                  f"{tuple(acc.shape)} {tuple(m.shape)}")
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"K2 {name}/{dt_name}: non-finite output")
+            rows = valid_rows(mask, B, Lq, Lk, causal, "cuda")
+            em, el, ea = stats_errors(got, want, rows)
+            err = max(em, el, ea)
+            check(err <= TOL[dt_name],
+                  f"K2 {name}/{dt_name}: |Δm| {em}, |Δl|/l {el}, "
+                  f"|Δacc|/l {ea} > {TOL[dt_name]}")
+            masked_rows = None
+            if mask is not None and not causal:
+                empty = ~mask.any(dim=1)
+                if bool(empty.any()):
+                    # keys past Lk count nothing: l is the real key count
+                    check(bool((m[empty] == -1e30).all())
+                          and bool((l[empty] == float(Lk)).all()),
+                          f"K2 {name}/{dt_name}: a row with no valid key has "
+                          f"m {float(m[empty].max())}, l {float(l[empty].max())}")
+                    masked_rows = int(empty.sum())
+            worst = max(worst, err)
+            cases.append({"case": name, "dtype": dt_name,
+                          "shape": [B, H, Lq, Lk, Dh], "causal": causal,
+                          "m_abs_err": em, "l_rel_err": el,
+                          "acc_rel_err": ea, "tol": TOL[dt_name],
+                          "rows_without_a_valid_key": masked_rows})
+            del q, k, v, mask, got, want, acc, m, l
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_stats", "kernels": [
+        {"name": "flash_attention_stats", "max_err": worst, "cases": cases}]})
+    return worst
+
+
+_WORDS = tuple(sorted({w for t in _TEMPLATES + _SUBJECTS
+                       for w in t.replace("{n}", "").replace("{i}", "")
+                       .replace("-", " ").split() if w.isalpha()}))
+
+
+def text_of(n_tokens: int, rng) -> str:
+    """A message the tokenizer reads as ``n_tokens`` real tokens (the CLS
+    token and ``n_tokens - 1`` words)."""
+    return " ".join(_WORDS[i] for i in rng.integers(len(_WORDS),
+                                                    size=n_tokens - 1))
+
+
+def long_params(cfg, device):
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        init_params, params_from_numpy)
+
+    tree = init_params(cfg, torch.Generator().manual_seed(0))
+    return params_from_numpy(tree, cfg, device, cast=True)
+
+
+def phase_ring() -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encode_texts
+    from vainplex_openclaw_tpu_torch.models.long_context import (
+        forward_long, long_context_config)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel.mesh import make_mesh
+
+    cfg16 = long_context_config(LONG_L)
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(2 * LONG_THRESHOLD, LONG_L, size=8)
+    tokens = torch.from_numpy(encode_texts(
+        [text_of(int(n), rng) for n in lengths], LONG_L,
+        cfg16.vocab_size)).cuda()
+    check([int(n) for n in (tokens > 0).sum(dim=1).tolist()]
+          == [int(n) for n in lengths], "long texts: token counts differ")
+    ring = make_mesh(axes=("dp", "sp"), shape=(1, 4), devices=["cuda:0"] * 4)
+    whole = make_mesh(axes=("dp", "sp"), shape=(1, 1), devices=["cuda:0"])
+    record = {"phase": "ring", "mesh": "1x4 over one card", "texts": 8,
+              "real_tokens": [int(n) for n in lengths]}
+    for dt_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg16, dtype=dt_name)
+        params = long_params(cfg, "cuda")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            fa.stats_launches = 0
+            sp4 = forward_long(params, tokens, cfg, ring)
+            torch.cuda.synchronize()
+            launches = fa.stats_launches
+            sp1 = forward_long(params, tokens, cfg, whole)
+            torch.cuda.synchronize()
+        check(launches == cfg.n_layers * 16,
+              f"ring {dt_name}: K2 launches {launches} != "
+              f"{cfg.n_layers} layers × 4 shards × 4 rotations")
+        check(all(bool(torch.isfinite(sp4[h].float()).all())
+                  for h in ("severity", "keep", "mood", "embedding")),
+              f"ring {dt_name}: non-finite output")
+        err = compare_outputs(sp4, sp1)
+        same = bool((sp4["severity"].argmax(-1)
+                     == sp1["severity"].argmax(-1)).all())
+        if dt_name == "float32":
+            check(err <= 1e-4, f"ring fp32: sp=4 vs sp=1 logits differ by "
+                               f"{err} > 1e-4")
+        else:
+            check(same, "ring bf16: severity argmax differs sp=4 vs sp=1")
+        record[dt_name] = {"max_abs_err": err, "argmax_equal": same,
+                           "k2_launches": launches,
+                           "tol": 1e-4 if dt_name == "float32" else "argmax"}
+    emit(record)
+
+
+def phase_serve_long(smi: str) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.long_context import (
+        long_context_config)
+    from vainplex_openclaw_tpu_torch.models.pretrained import (
+        clear_cache, write_pretrained)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg = long_context_config(LONG_L)
+    rng = np.random.default_rng(12)
+    n_long = n_short = 32
+    lengths = np.concatenate([
+        rng.integers(2 * LONG_THRESHOLD, LONG_L, size=n_long),
+        rng.integers(2, LONG_THRESHOLD, size=n_short)])
+    lengths = lengths[rng.permutation(len(lengths))]
+    prompts = [as_prompt(text_of(int(n), rng)) for n in lengths]
+    with tempfile.TemporaryDirectory() as ckpt:
+        write_pretrained(ckpt, cfg, long_params(cfg, "cpu"))
+        oneshot = serve.make_local_call_llm(
+            ckpt, serve_cfg={"continuousBatching": False})
+        oracle = [oneshot(p) for p in prompts]
+        cpu_oneshot = serve.make_local_call_llm(
+            ckpt, serve_cfg={"continuousBatching": False}, device="cpu")
+        is_long = lengths >= LONG_THRESHOLD
+        picks = [int(np.nonzero(is_long)[0][0]),
+                 int(np.nonzero(is_long)[0][-1]),
+                 int(np.nonzero(~is_long)[0][0]),
+                 int(np.nonzero(~is_long)[0][-1])]
+        cpu_verdicts = [cpu_oneshot(prompts[i]) for i in picks]
+        check(cpu_verdicts == [oracle[i] for i in picks],
+              "serve-long: the card's one-shot verdicts differ from the CPU's")
+
+        call = serve.make_local_call_llm(ckpt, serve_cfg={
+            "meshServing": True, "meshShape": [1, 1],
+            "meshAxes": ["dp", "sp"],
+            "planFamily": "encoder_validator_long", "maxBatch": 8})
+        batcher = call.batcher
+        check(batcher.long_threshold == LONG_THRESHOLD,
+              f"serve-long: threshold {batcher.long_threshold}")
+        torch.cuda.synchronize()
+        fa.launches = 0
+        fa.stats_launches = 0
+        got, latency, wall, errors = serve_round(call, prompts, 8)
+        k1, k2 = fa.launches, fa.stats_launches
+        runs = dict(batcher.mesh_runs)
+        check(not errors, f"serve-long errors: {errors[:3]}")
+        mismatches = sum(a != b for a, b in zip(got, oracle))
+        check(mismatches == 0, f"serve-long: {mismatches} verdicts differ "
+                               "from the one-shot path")
+        check(batcher.long_routed == n_long,
+              f"serve-long: longRouted {batcher.long_routed} != {n_long}")
+        check(k2 > 0 and k2 == cfg.n_layers * runs["long"],
+              f"serve-long: K2 launches {k2} != {cfg.n_layers} layers × "
+              f"{runs['long']} long sub-batches")
+        check(k1 > 0 and k1 == cfg.n_layers * runs["forward"],
+              f"serve-long: K1 launches {k1} != {cfg.n_layers} layers × "
+              f"{runs['forward']} short sub-batches")
+        snap = batcher.timer.snapshot()
+        stats = batcher.stats()
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got2, _, wall2, errors2 = serve_round(call, prompts, 8)
+            torch.cuda.synchronize()
+        check(not errors2 and got2 == oracle, "profiled serve-long round "
+                                              "differs")
+        serve.close_batchers()
+        clear_cache()
+    lat = sorted(latency)
+    record = {"phase": "serve_long", "nvidia_smi": smi,
+              "requests": len(prompts), "long": n_long, "short": n_short,
+              "threads": 8, "max_batch": 8, "mesh": stats["mesh"],
+              "served": stats["served"], "batches": stats["batches"],
+              "long_routed": stats["longRouted"], "sub_batches": runs,
+              "verdict_mismatches": 0, "cpu_checked": len(picks),
+              "k2_launches": k2, "k1_launches": k1,
+              "requests_per_s": len(prompts) / wall,
+              "tokens_per_s": float(lengths.sum()) / wall,
+              "wall_s": wall,
+              "latency_ms": {"p50": lat[len(lat) // 2],
+                             "p99": lat[min(len(lat) - 1,
+                                            int(0.99 * len(lat)))],
+                             "max": lat[-1]},
+              "stage_p50_ms": {k: v["p50"]
+                               for k, v in snap["quantiles"].items()},
+              "stage_ms": snap["stages_ms"], "stage_counts": snap["counts"],
+              "profiled_round": {"wall_s": wall2,
+                                 **device_busy(prof, wall2)}}
+    emit(record)
+    return {"launches": k2, "k1_launches": k1}
+
+
+def phase_timing_stats() -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, Dh = 8, 2, LONG_L, 16
+    q, k, v, _ = make_qkv(np.random.default_rng(13), B, H, L, L, Dh,
+                          torch.bfloat16, False, "cuda")
+    mask = torch.ones((B, L), dtype=torch.bool, device="cuda")
+    bias = fa._bias(mask, B, L, q.device)
+    acc = torch.empty((B, H, L, Dh), dtype=torch.float32, device="cuda")
+    m = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
+    l = torch.empty_like(m)
+    out = torch.empty_like(q)
+    lib = _build.load_library("flash_attention")
+    code = fa._DTYPE_CODES[q.dtype]
+
+    def kernel():
+        err = lib.flash_attention_stats_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, L, L, Dh, code,
+            0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"K2 timing launch failed: CUDA error {err}")
+
+    def k1_same_shape():
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, L, L, Dh, code, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"K1 timing launch failed: CUDA error {err}")
+
+    def plain():
+        # one batch element at a time: [B, H, L, L] fp32 scores at once
+        # would take 17 GB per temporary
+        for b in range(B):
+            fa.flash_attention_stats_reference(q[b:b + 1], k[b:b + 1],
+                                               v[b:b + 1], mask[b:b + 1])
+
+    sdpa_mask = bias.to(q.dtype)[:, None, None, :]
+
+    def library():
+        F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+
+    kernel_ms = [time_ms(kernel, n=3, reps=5, warmup=1)]
+    plain_ms = [time_ms(plain, n=1, reps=3, warmup=1)]
+    plain_ms.append(time_ms(plain, n=1, reps=3, warmup=0))
+    kernel_ms.append(time_ms(kernel, n=3, reps=5, warmup=0))
+    k1_ms = time_ms(k1_same_shape, n=3, reps=5, warmup=1)
+    sdpa_ms = time_ms(library, n=10, reps=5, warmup=2)
+
+    n_bytes = (3 * B * H * L * Dh * q.element_size()   # q, k, v
+               + B * H * L * Dh * 4                    # acc, fp32
+               + 2 * B * H * L * 4                     # m, l
+               + B * L * 4)                            # bias row
+    n_ops = 4 * B * H * L * L * Dh
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    record = {"phase": "timing_stats", "shape": [B, H, L, L, Dh],
+              "dtype": "bfloat16", "kv_mask": "every key valid",
+              "kernel_ms": statistics.median(kernel_ms),
+              "kernel_ms_runs": kernel_ms,
+              "plain_ms": statistics.median(plain_ms),
+              "plain_ms_runs": plain_ms,
+              "library_ms": None,
+              "sdpa_normalized_ms": sdpa_ms,
+              "k1_same_shape_ms": k1_ms,
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "bytes": n_bytes, "operations": n_ops,
+              "launches_per_forward": "n_layers x dp x sp^2 (2 at 1x1)"}
+    emit(record)
+    return record
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -526,6 +886,10 @@ def main() -> int:
         phase_forward()
         served = phase_serve()
         timing = phase_timing()
+        worst_stats = phase_kernels_stats()
+        phase_ring()
+        served_long = phase_serve_long(info["nvidia_smi"])
+        timing_stats = phase_timing_stats()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -534,7 +898,14 @@ def main() -> int:
         "replaces": REPLACES, "launches": served["launches"],
         "max_abs_err": worst, "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}]})
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]},
+        {"name": "flash_attention_stats", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES_STATS, "launches": served_long["launches"],
+         "max_abs_err": worst_stats, "ms": timing_stats["kernel_ms"],
+         "plain_ms": timing_stats["plain_ms"],
+         "bound_ms": timing_stats["bound_ms"],
+         "bound_by": timing_stats["bound_by"], "library_ms": None,
+         "sdpa_normalized_ms": timing_stats["sdpa_normalized_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

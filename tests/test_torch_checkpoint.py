@@ -195,6 +195,111 @@ class TestLoadPretrained:
         jax_pretrained.clear_cache()
 
 
+class TestCheckpointWriter:
+    """``save_checkpoint`` and ``write_pretrained`` write what the JAX
+    package reads, bit for bit, and the reverse still holds."""
+
+    def setup_method(self):
+        port_pretrained.clear_cache()
+        jax_pretrained.clear_cache()
+
+    def teardown_method(self):
+        jax_pretrained.clear_cache()
+
+    @staticmethod
+    def long_cfg():
+        from vainplex_openclaw_tpu_torch.models.long_context import (
+            long_context_config)
+
+        return long_context_config(128)
+
+    def test_port_written_checkpoint_loads_in_jax(self, tmp_path):
+        from vainplex_openclaw_tpu_torch.models.encoder import init_params
+
+        cfg = self.long_cfg()
+        tree = init_params(cfg, torch.Generator().manual_seed(3))
+        port_pretrained.write_pretrained(str(tmp_path), cfg, tree)
+        assert jax_pretrained.available(str(tmp_path))
+        meta = json.loads((tmp_path / "config.json").read_text())
+        assert meta == {"config": port_pretrained.config_to_manifest(cfg),
+                        "eval": {}}
+        jcfg, jparams = jax_pretrained.load_pretrained(str(tmp_path))
+        assert jax_pretrained._config_to_manifest(jcfg) == meta["config"]
+        # the fp32 masters as JAX restores them: every leaf bit-equal
+        from vainplex_openclaw_tpu.models import init_params as jax_init
+
+        raw = jax_ckpt.restore_checkpoint(
+            str(tmp_path), like=jax_init(jax.random.PRNGKey(0), jcfg))
+        jflat = flatten_jax(raw)
+        mine = flatten_tree(tree)
+        assert set(jflat) == set(mine)
+        for key, t in mine.items():
+            assert np.asarray(jflat[key]).dtype == np.float32, key
+            assert np.array_equal(np.asarray(jflat[key]), t.numpy()), key
+        # and the inference trees the two loaders build are bit-equal
+        _, params = port_pretrained.load_pretrained(str(tmp_path),
+                                                    device="cpu")
+        carried = flatten_tree(params_from_numpy(
+            to_numpy_tree(jparams), cfg, "cpu", cast=False))
+        for key, t in flatten_tree(params).items():
+            assert t.dtype == carried[key].dtype, key
+            assert np.array_equal(leaf_bits(t), leaf_bits(carried[key])), key
+
+    def test_bf16_leaves_stored_as_uint16_views(self, tmp_path):
+        w = torch.randn((8, 4), generator=torch.Generator().manual_seed(0))
+        tree = {"a": {"w": w.to(torch.bfloat16)}, "b": [w[0].clone()],
+                "c": np.arange(5, dtype=np.int32)}
+        path = port_ckpt.save_checkpoint(str(tmp_path), tree, step=5)
+        assert path.endswith("step-5.npz")
+        with np.load(path) as z:
+            assert z["a/w"].dtype == np.uint16
+        manifest = json.loads((tmp_path / "step-5.manifest.json").read_text())
+        assert manifest["dtypes"] == {"a/w": "bfloat16", "b/0": "float32",
+                                      "c": "int32"}
+        assert manifest["leaves"] == ["a/w", "b/0", "c"]
+        assert manifest["step"] == 5 and manifest["n_leaves"] == 3
+        like = {"a": {"w": np.zeros((8, 4), ml_dtypes.bfloat16)},
+                "b": [np.zeros(4, np.float32)], "c": np.zeros(5, np.int32)}
+        restored = jax_ckpt.restore_checkpoint(str(tmp_path), like=like)
+        jw = np.asarray(flatten_jax(restored)["a/w"])
+        assert jw.dtype == ml_dtypes.bfloat16
+        assert np.array_equal(jw.view(np.int16),
+                              tree["a"]["w"].view(torch.int16).numpy())
+        back = port_ckpt.read_checkpoint(str(tmp_path))
+        assert torch.equal(back["a/w"], tree["a"]["w"])
+
+    def test_keeps_the_newest_steps_and_leaves_no_temporaries(self, tmp_path):
+        tree = {"w": torch.zeros(2)}
+        for step in (1, 2, 3, 4, 5):
+            port_ckpt.save_checkpoint(str(tmp_path), tree, step=step, keep=3)
+        assert port_ckpt.all_steps(str(tmp_path)) == \
+            jax_ckpt.all_steps(str(tmp_path)) == [3, 4, 5]
+        assert sorted(os.listdir(tmp_path)) == sorted(
+            f"step-{s}.{ext}" for s in (3, 4, 5)
+            for ext in ("npz", "manifest.json"))
+
+    def test_failed_write_leaves_nothing_behind(self, tmp_path):
+        with pytest.raises(TypeError):
+            port_ckpt.save_checkpoint(str(tmp_path), {"w": torch.zeros(1)},
+                                      step=1, metadata={"bad": object()})
+        assert os.listdir(tmp_path) == []
+
+    def test_jax_written_long_checkpoint_loads_in_port(self, tmp_path):
+        import bench
+
+        jcfg = bench.long_context_config(128)
+        bench.write_serving_checkpoint(str(tmp_path), jcfg, seed=2)
+        cfg, params = port_pretrained.load_pretrained(str(tmp_path),
+                                                      device="cpu")
+        assert port_pretrained.config_to_manifest(cfg) == \
+            jax_pretrained._config_to_manifest(jcfg)
+        _, jparams = jax_pretrained.load_pretrained(str(tmp_path))
+        carried = flatten_tree(params_from_numpy(
+            to_numpy_tree(jparams), cfg, "cpu", cast=False))
+        for key, t in flatten_tree(params).items():
+            assert np.array_equal(leaf_bits(t), leaf_bits(carried[key])), key
+
+
 def flatten_jax(tree) -> dict:
     return {"/".join(str(getattr(p, "key", getattr(p, "idx", p)))
                      for p in path): leaf

@@ -168,3 +168,108 @@ def test_build_is_lazy_and_keyed_by_source_hash():
     assert "-gencode" in _build.NVCC_FLAGS and \
         "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not _build._libs  # nothing loaded on the CPU
+
+
+# ── stats mode (kernel K2) ─────────────────────────────────────────────
+
+def stats_errors(got, want, rows):
+    """(max |Δm|, max |Δl|/l, max |Δacc|/l) over ``rows``: m as an absolute
+    difference; l and the unnormalized acc relative to the plain l, since
+    both grow with the key count."""
+    (acc, m, l), (acc_w, m_w, l_w) = got, want
+    r = rows[..., 0]
+    scale = np.maximum(l_w, 1e-30)
+    em = np.abs(m - m_w)[r].max()
+    el = (np.abs(l - l_w) / scale)[r].max()
+    ea = (np.abs(acc - acc_w).max(axis=-1) / scale)[r].max()
+    return em, el, ea
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_stats_plain_version_matches_pallas_interpreter(case, dtype,
+                                                        no_kernel_build):
+    """K2's plain version against the Pallas kernel in stats mode: m, l and
+    acc on every row with a valid key, fp32 to 1e-5 and bf16 to 3e-2."""
+    name, B, H, Lq, Lk, Dh, lengths, causal = case
+    q, k, v, mask = make_inputs(len(name) * 11 + Dh, B, H, Lq, Lk, Dh,
+                                lengths)
+    tdt, jdt = DTYPES[dtype]
+    ref = jax_flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+        None if mask is None else jnp.asarray(mask), causal=causal,
+        interpret=True, return_stats=True)
+    before = (fa.launches, fa.stats_launches)
+    acc, m, l = fa.flash_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        None if mask is None else torch.from_numpy(mask), causal=causal,
+        return_stats=True)
+    assert (fa.launches, fa.stats_launches) == before
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    assert tuple(acc.shape) == (B, H, Lq, Dh)
+    assert tuple(m.shape) == tuple(l.shape) == (B, H, Lq)
+    got = tuple(t.numpy() for t in (acc, m, l))
+    assert all(np.isfinite(t).all() for t in got)
+    want = tuple(np.asarray(t, dtype=np.float32) for t in ref)
+    rows = np.broadcast_to(valid_rows(mask, B, Lq, Lk, causal), (B, H, Lq, 1))
+    em, el, ea = stats_errors(got, want, rows)
+    assert max(em, el, ea) <= TOL[dtype], (em, el, ea)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stats_reconstruct_the_normalized_output(dtype, no_kernel_build):
+    """acc / max(l, 1e-30) in q's dtype is K1's output, bit for bit."""
+    q, k, v, mask = make_inputs(9, 3, 2, 100, 100, 32, [100, 41, 0])
+    tdt = DTYPES[dtype][0]
+    args = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    m_ = torch.from_numpy(mask)
+    acc, _, l = fa.flash_attention(*args, m_, return_stats=True)
+    out = fa.flash_attention(*args, m_)
+    assert torch.equal((acc / l.clamp_min(1e-30)[..., None]).to(tdt), out)
+
+
+def test_stats_reference_equals_cpu_wrapper(no_kernel_build):
+    q, k, v, mask = make_inputs(4, 2, 4, 64, 80, 16, [80, 13])
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    m_ = torch.from_numpy(mask)
+    for a, b in zip(fa.flash_attention(*args, m_, return_stats=True),
+                    fa.flash_attention_stats_reference(*args, m_)):
+        assert torch.equal(a, b)
+
+
+def test_stats_l_matches_dense_log_sum_exp(no_kernel_build):
+    """m is the row max of the scaled scores and l the softmax denominator
+    (the JAX suite's ``test_return_stats_reconstructs_output`` oracle)."""
+    q, k, v, mask = make_inputs(6, 2, 2, 48, 48, 16, [48, 30])
+    acc, m, l = fa.flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask),
+        return_stats=True)
+    scores = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(16)
+    scores = np.where(mask[:, None, None, :], scores, -1e30)
+    mm = scores.max(-1)
+    np.testing.assert_allclose(l.numpy(),
+                               np.exp(scores - mm[..., None]).sum(-1),
+                               rtol=1e-5)
+    np.testing.assert_allclose(m.numpy(), mm, atol=1e-6)
+
+
+def test_stats_fully_masked_row_counts_real_keys(no_kernel_build):
+    """A row whose every key is masked: m = -1e30 (finite), every p = 1,
+    and l = the number of real keys. The JAX wrapper pads Lk = 100 to its
+    8-aligned block (104) with masked keys and counts those too, so its l
+    is 104; no verdict sees this, since the batcher drops such rows."""
+    q, k, v, _ = make_inputs(8, 2, 2, 100, 100, 16, None)
+    mask = np.arange(100)[None, :] < np.array([[100], [0]])
+    acc, m, l = fa.flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask),
+        return_stats=True)
+    assert torch.isfinite(acc).all() and torch.isfinite(m).all()
+    assert (m[1] == np.float32(-1e30)).all()
+    assert (l[1] == 100.0).all()
+    np.testing.assert_allclose(acc[1].numpy(),
+                               np.broadcast_to(v[1].sum(axis=1, keepdims=True),
+                                               acc[1].shape), rtol=1e-5)
+    _, _, l_jax = jax_flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask),
+        interpret=True, return_stats=True)
+    assert (np.asarray(l_jax)[1] == 104.0).all()

@@ -66,7 +66,12 @@ def test_subprocess_import_leaves_no_jax_module():
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1, "importing chip_smoke or the port printed output"
     loaded = json.loads(lines[0])
-    assert "vainplex_openclaw_tpu_torch.models.serve" in loaded
+    for mod in ("vainplex_openclaw_tpu_torch.models.serve",
+                "vainplex_openclaw_tpu_torch.models.long_context",
+                "vainplex_openclaw_tpu_torch.parallel.mesh",
+                "vainplex_openclaw_tpu_torch.parallel.plan",
+                "vainplex_openclaw_tpu_torch.parallel.ring_attention"):
+        assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []
 

@@ -290,6 +290,47 @@ class TestAdmissionAndFailureModes:
         assert all(isinstance(e, RuntimeError) and "boom" in str(e)
                    for e in errs)
 
+    @pytest.mark.parametrize("package", ["port", "jax"])
+    @pytest.mark.parametrize("exc_type", [SystemExit, KeyboardInterrupt])
+    def test_base_exception_reaches_submitters_and_collector_survives(
+            self, exc_type, package):
+        """A SystemExit or KeyboardInterrupt raised inside a batch reaches
+        that batch's submitters at once, as in the JAX batcher, and the
+        collector thread goes on serving the next batch."""
+        raised = []
+
+        def model_fn(texts):
+            if not raised:
+                raised.append(1)
+                raise exc_type("inside the batch")
+            return [1] * len(texts)
+
+        kw = dict(max_batch=4, window_ms=0.0, autostart=True,
+                  model_fn=model_fn)
+        batcher = make_batcher(**kw) if package == "port" else \
+            jax_batching.ContinuousBatcher(**kw)
+        got: list = [None]
+
+        def worker():
+            try:
+                got[0] = batcher.submit("first", timeout_s=10.0)
+            except BaseException as exc:  # noqa: BLE001 — the subject
+                got[0] = exc
+
+        try:
+            t0 = time.monotonic()
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(15.0)
+            assert not t.is_alive()
+            assert isinstance(got[0], exc_type)
+            assert time.monotonic() - t0 < 5.0  # not the submit timeout
+            assert batcher._thread.is_alive()
+            assert batcher.submit("second", timeout_s=10.0) == \
+                batching.render_verdict(1)
+        finally:
+            batcher.close()
+
     def test_missing_checkpoint_refused_at_construction(self, tmp_path):
         with pytest.raises(RuntimeError, match="no trained checkpoint"):
             batching.ContinuousBatcher(str(tmp_path / "nope"),

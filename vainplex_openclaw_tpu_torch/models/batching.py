@@ -1,7 +1,7 @@
-"""Continuous batching for the local serve seam, on one device.
+"""Continuous batching for the local serve seam, on one device or a mesh.
 
 Counterpart of ``vainplex_openclaw_tpu/models/batching.py`` with
-``mesh=None`` and ``registry=None``. Concurrent requests queue; a collector
+``registry=None``. Concurrent requests queue; a collector
 drains up to ``max_batch`` of them inside a ``window_ms`` batching window;
 the batch dim is zero-row padded to a power of two; one ``forward`` serves
 them all. Verdict rendering is per request and string-identical to the
@@ -17,25 +17,36 @@ logits back to the host) and ``decode`` (argmax + verdict render).
 Tokens move host → device once per batch, and severity comes back with one
 ``.cpu()``. Every zero-pad row has all its keys masked; the attention
 kernel keeps such rows finite, and they are sliced away before decode.
-Mesh serving, the model registry and hot swap are not ported yet: passing
-``mesh`` or ``registry`` raises.
+
+With a ``mesh`` (a :class:`~..parallel.mesh.Mesh`) the batch serves through
+the plan of ``plan_family``; the port serves ``encoder_validator_long``,
+whose runner is ring attention over (dp, sp). Rows with at least
+``long_threshold`` real tokens take that program (``forward_long``, kernel
+K2); the rest take its short-path twin, the dense forward (kernel K1), over
+the same placed weights. Each sub-batch is bucketed by ``serve_bucket``.
+Two more stages are timed: ``shard`` (placing weights and token shards)
+and ``gather`` (severity back to the host). The model registry and hot
+swap are not ported yet: passing ``registry`` raises.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.similarity import pad_rows, pow2_bucket
+from ..parallel import plan as sharding_plan
 from ..utils.stage_timer import StageTimer
 from .encoder import forward
-from .pretrained import available, load_pretrained
+from .pretrained import DEFAULT_DIR, available, load_pretrained
 from .tokenizer import encode_texts
 
 # severity head classes (encoder n_severity=4): info|low|medium|high-crit
@@ -90,12 +101,32 @@ class ContinuousBatcher:
                  clock: Callable[[], float] = time.perf_counter,
                  autostart: bool = True,
                  model_fn: Optional[Callable] = None,
-                 device: DeviceLike = None, mesh=None, registry=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
+                 device: DeviceLike = None, mesh=None,
+                 plan_family: str = "encoder_validator",
+                 searched_plans: bool = True, long_threshold: int = 1024,
+                 registry=None):
         if registry is not None:
             raise NotImplementedError("the model registry is not ported yet")
         self.device = resolve_device(device)
+        # Mesh serving: the plan resolves here, so an unported family fails
+        # at construction, not on the first request. ``searched_plans`` is
+        # the JAX knob; no searched row exists for a CUDA grid.
+        self.mesh = mesh
+        self.plan_family = plan_family
+        self.searched_plans = bool(searched_plans)
+        self.long_threshold = max(1, int(long_threshold))
+        self.long_routed = 0
+        # Sub-batches served per runner ("long": ring attention, K2;
+        # "forward": the dense forward, K1), for launch accounting.
+        self.mesh_runs = {"long": 0, "forward": 0}
+        if mesh is not None:
+            plan = sharding_plan.resolve_plan(plan_family, mesh,
+                                              searched=self.searched_plans)
+            sharding_plan.check_servable(plan, mesh)
+            if {d.type for d in mesh.devices} != {self.device.type}:
+                raise ValueError(f"mesh devices {mesh.distinct_devices()} "
+                                 f"are not on {self.device.type}")
+            self.device = mesh.devices[0]
         self.model_fn = model_fn
         if model_fn is None and not available(checkpoint_dir):
             # A silent per-call "pass" would override fail_mode='closed'.
@@ -216,7 +247,12 @@ class ContinuousBatcher:
             if batch:
                 try:
                     self._run_batch(batch)
-                except Exception as exc:  # noqa: BLE001 — per-request fan-out
+                except BaseException as exc:  # noqa: BLE001 — per-request fan-out
+                    # Even SystemExit or KeyboardInterrupt reaches the
+                    # batch's submitters rather than leaving them to time
+                    # out. Not re-raised, as in the JAX batcher: in this
+                    # thread it would only end the collector and strand
+                    # every later request.
                     for req in batch:
                         if not req.done.is_set():
                             req.error = exc
@@ -242,15 +278,19 @@ class ContinuousBatcher:
             cfg, params = loaded
             tokens = encode_texts([r.text for r in batch], cfg.seq_len,
                                   cfg.vocab_size)
-            padded = pad_rows(tokens, pow2_bucket(len(batch)))
-            t1 = self._clock()
-            self.timer.add("batch", (t1 - t0) * 1e3)
-            with torch.inference_mode():
-                out = forward(params, torch.from_numpy(padded).to(self.device),
-                              cfg)
-                severity = out["severity"].cpu()  # waits for the device
-            t2 = self._clock()
-            self.timer.add("prefill", (t2 - t1) * 1e3)
+            if self.mesh is not None:
+                severity, t2 = self._run_mesh(tokens, cfg, params, t0)
+            else:
+                padded = pad_rows(tokens, pow2_bucket(len(batch)))
+                t1 = self._clock()
+                self.timer.add("batch", (t1 - t0) * 1e3)
+                with torch.inference_mode():
+                    out = forward(params,
+                                  torch.from_numpy(padded).to(self.device),
+                                  cfg)
+                    severity = out["severity"].cpu()  # waits for the device
+                t2 = self._clock()
+                self.timer.add("prefill", (t2 - t1) * 1e3)
             classes = severity[:len(batch)].argmax(dim=-1).tolist()
         for req, cls in zip(batch, classes):
             req.result = render_verdict(int(cls))
@@ -259,6 +299,61 @@ class ContinuousBatcher:
             self.served += len(batch)
             self.batches += 1
         self.timer.add("decode", (self._clock() - t2) * 1e3)
+
+    def _run_mesh(self, tokens: np.ndarray, cfg, params, t0: float):
+        """The mesh-served step: route rows by real-token occupancy (with a
+        ``"long"`` plan), bucket each sub-batch, place (``shard``), run,
+        and bring severity back (``gather``). Returns (severity [n, C] on
+        the CPU, the clock after gather)."""
+        plan = sharding_plan.resolve_plan(self.plan_family, self.mesh,
+                                          searched=self.searched_plans)
+        subs = []  # (row indices, sub-plan, padded tokens)
+        if plan.runner == "long":
+            is_long = (tokens > 0).sum(axis=1) >= self.long_threshold
+            for sub_plan, idx in (
+                    (plan, np.nonzero(is_long)[0]),
+                    (sharding_plan.short_path_plan(plan),
+                     np.nonzero(~is_long)[0])):
+                if idx.size:
+                    subs.append((idx, sub_plan, pad_rows(
+                        tokens[idx], sharding_plan.serve_bucket(
+                            int(idx.size), self.mesh, plan=sub_plan))))
+            with self._lock:
+                self.long_routed += int(is_long.sum())
+        else:
+            subs.append((np.arange(len(tokens)), plan, pad_rows(
+                tokens, sharding_plan.serve_bucket(len(tokens), self.mesh,
+                                                   plan=plan))))
+        with self._lock:
+            for _, sub_plan, _ in subs:
+                self.mesh_runs[sub_plan.runner] += 1
+        t1 = self._clock()
+        self.timer.add("batch", (t1 - t0) * 1e3)
+        key = os.path.abspath(self.checkpoint_dir or DEFAULT_DIR)
+        placed = [(idx, sub_plan,
+                   sharding_plan.sharded_params(key, params, self.mesh,
+                                                sub_plan),
+                   sharding_plan.place_tokens(padded, self.mesh, sub_plan))
+                  for idx, sub_plan, padded in subs]
+        t_sh = self._clock()
+        self.timer.add("shard", (t_sh - t1) * 1e3)
+        with torch.inference_mode():
+            outs = [(idx, sharding_plan.serve_forward(
+                sub_params, shards, cfg, self.mesh, sub_plan))
+                for idx, sub_plan, sub_params, shards in placed]
+            for d in self.mesh.distinct_devices():
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+        t2 = self._clock()
+        self.timer.add("prefill", (t2 - t_sh) * 1e3)
+        severity = torch.zeros((len(tokens), cfg.n_severity),
+                               dtype=torch.float32)
+        for idx, out in outs:
+            severity[torch.from_numpy(idx)] = \
+                out["severity"][:idx.size].float().cpu()
+        t_g = self._clock()
+        self.timer.add("gather", (t_g - t2) * 1e3)
+        return severity, t_g
 
     def swap_to(self, version: str) -> dict:
         raise NotImplementedError("hot weight swap is not ported yet")
@@ -277,9 +372,14 @@ class ContinuousBatcher:
             base = {"served": self.served, "batches": self.batches,
                     "shed": self.shed, "queued": len(self._queue),
                     "maxBatch": self.max_batch, "windowMs": self.window_ms,
-                    "device": str(self.device)}
+                    "device": str(self.device),
+                    "mesh": ("x".join(str(d) for d in self.mesh.dims)
+                             if self.mesh is not None else None)}
         base["meanBatch"] = round(base["served"] / base["batches"], 2) \
             if base["batches"] else 0.0
+        if self.mesh is not None:
+            base["longRouted"] = self.long_routed
+            base["meshRuns"] = dict(self.mesh_runs)
         if self.admission is not None:
             base["admission"] = self.admission.stats()
         base["stages"] = self.timer.snapshot()

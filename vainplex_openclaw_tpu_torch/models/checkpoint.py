@@ -1,4 +1,4 @@
-"""Checkpoint reader for the JAX package's npz + manifest format.
+"""Checkpoint reader and writer for the JAX package's npz + manifest format.
 
 The layout is ``vainplex_openclaw_tpu/models/checkpoint.py``'s: a
 checkpoint is ``step-<n>.npz`` (every parameter leaf as a host array, keyed
@@ -10,7 +10,11 @@ a leaf the manifest marks ``bfloat16`` comes back as a CPU
 ``torch.bfloat16`` tensor with the same bits. Every other leaf comes back as
 the numpy array the file holds, cast to its manifest dtype.
 
-Only the read half is ported here; writing comes with the training slice.
+:func:`save_checkpoint` writes the same layout as the JAX writer: bf16
+leaves as ``uint16`` views with ``bfloat16`` in the manifest, the manifest
+renamed into place before the npz (``latest_step`` keys on the npz, so a
+visible step always has its dtypes), each through a temporary file, and
+steps beyond ``keep`` pruned oldest first.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import tempfile
 from typing import Optional, Union
 
 import numpy as np
 import torch
+
+from .encoder import flatten_tree
 
 _STEP_RE = re.compile(r"^step-(\d+)\.npz$")
 
@@ -71,3 +78,58 @@ def read_checkpoint(ckpt_dir: str) -> dict:
               encoding="utf-8") as f:
         dtypes = json.load(f).get("dtypes", {})
     return {k: _apply_dtype(a, dtypes.get(k)) for k, a in arrays.items()}
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """(array as stored, true dtype name) for one leaf."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.uint16).numpy().copy(), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def save_checkpoint(ckpt_dir: str, tree, step: int, keep: int = 3,
+                    metadata: Optional[dict] = None) -> str:
+    """Write ``tree`` (nested dicts and lists of tensors or arrays) as
+    ``step-<step>.npz`` + manifest, atomically; returns the npz path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays: dict = {}
+    dtypes: dict = {}
+    for key, leaf in flatten_tree(tree).items():
+        arrays[key], dtypes[key] = _to_numpy(leaf)
+    final = os.path.join(ckpt_dir, f"step-{step}.npz")
+    manifest = {"step": step, "n_leaves": len(arrays),
+                "leaves": sorted(arrays), "dtypes": dtypes,
+                "metadata": metadata or {}}
+    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".npz.tmp")
+    mfd, mtmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".json.tmp")
+    try:
+        try:
+            with os.fdopen(mfd, "w") as f:
+                mfd = None  # the file object owns it now
+                json.dump(manifest, f)
+            with os.fdopen(fd, "wb") as f:
+                fd = None
+                np.savez(f, **arrays)
+        finally:
+            for leaked in (fd, mfd):
+                if leaked is not None:
+                    os.close(leaked)
+        os.replace(mtmp, os.path.join(ckpt_dir,
+                                      f"step-{step}.manifest.json"))
+        os.replace(tmp, final)
+    except BaseException:
+        for t in (tmp, mtmp):
+            if os.path.exists(t):
+                os.unlink(t)
+        raise
+    for old in all_steps(ckpt_dir)[:-keep] if keep else []:
+        os.unlink(os.path.join(ckpt_dir, f"step-{old}.npz"))
+        mpath = os.path.join(ckpt_dir, f"step-{old}.manifest.json")
+        if os.path.exists(mpath):
+            os.unlink(mpath)
+    return final

@@ -79,6 +79,23 @@ def param_shapes(cfg: EncoderConfig) -> dict:
     return shapes
 
 
+def init_params(cfg: EncoderConfig, generator: torch.Generator) -> dict:
+    """A random fp32 parameter tree on the CPU with the JAX
+    ``init_params`` shapes and scales: embeddings ``N(0, 0.02²)``, every
+    matrix ``N(0, 1/fan_in)``, norm scales 1. The values are not JAX's
+    (another generator); the parity tests carry JAX's weights across with
+    :func:`params_from_numpy` instead."""
+    flat = {}
+    for key, shape in param_shapes(cfg).items():
+        if key.endswith("/scale"):
+            flat[key] = torch.ones(shape, dtype=torch.float32)
+            continue
+        std = 0.02 if key.startswith("embed/") else 1.0 / math.sqrt(shape[0])
+        flat[key] = torch.randn(shape, generator=generator,
+                                dtype=torch.float32) * std
+    return unflatten_tree(flat)
+
+
 def flatten_tree(tree, prefix: str = "") -> dict:
     """Nested dicts and lists → ``{path_key: leaf}`` with JAX-style keys."""
     if isinstance(tree, dict):
@@ -150,16 +167,25 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x32 * rms * scale).to(x.dtype)
 
 
+def _split_heads(x: torch.Tensor, w: torch.Tensor,
+                 n_heads: int) -> torch.Tensor:
+    """``[B, L, D] @ w`` → contiguous ``[B, H, L, Dh]``."""
+    B, L, D = x.shape
+    return (x @ w.to(x.dtype)).reshape(B, L, n_heads, D // n_heads) \
+        .transpose(1, 2).contiguous()
+
+
+def _merge_heads(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[B, H, L, Dh]`` → ``[B, L, D] @ w``."""
+    B, H, L, Dh = out.shape
+    return out.transpose(1, 2).reshape(B, L, H * Dh) @ w.to(out.dtype)
+
+
 def _attention(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
                impl: str) -> torch.Tensor:
-    B, L, D = x.shape
-    H, Dh = n_heads, D // n_heads
+    Dh = x.shape[-1] // n_heads
     dt = x.dtype
-
-    def heads(w):
-        return (x @ w.to(dt)).reshape(B, L, H, Dh).transpose(1, 2).contiguous()
-
-    q, k, v = heads(p["q"]), heads(p["k"]), heads(p["v"])
+    q, k, v = (_split_heads(x, p[n], n_heads) for n in ("q", "k", "v"))
     if impl == "auto":
         impl = "flash"
     if impl == "flash":
@@ -171,19 +197,35 @@ def _attention(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
         out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
     else:
         raise ValueError(f"unknown attn_impl {impl!r}")
-    out = out.transpose(1, 2).reshape(B, L, D)
-    return out @ p["o"].to(dt)
+    return _merge_heads(out, p["o"])
+
+
+def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The block's second half: ``x + gelu(norm2(x) @ w1) @ w2``."""
+    h = _rmsnorm(x, p["norm2"]["scale"])
+    dt = x.dtype
+    return x + F.gelu(h @ p["mlp"]["w1"].to(dt), approximate="tanh") \
+        @ p["mlp"]["w2"].to(dt)
 
 
 def _block(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
            impl: str) -> torch.Tensor:
     x = x + _attention(_rmsnorm(x, p["norm1"]["scale"]), p["attn"], n_heads,
                        mask, impl)
-    h = _rmsnorm(x, p["norm2"]["scale"])
-    dt = x.dtype
-    h = F.gelu(h @ p["mlp"]["w1"].to(dt), approximate="tanh") \
-        @ p["mlp"]["w2"].to(dt)
-    return x + h
+    return _mlp(x, p)
+
+
+def _outputs(pooled: torch.Tensor, heads: dict) -> dict:
+    """The fp32 heads on the pooled ``[B, D]`` vector."""
+    emb = pooled @ heads["embed_proj"]
+    return {
+        "severity": pooled @ heads["severity"],
+        "keep": pooled @ heads["keep"],
+        "mood": pooled @ heads["mood"],
+        "embedding": emb / (torch.linalg.vector_norm(
+            emb, dim=-1, keepdim=True) + 1e-6),
+        "moe_aux": torch.zeros((), dtype=torch.float32, device=pooled.device),
+    }
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: EncoderConfig) -> dict:
@@ -202,13 +244,4 @@ def forward(params: dict, tokens: torch.Tensor, cfg: EncoderConfig) -> dict:
     x = _rmsnorm(x, params["final_norm"]["scale"])
     denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
     pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
-    heads = params["heads"]
-    emb = pooled @ heads["embed_proj"]
-    return {
-        "severity": pooled @ heads["severity"],
-        "keep": pooled @ heads["keep"],
-        "mood": pooled @ heads["mood"],
-        "embedding": emb / (torch.linalg.vector_norm(
-            emb, dim=-1, keepdim=True) + 1e-6),
-        "moe_aux": torch.zeros((), dtype=torch.float32, device=x.device),
-    }
+    return _outputs(pooled, params["heads"])

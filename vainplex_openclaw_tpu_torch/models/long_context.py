@@ -1,0 +1,91 @@
+"""Long-context path for the encoder: the sequence-parallel forward.
+
+Counterpart of ``vainplex_openclaw_tpu/models/long_context.py``.
+:func:`forward_long` computes what ``models.encoder.forward`` computes, cut
+over a (dp, sp) :class:`~..parallel.mesh.Mesh`: each dp row takes a slice
+of the batch, each sp column a slice of the sequence, and every block's
+attention is ring attention (``parallel/ring_attention.py``), so no device
+holds the full L×L scores or the full sequence of activations. Positions
+come from the positional table sliced per sp shard. The masked mean-pool is
+a sum over the sp shards of each row, gathered on the row's first device,
+where the heads run. Rows run one after another from this one process; on
+distinct cards their kernels overlap, since nothing here synchronises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..parallel.mesh import Mesh
+from ..parallel.plan import gather_rows, split_tokens, tree_to
+from ..parallel.ring_attention import ring_attention_local
+from .encoder import (EncoderConfig, _merge_heads, _mlp, _outputs, _rmsnorm,
+                      _split_heads)
+
+
+def long_context_config(L: int) -> EncoderConfig:
+    """The repository's long-context model (``bench.py``'s
+    ``long_context_config``): a deliberately narrow encoder at sequence
+    length ``L``. ``attn_impl`` stays ``"auto"`` (the kernels), where the
+    JAX sweep pins ``"dense"`` to keep its CPU runs off the Pallas
+    interpreter."""
+    return EncoderConfig(vocab_size=512, seq_len=L, d_model=32, n_heads=2,
+                         n_layers=2, d_ff=64)
+
+
+def _forward_row(params: dict, tokens: list, devices: list,
+                 cfg: EncoderConfig) -> dict:
+    """One dp row: ``tokens[j]`` ``[B, L/sp]`` on ``devices[j]``."""
+    dt = cfg.torch_dtype
+    L_loc = tokens[0].shape[1]
+    ps = [params[d] for d in devices]
+    masks = [t > 0 for t in tokens]
+    xs = [p["embed"]["tok"].to(dt)[t.long()]
+          + p["embed"]["pos"].to(dt)[j * L_loc:(j + 1) * L_loc][None]
+          for j, (p, t) in enumerate(zip(ps, tokens))]
+    for layer in range(cfg.n_layers):
+        blocks = [p["blocks"][layer] for p in ps]
+        hs = [_rmsnorm(x, b["norm1"]["scale"]) for x, b in zip(xs, blocks)]
+        qkv = [[_split_heads(h, b["attn"][n], cfg.n_heads)
+                for h, b in zip(hs, blocks)] for n in ("q", "k", "v")]
+        outs = ring_attention_local(*qkv, masks, devices,
+                                    impl=cfg.attn_impl)
+        xs = [_mlp(x + _merge_heads(o, b["attn"]["o"]), b)
+              for x, o, b in zip(xs, outs, blocks)]
+    head = devices[0]
+    pooled = count = None
+    for x, m, p in zip(xs, masks, ps):
+        x = _rmsnorm(x, p["final_norm"]["scale"])
+        local = (x.float() * m[:, :, None]).sum(dim=1).to(head)
+        n = m.sum(dim=1).to(head)
+        pooled = local if pooled is None else pooled + local
+        count = n if count is None else count + n
+    pooled = pooled / count.clamp_min(1)[:, None].float()
+    return _outputs(pooled, ps[0]["heads"])
+
+
+def forward_long_placed(params: dict, shards: list, cfg: EncoderConfig,
+                        mesh: Mesh, *, dp_axis: str = "dp",
+                        sp_axis: str = "sp") -> dict:
+    """:func:`forward_long` on inputs already on the mesh: ``params`` is
+    ``{device: tree}`` (``parallel.plan.sharded_params``), ``shards[i][j]``
+    the token block of dp row i and sp column j on its grid device
+    (``parallel.plan.place_tokens``)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError("MoE encoder blocks are not ported yet")
+    grid = mesh.grid(dp_axis, sp_axis)
+    outs = [_forward_row(params, row, devs, cfg)
+            for row, devs in zip(shards, grid)]
+    return gather_rows(outs, mesh.devices[0])
+
+
+def forward_long(params: dict, tokens, cfg: EncoderConfig, mesh: Mesh, *,
+                 dp_axis: str = "dp", sp_axis: str = "sp") -> dict:
+    """tokens ``[B, L]`` int (B divisible by dp, L by sp) → the outputs of
+    ``encoder.forward`` (``severity``, ``keep``, ``mood``, ``embedding``,
+    ``moe_aux``) on the mesh's first device, with the batch split over dp
+    and the sequence over sp."""
+    grid = mesh.grid(dp_axis, sp_axis)
+    placed = {d: tree_to(params, d) for d in mesh.distinct_devices()}
+    return forward_long_placed(placed, split_tokens(tokens, grid, True), cfg,
+                               mesh, dp_axis=dp_axis, sp_axis=sp_axis)

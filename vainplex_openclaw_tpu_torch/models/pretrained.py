@@ -7,7 +7,9 @@ this file: reading a data file is not an import. The restore order is the
 JAX one: float16 on disk → float32 (what ``restore_checkpoint`` does
 through its fp32 template) → the ``cast_params`` rule, so the big matrices
 are bf16 and ``norm1``, ``norm2``, ``final_norm`` and ``heads`` stay fp32.
-Training and shipping stay in the JAX package for now.
+:func:`write_pretrained` writes a checkpoint in the same layout
+(``config.json`` + step npz), which both packages load. Training and
+shipping stay in the JAX package for now.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ from __future__ import annotations
 import json
 import os
 import threading
+from dataclasses import asdict
 from typing import Optional
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .checkpoint import latest_step, read_checkpoint
+from .checkpoint import latest_step, read_checkpoint, save_checkpoint
 from .encoder import DTYPES, EncoderConfig, params_from_numpy, unflatten_tree
 
 TINY_CONFIG = EncoderConfig(vocab_size=2048, seq_len=64, d_model=64,
@@ -33,6 +36,24 @@ DEFAULT_DIR = os.path.join(_REPO_ROOT, "vainplex_openclaw_tpu", "models",
 
 _cache: dict = {}
 _cache_lock = threading.Lock()
+
+
+def config_to_manifest(cfg: EncoderConfig) -> dict:
+    """The ``config`` object of ``config.json``: every field, the dtype by
+    name."""
+    return asdict(cfg)
+
+
+def write_pretrained(ckpt_dir: str, cfg: EncoderConfig, params: dict,
+                     step: int = 1) -> None:
+    """Write ``params`` as step ``step`` and ``config.json``
+    (``{"config": ..., "eval": {}}``) into ``ckpt_dir``: the layout
+    :func:`load_pretrained` and the JAX ``load_pretrained`` read."""
+    save_checkpoint(ckpt_dir, params, step=step)
+    tmp = os.path.join(ckpt_dir, "config.json.tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump({"config": config_to_manifest(cfg), "eval": {}}, f)
+    os.replace(tmp, os.path.join(ckpt_dir, "config.json"))
 
 
 def config_from_manifest(d: dict) -> EncoderConfig:

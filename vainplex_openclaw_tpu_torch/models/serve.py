@@ -8,9 +8,13 @@ builds one from the shipped triage encoder: continuous batching by default,
 or the one-shot path behind ``continuousBatching: false``, kept as the
 equivalence oracle.
 
-This slice serves on one device. A serve config that asks for mesh serving,
-another plan family or the model registry raises ``NotImplementedError``
-rather than being ignored.
+Mesh serving is ported for one plan family: ``meshServing: true`` with
+``planFamily: "encoder_validator_long"`` (ring attention over a
+``meshAxes: ["dp", "sp"]`` grid, rows at or above
+``longContext.thresholdTokens`` real tokens routed to it). The grid's
+devices follow ``device``: visible cards for CUDA, repeated ``cpu`` for the
+CPU. Any other plan family, mesh serving of the default family, and the
+model registry raise ``NotImplementedError`` rather than being ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ..config.loader import deep_merge
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import _factor, available_devices, cached_mesh
 from ..resilience.admission import AdmissionController
 from .batching import ContinuousBatcher, render_verdict
 from .encoder import forward
@@ -30,8 +35,8 @@ from .pretrained import available, load_pretrained
 from .tokenizer import encode_texts
 
 # The JAX package's serve defaults, key for key, so one ``serve`` config
-# section reads the same on both. The mesh, plan-family and registry keys
-# must keep these values here (see _check_supported).
+# section reads the same on both (see _check_supported for what the port
+# serves).
 SERVE_DEFAULTS = {
     "continuousBatching": True,
     "maxBatch": 32,
@@ -65,12 +70,19 @@ def _extract_message(prompt: str) -> str:
     return body.strip()
 
 
+MESH_FAMILIES = ("encoder_validator_long",)
+
+
 def _check_supported(scfg: dict) -> None:
+    family = scfg.get("planFamily", "encoder_validator")
     if scfg.get("meshServing"):
-        raise NotImplementedError("serve.meshServing is not ported yet")
-    if scfg.get("planFamily", "encoder_validator") != "encoder_validator":
+        if family not in MESH_FAMILIES:
+            raise NotImplementedError(
+                f"serve.meshServing with planFamily {family!r} is not ported "
+                f"yet (ported: {list(MESH_FAMILIES)})")
+    elif family != "encoder_validator":
         raise NotImplementedError(
-            f"serve.planFamily {scfg['planFamily']!r} is not ported yet")
+            f"serve.planFamily {family!r} is not ported yet")
     reg = scfg.get("modelRegistry", False)
     if (isinstance(reg, dict) and reg.get("enabled", True)) or reg is True:
         raise NotImplementedError("serve.modelRegistry is not ported yet")
@@ -84,6 +96,36 @@ _batchers: dict = {}
 _batchers_lock = threading.Lock()
 
 
+def _mesh_key(serve_cfg: dict):
+    """Hashable mesh identity for the batcher registry: two mesh configs
+    (shape, axes, plan family, threshold) never share a batcher. None when
+    mesh serving is off."""
+    if not serve_cfg.get("meshServing"):
+        return None
+    shape = serve_cfg.get("meshShape")
+    return (tuple(int(s) for s in shape) if shape is not None else "auto",
+            tuple(serve_cfg.get("meshAxes") or ("dp", "tp")),
+            bool(serve_cfg.get("searchedPlans", True)),
+            str(serve_cfg.get("planFamily", "encoder_validator")),
+            int((serve_cfg.get("longContext") or {})
+                .get("thresholdTokens", 1024)))
+
+
+def _resolve_mesh(serve_cfg: dict, device: torch.device):
+    """The Mesh for the serving config on ``device``'s type, or None when
+    mesh serving is off. ``meshShape: null`` takes every device of the
+    type: one axis whole, two split by ``_factor``."""
+    if not serve_cfg.get("meshServing"):
+        return None
+    axes = tuple(serve_cfg.get("meshAxes") or ("dp", "tp"))
+    shape = serve_cfg.get("meshShape")
+    if shape is None:
+        n = len(available_devices(device))
+        shape = (n,) if len(axes) == 1 else \
+            _factor(n) + (1,) * (len(axes) - 2)
+    return cached_mesh(tuple(int(s) for s in shape), axes, device.type)
+
+
 def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
                    device: DeviceLike = None) -> ContinuousBatcher:
     dev = resolve_device(device)
@@ -91,7 +133,8 @@ def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
     _check_supported(scfg)
     key = (checkpoint_dir, str(dev), scfg["maxBatch"],
            scfg["windowMs"],
-           tuple(sorted((scfg.get("admission") or {}).items())))
+           tuple(sorted((scfg.get("admission") or {}).items())),
+           _mesh_key(scfg))
     with _batchers_lock:
         batcher = _batchers.get(key)
         if batcher is None:
@@ -100,7 +143,11 @@ def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
                 window_ms=scfg["windowMs"],
                 admission=AdmissionController.from_config(
                     scfg.get("admission")),
-                device=dev)
+                device=dev, mesh=_resolve_mesh(scfg, dev),
+                plan_family=scfg.get("planFamily", "encoder_validator"),
+                searched_plans=scfg.get("searchedPlans", True),
+                long_threshold=(scfg.get("longContext") or {})
+                .get("thresholdTokens", 1024))
             _batchers[key] = batcher
         return batcher
 

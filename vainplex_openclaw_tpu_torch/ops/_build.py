@@ -39,6 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "flash_attention_stats_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
         "kernel_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -1,18 +1,26 @@
-// Exact attention forward on Hopper (sm_90a), normalized output.
+// Exact attention forward on Hopper (sm_90a): the normalized output (K1)
+// and the stats mode that ring attention merges (K2).
 //
 // Replaces the TPU kernel vainplex_openclaw_tpu/ops/flash_attention.py::
-// _flash_kernel in normalized mode (return_stats=False). Same arithmetic:
-// per key tile, s = (q . k^T in fp32) * 1/sqrt(Dh) + bias[b, key], a causal
-// key after the query gets -1e30 in place of its score, an online softmax
-// keeps m, l and acc in fp32, p is rounded to the input dtype before the PV
-// product, and out = acc / max(l, 1e-30) in the input dtype.
+// _flash_kernel in both of its modes. Same arithmetic: per key tile,
+// s = (q . k^T in fp32) * 1/sqrt(Dh) + bias[b, key], a causal key after
+// the query gets -1e30 in place of its score, an online softmax keeps m, l
+// and acc in fp32, and p is rounded to the input dtype before the PV
+// product. K1 (return_stats=False) writes out = acc / max(l, 1e-30) in the
+// input dtype. K2 (return_stats=True) writes the unnormalized fp32 acc
+// [B,H,Lq,Dh] and the running max m and unclamped sum l [B,H,Lq] in fp32;
+// the TPU kernel's 128-lane broadcast of m and l is a layout of its VMEM
+// scratch and has no counterpart here. The two modes share one template
+// and differ only in the epilogue (the STATS flag).
 //
-// Bound on an H100. At the serve path's shape (B=32, H=4, L=64, Dh=16,
-// bf16) the function must move q, k, v and out once, 4*B*H*L*Dh*2 bytes
+// Bound on an H100. K1 at the short serve path's shape (B=32, H=4, L=64,
+// Dh=16, bf16) must move q, k, v and out once, 4*B*H*L*Dh*2 bytes
 // (~1.05 MB) plus the fp32 bias row (8 KB): ~0.32 us at 3.35 TB/s. Its
 // 4*B*H*L*L*Dh operations (~33.5 MFLOP) take ~0.03 us at the bf16 tensor
-// rate. So the work is bound by bytes, and at this size in practice by
-// the launch itself.
+// rate. So K1 there is bound by bytes, and in practice by the launch. K2
+// at the long serve path's shape (B=8, H=2, L=16384, Dh=16, bf16) does
+// 4*B*H*L*L*Dh = 2.75e11 operations, 0.278 ms at 989 TFLOP/s, against
+// ~44.6 MB of q, k, v, acc, m, l and bias (0.013 ms): bound by operations.
 //
 // What the design does about it. One thread block per (batch*head,
 // 64-row query tile); each of its 64 threads owns one query row, with q
@@ -21,16 +29,17 @@
 // memory in their input dtype by 16-byte copies, and every thread reads
 // the same key at the same time (a broadcast, no bank conflict). Each
 // input byte is read from device memory once per query tile (once in all
-// when Lq <= 64, as on the serve path) and each output byte is written
-// once, so the kernel moves the least bytes the function allows; the
-// scores never leave registers. The dot products run on the CUDA cores,
-// not the tensor cores: at Dh=16 and L=64 the operations are two orders
-// below the bytes. The kernel masks its own ragged edge (keys at or past
-// Lk are skipped, query rows at or past Lq idle) instead of the TPU's
-// padding, and skips key tiles wholly after a causal query tile.
-// wgmma, TMA and double buffering are left for later work. At Dh=128 in
-// fp32, q and acc take 256 registers and spill; no path of the repo runs
-// that shape.
+// when Lq <= 64, as on the short path) and each output byte is written
+// once; the scores never leave registers. The dot products run on the
+// CUDA cores, not the tensor cores: right for K1's byte-bound shape, and
+// the reason K2, whose shape is bound by operations, runs far from its
+// bound (mma/wgmma is the later redesign). The kernel masks its own ragged
+// edge (keys at or past Lk contribute exactly 0, query rows at or past Lq
+// idle) instead of the TPU's padding, and skips key tiles wholly after a
+// causal query tile. So in K2 a row whose every key is masked has m = -1e30
+// (finite) and l = the number of real keys it walked, where the TPU kernel
+// counts its padded keys too. At Dh=128 in fp32, q and acc take 256
+// registers and spill; no path of the repo runs that shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,12 +76,15 @@ __host__ __device__ constexpr int block_n() {
   return DH * static_cast<int>(sizeof(T)) <= 256 ? 64 : 32;
 }
 
-template <typename T, int DH, bool CAUSAL>
+// out is T [B,H,Lq,Dh] (K1) or fp32 acc [B,H,Lq,Dh] (K2); m_out and l_out
+// are fp32 [B,H,Lq] in K2 and unused in K1.
+template <typename T, int DH, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(kBlockM)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int H, int Lq, int Lk, int n_qtiles,
-                     float scale) {
+                     void* __restrict__ out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int H, int Lq, int Lk,
+                     int n_qtiles, float scale) {
   constexpr int BN = block_n<T, DH>();
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16 B
   constexpr int kRowVecs = DH / kVec;
@@ -175,21 +187,30 @@ __global__ void __launch_bounds__(kBlockM)
     }
   }
 
-  if (active) {
+  if (!active) return;
+  const size_t orow = static_cast<size_t>(bh) * Lq + row;
+  if constexpr (STATS) {
+    float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + orow * DH);
+#pragma unroll
+    for (int i = 0; i < DH / 4; ++i)
+      dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    m_out[orow] = m;
+    l_out[orow] = l;
+  } else {
     const float lc = fmaxf(l, 1e-30f);
     __align__(16) T o[DH];
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[d] = from_float<T>(acc[d] / lc);
-    uint4* dst = reinterpret_cast<uint4*>(out + (static_cast<size_t>(bh) * Lq + row) * DH);
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(out) + orow * DH);
 #pragma unroll
     for (int i = 0; i < kRowVecs; ++i) dst[i] = reinterpret_cast<const uint4*>(o)[i];
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   void* out, int B, int H, int Lq, int Lk, int causal,
-                   cudaStream_t stream) {
+                   void* out, float* m_out, float* l_out, int B, int H, int Lq,
+                   int Lk, int causal, cudaStream_t stream) {
   const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -200,46 +221,73 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const float* bt = static_cast<const float*>(bias);
-  T* ot = static_cast<T*>(out);
   if (causal) {
-    flash_fwd_kernel<T, DH, true><<<grid, block, 0, stream>>>(qt, kt, vt, bt, ot, H, Lq, Lk,
-                                                              n_qtiles, scale);
+    flash_fwd_kernel<T, DH, true, STATS><<<grid, block, 0, stream>>>(
+        qt, kt, vt, bt, out, m_out, l_out, H, Lq, Lk, n_qtiles, scale);
   } else {
-    flash_fwd_kernel<T, DH, false><<<grid, block, 0, stream>>>(qt, kt, vt, bt, ot, H, Lq, Lk,
-                                                               n_qtiles, scale);
+    flash_fwd_kernel<T, DH, false, STATS><<<grid, block, 0, stream>>>(
+        qt, kt, vt, bt, out, m_out, l_out, H, Lq, Lk, n_qtiles, scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool STATS>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void* bias,
-                        void* out, int B, int H, int Lq, int Lk, int Dh, int causal,
-                        cudaStream_t stream) {
+                        void* out, float* m_out, float* l_out, int B, int H, int Lq,
+                        int Lk, int Dh, int causal, cudaStream_t stream) {
   switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, bias, out, B, H, Lq, Lk, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, out, B, H, Lq, Lk, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, B, H, Lq, Lk, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, out, B, H, Lq, Lk, causal, stream);
-    default: return cudaErrorInvalidValue;
+    case 16:
+      return launch<T, 16, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
+    case 32:
+      return launch<T, 32, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
+    case 64:
+      return launch<T, 64, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
+    case 128:
+      return launch<T, 128, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool STATS>
+int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
+             void* m_out, void* l_out, int B, int H, int Lq, int Lk, int Dh, int dtype,
+             int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  if (causal && Lq != Lk) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
+  switch (dtype) {
+    case 0:
+      return dispatch_dh<float, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal, s);
+    case 1:
+      return dispatch_dh<__nv_bfloat16, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh,
+                                               causal, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, out: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh], all contiguous, in one dtype
-// (0 = fp32, 1 = bf16); bias: [B, Lk] fp32. Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success).
+// K1. q, out: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh], all contiguous, in one
+// dtype (0 = fp32, 1 = bf16); bias: [B, Lk] fp32. Launches on `stream` and
+// returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int B, int H, int Lq,
                                    int Lk, int Dh, int dtype, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
-  if (causal && Lq != Lk) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_dh<float>(q, k, v, bias, out, B, H, Lq, Lk, Dh, causal, s);
-    case 1: return dispatch_dh<__nv_bfloat16>(q, k, v, bias, out, B, H, Lq, Lk, Dh, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, bias, out, nullptr, nullptr, B, H, Lq, Lk, Dh, dtype,
+                         causal, stream);
+}
+
+// K2. As K1, but writes acc: [B, H, Lq, Dh] fp32 (unnormalized) and m, l:
+// [B, H, Lq] fp32, all contiguous.
+extern "C" int flash_attention_stats_fwd(const void* q, const void* k, const void* v,
+                                         const void* bias, void* acc, void* m, void* l,
+                                         int B, int H, int Lq, int Lk, int Dh, int dtype,
+                                         int causal, void* stream) {
+  return dispatch<true>(q, k, v, bias, acc, m, l, B, H, Lq, Lk, Dh, dtype, causal, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

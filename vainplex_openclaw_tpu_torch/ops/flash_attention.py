@@ -1,7 +1,7 @@
-"""Exact attention: the hand-written CUDA kernel and its plain version.
+"""Exact attention: the hand-written CUDA kernels and their plain version.
 
 Counterpart of ``vainplex_openclaw_tpu/ops/flash_attention.py::
-flash_attention`` in normalized mode. The same layout and semantics:
+flash_attention`` in both modes. The same layout and semantics:
 
 - q ``[B, H, Lq, Dh]``, k and v ``[B, H, Lk, Dh]``, bf16 or fp32;
 - an optional ``kv_mask`` ``[B, Lk]`` bool, turned into one fp32 bias row
@@ -9,17 +9,25 @@ flash_attention`` in normalized mode. The same layout and semantics:
   ``-inf``) that every head shares;
 - scores ``(q·kᵀ in fp32) * 1/√Dh + bias``; under ``causal`` a key after the
   query gets ``-1e30`` in place of its score;
-- an online softmax with running max, sum and accumulator in fp32, ``p``
-  rounded to v's dtype before the PV product, and
-  ``out = acc / max(l, 1e-30)`` in q's dtype.
+- an online softmax with running max, sum and accumulator in fp32, and
+  ``p`` rounded to v's dtype before the PV product;
+- normalized mode (kernel K1): ``out = acc / max(l, 1e-30)`` in q's dtype;
+- stats mode (``return_stats=True``, kernel K2): the tuple ``(acc, m, l)``,
+  the unnormalized fp32 accumulator ``[B, H, Lq, Dh]`` and the running max
+  and unclamped sum ``[B, H, Lq]`` in fp32, which ring attention merges
+  across rotations.
 
 A fully masked row (every zero-pad row the batcher adds) has every score at
 ``-1e30``: each ``p`` is ``exp(0) = 1`` and the row averages V. It stays
-finite; with ``-inf`` it would be NaN.
+finite (m is ``-1e30``); with ``-inf`` it would be NaN. Its ``l`` counts the
+real keys. The JAX wrapper pads a ragged Lk to its block multiple with
+masked keys and counts those too; no verdict can see the difference, since
+only fully masked rows differ and the batcher drops them.
 
 On a CPU tensor :func:`flash_attention` computes the plain version
-(:func:`flash_attention_reference`). On a CUDA tensor it launches the kernel
-in ``csrc/flash_attention.cu`` and adds one to :data:`launches`; if the
+(:func:`flash_attention_reference`, :func:`flash_attention_stats_reference`).
+On a CUDA tensor it launches the kernel in ``csrc/flash_attention.cu`` and
+adds one to :data:`launches` (K1) or :data:`stats_launches` (K2); if the
 library cannot be built or loaded, or the launch fails, it raises. There is
 no fallback from the kernel to the plain version. The TPU block table
 (``default_block``) has no counterpart: the kernel's tiles are its own
@@ -38,9 +46,11 @@ NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset. Only the CUDA branch of
-# ``flash_attention`` adds to it; tools set it to 0 before a run they read.
+# Kernel launches since the last reset: K1 (normalized) and K2 (stats).
+# Only the CUDA branch of ``flash_attention`` adds to them; tools set them
+# to 0 before a run they read.
 launches = 0
+stats_launches = 0
 _launch_lock = threading.Lock()
 
 
@@ -81,7 +91,10 @@ def _bias(kv_mask: Optional[torch.Tensor], B: int, Lk: int,
     return torch.where(valid, 0.0, NEG_INF).to(torch.float32).contiguous()
 
 
-def _reference(q, k, v, bias, causal: bool) -> torch.Tensor:
+def _stats(q, k, v, bias, causal: bool):
+    """(acc, m, l) in one dense pass: the quantities of the JAX package's
+    ``_dense_stats_ref`` with the kernel's precision (fp32 scores and
+    accumulator, as the Pallas kernel's ``preferred_element_type``)."""
     Dh = q.shape[-1]
     s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
     s = s + bias[:, None, None, :]
@@ -93,6 +106,11 @@ def _reference(q, k, v, bias, causal: bool) -> torch.Tensor:
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     acc = p.to(v.dtype).float() @ v.float()
+    return acc, m, l
+
+
+def _reference(q, k, v, bias, causal: bool) -> torch.Tensor:
+    acc, _, l = _stats(q, k, v, bias, causal)
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
@@ -100,44 +118,75 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               kv_mask: Optional[torch.Tensor] = None, *,
                               causal: bool = False) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: one dense pass with the
-    kernel's arithmetic (fp32 scores and softmax, ``p`` rounded to v's dtype
-    before PV). The CPU path and the tests use it; on the card only checks
-    that hold the kernel against it do."""
+    """The plain PyTorch version of K1: one dense pass with the kernel's
+    arithmetic (fp32 scores and softmax, ``p`` rounded to v's dtype before
+    PV). The CPU path and the tests use it; on the card only checks that
+    hold the kernel against it do."""
     _check(q, k, v, kv_mask, causal)
     B, Lk = q.shape[0], k.shape[2]
     return _reference(q, k, v, _bias(kv_mask, B, Lk, q.device), causal)
 
 
+def flash_attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor,
+                                    kv_mask: Optional[torch.Tensor] = None,
+                                    *, causal: bool = False):
+    """The plain PyTorch version of K2: ``(acc, m, l)``, acc fp32
+    ``[B, H, Lq, Dh]`` unnormalized, m and l fp32 ``[B, H, Lq]``, l
+    unclamped."""
+    _check(q, k, v, kv_mask, causal)
+    B, Lk = q.shape[0], k.shape[2]
+    acc, m, l = _stats(q, k, v, _bias(kv_mask, B, Lk, q.device), causal)
+    return acc, m[..., 0], l[..., 0]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None, *,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, return_stats: bool = False):
     """q ``[B, H, Lq, Dh]``, k and v ``[B, H, Lk, Dh]``, kv_mask ``[B, Lk]``
-    bool or None → ``[B, H, Lq, Dh]`` in q's dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    global launches
+    bool or None → ``[B, H, Lq, Dh]`` in q's dtype, or with
+    ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    global launches, stats_launches
     _check(q, k, v, kv_mask, causal)
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     bias = _bias(kv_mask, B, Lk, q.device)
     if q.device.type == "cpu":
+        if return_stats:
+            acc, m, l = _stats(q, k, v, bias, causal)
+            return acc, m[..., 0], l[..., 0]
         return _reference(q, k, v, bias, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     from ._build import load_library
 
     lib = load_library("flash_attention")
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, Lq, Lk, Dh, _DTYPE_CODES[q.dtype],
-            int(causal), stream)
+        if return_stats:
+            acc = torch.empty((B, H, Lq, Dh), dtype=torch.float32,
+                              device=q.device)
+            m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+            l = torch.empty_like(m)
+            err = lib.flash_attention_stats_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Lq, Lk, Dh,
+                _DTYPE_CODES[q.dtype], int(causal), stream)
+        else:
+            out = torch.empty_like(q)
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), B, H, Lq, Lk, Dh, _DTYPE_CODES[q.dtype],
+                int(causal), stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} "
             f"({lib.kernel_error_string(err).decode()})")
     with _launch_lock:
-        launches += 1
-    return out
+        if return_stats:
+            stats_launches += 1
+        else:
+            launches += 1
+    return (acc, m, l) if return_stats else out
