@@ -16,11 +16,18 @@ non-zero before the last line is printed.
 1. device: the card's name and power limit (``nvidia-smi``), or exit 1
    without a CUDA device;
 2. build: ``nvcc`` builds every kernel library from the sources in
-   ``vainplex_openclaw_tpu_torch/ops/csrc``;
+   ``vainplex_openclaw_tpu_torch/ops/csrc``; each instantiation's registers
+   and spills from ``ptxas``, at most 32 instantiations, no spills in the
+   bf16 kernels at Dh <= 64;
 3. kernels: each kernel against its plain version on the card, in bf16
-   (tolerance 3e-2, the JAX suite's own bf16 bound) and fp32 (1e-4: the two
-   sum in another order), over rows with at least one valid key, and every
-   row finite;
+   (tolerance 3e-2, the JAX suite's own bf16 bound, absolute and relative
+   to each row's largest value) and fp32 (1e-4 absolute: the two sum in
+   another order), over every row (a row with no valid key averages V),
+   every row finite; the cases reach the key tile's edges (Lk 63/64/65,
+   127/128/129), query counts off the 64-row tile, causal at L=130, masks
+   valid only in the last key tile and masks with holes, and L=16384; at
+   2048 keys or more the plain version without its first key tile must
+   fail the same check (``CONTROL_MIN_LK``);
 4. forward: the port's forward on the card against the same forward on the
    CPU (the plain attention), on the shipped weights over 512 seeded texts
    and on random weights at ``EncoderConfig()`` width;
@@ -31,7 +38,8 @@ non-zero before the last line is printed.
 6. timing: the kernel, its plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) at
    the serve path's shape, with CUDA events, beside the least time the card
-   could take for the same work.
+   could take for the same work (``attention_bound``: the guide's bound and
+   the floor its exponentials set).
 
 The long-context family (``serve.planFamily: "encoder_validator_long"``,
 ring attention over a (dp, sp) grid, kernel K2: attention in stats mode)
@@ -39,7 +47,8 @@ is driven after it:
 
 7. kernels (K2): K2 against its plain version on the card in bf16 and
    fp32 at the ring's shapes (Dh 16 and 32, causal, Lq != Lk, L=100,
-   L=16384), over rows with a valid key: m as an absolute difference, l
+   L=16384) and the tile-edge and mask cases of phase 3, over rows with a
+   valid key: m as an absolute difference, l
    and the unnormalized acc relative to the plain l; every value finite,
    and a row with no valid key has m = -1e30 and l = its key count;
 8. ring: ``forward_long`` at ``long_context_config(16384)`` on a (1, 4)
@@ -54,7 +63,11 @@ is driven after it:
    card's busy share;
 10. timing (K2): K2, its plain version and ``scaled_dot_product_attention``
     (the normalized output, the nearest library call) at the long serve
-    shape, beside the bound.
+    shape, beside the bound; K1 on the same inputs beside SDPA, which
+    computes exactly K1's function there; the profiler's device time of
+    each in short windows, with the records it kept; and the card's own
+    ex2 rate (``sfu_rates``), which gives the exponential floor measured
+    in this run beside the one from the published rate.
 
 Then one line ``{"kernels": [...]}`` listing K1 and K2 and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -64,6 +77,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -74,6 +88,12 @@ import time
 # bf16 tensor-core operations per second.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
+# Exponentials per second of the H100 SXM's special function units: 132 SMs
+# x 16 ex2 per clock x ~1.83 GHz, as FlashAttention-3 (Shah et al., 2024)
+# gives it. Attention needs one per score, so at Dh=16 this sets its floor:
+# an estimate from a published rate; sfu_rates measures the card's own.
+SFU_EXP_PER_S = 3.9e12
+SFU_PROBE_CHAINS = 8  # kChains in csrc/sfu_probe.cu
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 SOURCE = "vainplex_openclaw_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = "vainplex_openclaw_tpu/ops/flash_attention.py:130"
@@ -82,27 +102,56 @@ REPLACES_STATS = "vainplex_openclaw_tpu/ops/flash_attention.py:180"
 LONG_L = 16384  # long_context_config's length on the card
 LONG_THRESHOLD = 1024  # serve.longContext.thresholdTokens, its default
 
-# (name, B, H, Lq, Lk, Dh, causal, masked), for K2 and, below, K1
+# (name, B, H, Lq, Lk, Dh, causal, mask) for K2 and, below, K1. mask is
+# False (every key valid), "prefix" (a valid prefix per batch element, the
+# last quarter of the batch fully masked: the batcher's zero-pad rows),
+# "last_tile" (valid keys only in the last 64-key tile) or "holes" (valid
+# keys scattered, not a prefix); see make_qkv.
 STATS_CASES = [
-    ("ring_shard_sp4", 8, 2, 4096, 4096, 16, False, True),
-    ("ring_dh32", 4, 2, 2048, 2048, 32, False, True),
-    ("causal", 2, 2, 256, 256, 32, True, True),
-    ("cross_length", 2, 2, 96, 200, 64, False, True),
-    ("unaligned_100", 3, 2, 100, 100, 16, False, True),
+    ("ring_shard_sp4", 8, 2, 4096, 4096, 16, False, "prefix"),
+    ("ring_dh32", 4, 2, 2048, 2048, 32, False, "prefix"),
+    ("causal", 2, 2, 256, 256, 32, True, "prefix"),
+    ("cross_length", 2, 2, 96, 200, 64, False, "prefix"),
+    ("unaligned_100", 3, 2, 100, 100, 16, False, "prefix"),
+    ("keys_63", 3, 2, 70, 63, 16, False, "prefix"),
+    ("keys_65", 3, 2, 70, 65, 16, False, "prefix"),
+    ("keys_129", 3, 2, 100, 129, 32, False, "prefix"),
+    ("causal_130", 4, 2, 130, 130, 16, True, "prefix"),
+    ("causal_130_dh128", 4, 2, 130, 130, 128, True, "prefix"),
+    ("last_tile_only", 4, 2, 96, 200, 16, False, "last_tile"),
+    ("holes", 4, 2, 150, 150, 16, False, "holes"),
     ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
-    ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, True),
+    ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, "prefix"),
 ]
 
 KERNEL_CASES = [
-    ("serve_path", 32, 4, 64, 64, 16, False, True),
-    ("encoder_default_width", 32, 8, 128, 128, 32, False, True),
-    ("mfu_shape", 4, 16, 2048, 2048, 64, False, True),
+    ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
+    ("encoder_default_width", 32, 8, 128, 128, 32, False, "prefix"),
+    ("mfu_shape", 4, 16, 2048, 2048, 64, False, "prefix"),
     ("causal", 2, 4, 256, 256, 32, True, False),
-    ("causal_masked", 2, 4, 96, 96, 16, True, True),
-    ("cross_length", 2, 4, 96, 200, 64, False, True),
-    ("unaligned_100", 3, 4, 100, 100, 16, False, True),
-    ("head_dim_128", 2, 2, 130, 130, 128, False, True),
+    ("causal_masked", 2, 4, 96, 96, 16, True, "prefix"),
+    ("cross_length", 2, 4, 96, 200, 64, False, "prefix"),
+    ("unaligned_100", 3, 4, 100, 100, 16, False, "prefix"),
+    ("head_dim_128", 2, 2, 130, 130, 128, False, "prefix"),
+    ("keys_63", 4, 2, 63, 63, 16, False, "prefix"),
+    ("keys_64", 4, 2, 64, 64, 16, False, "prefix"),
+    ("keys_65", 4, 2, 65, 65, 16, False, "prefix"),
+    ("keys_127", 4, 2, 100, 127, 32, False, "prefix"),
+    ("keys_128", 4, 2, 100, 128, 32, False, "prefix"),
+    ("keys_129", 4, 2, 100, 129, 64, False, "prefix"),
+    ("rows_not_tile_multiple", 3, 2, 77, 64, 16, False, "prefix"),
+    ("causal_130", 4, 2, 130, 130, 16, True, "prefix"),
+    ("causal_130_dh128", 4, 2, 130, 130, 128, True, "prefix"),
+    ("last_tile_only", 4, 2, 96, 200, 16, False, "last_tile"),
+    ("holes", 4, 2, 150, 150, 32, False, "holes"),
+    ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
+    ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, "prefix"),
 ]
+# K1 cases with at least this many keys (and not causal) also check a
+# control: the plain version without the first 64-key tile, as a kernel
+# that skipped a stage of its ring would compute. It must fail the case's
+# check, or the check could not see such a fault at that length.
+CONTROL_MIN_LK = 2048
 
 _SUBJECTS = ("deploy", "api-server", "billing-job", "auth-service", "cache",
              "db-migration", "ingress", "webhook", "release", "audit")
@@ -118,6 +167,56 @@ _TEMPLATES = (
     "reading file {n} ({i} bytes)",
     "what does the {n} flag do again?",
 )
+
+
+def attention_bound(B, H, Lq, Lk, Dh, elem_bytes, stats):
+    """The least time the card could take for one attention launch.
+
+    Bytes: q, k, v read once in their dtype (``elem_bytes``), the fp32 bias
+    row [B, Lk], and the output written once: in q's dtype (K1) or, with
+    ``stats`` (K2), the fp32 acc and the fp32 m and l. Operations: 4 per
+    score and head dimension (q . k and p . v). ``bound_ms`` is the larger
+    of bytes over HBM_BYTES_PER_S and operations over PEAK_BF16_OPS_PER_S,
+    the guide's bound; ``exp_floor_ms`` is the one exponential per score
+    over SFU_EXP_PER_S, a floor the guide's bound does not see."""
+    out_bytes = (B * H * Lq * Dh * 4 + 2 * B * H * Lq * 4 if stats
+                 else B * H * Lq * Dh * elem_bytes)
+    n_bytes = ((B * H * Lq * Dh + 2 * B * H * Lk * Dh) * elem_bytes
+               + B * Lk * 4 + out_bytes)
+    n_ops = 4 * B * H * Lq * Lk * Dh
+    n_exp = B * H * Lq * Lk
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": n_ops, "exponentials": n_exp,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "exp_floor_ms": n_exp / SFU_EXP_PER_S * 1e3}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_KERNEL_ARGS = re.compile(r"(flash_fwd_\w+?)ILi(\d+)ELb([01])ELb([01])E")
+
+
+def ptxas_report(log: str) -> list:
+    """One entry per kernel instantiation in ``nvcc -Xptxas=-v`` output:
+    its template (kernel, Dh, causal, stats), registers and spill bytes."""
+    chunks = _PTXAS_ENTRY.split(log)
+    report = []
+    for name, body in zip(chunks[1::2], chunks[2::2]):
+        args = _KERNEL_ARGS.search(name)
+        spill = _PTXAS_SPILL.search(body)
+        regs = _PTXAS_REGS.search(body)
+        report.append({
+            "kernel": args.group(1) if args else name,
+            "dh": int(args.group(2)) if args else None,
+            "causal": args.group(3) == "1" if args else None,
+            "stats": args.group(4) == "1" if args else None,
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None})
+    return report
 
 
 class SmokeFailure(Exception):
@@ -148,21 +247,47 @@ def as_prompt(text: str) -> str:
             f"\n\nMESSAGE:\n{text}\n\nIdentify issues in these categories.")
 
 
-def make_qkv(rng, B, H, Lq, Lk, Dh, dtype, masked, device):
+def make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind, device):
+    """Seeded q, k, v [B, H, L, Dh] and a kv_mask [B, Lk] of ``mask_kind``
+    (see ``STATS_CASES``), or None when it is False. Every kind keeps the
+    last quarter of the batch fully masked and, when B > 2, the first batch
+    element fully valid, as the batcher's rows are."""
     import numpy as np
     import torch
 
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(device=device, dtype=dtype)
                for s in ((B, H, Lq, Dh), (B, H, Lk, Dh), (B, H, Lk, Dh)))
-    if not masked:
+    if not mask_kind:
         return q, k, v, None
-    lengths = rng.integers(1, Lk + 1, size=B)
-    lengths[-(B // 4 or 1):] = 0  # the batcher's zero-pad rows
-    if B > 2:
-        lengths[0] = Lk
-    mask = torch.from_numpy(np.arange(Lk)[None, :] < lengths[:, None])
-    return q, k, v, mask.to(device)
+    keys = np.arange(Lk)[None, :]
+    if mask_kind == "prefix":
+        mask = keys < rng.integers(1, Lk + 1, size=B)[:, None]
+    elif mask_kind == "last_tile":
+        mask = np.broadcast_to(keys >= (Lk - 1) // 64 * 64, (B, Lk)).copy()
+    elif mask_kind == "holes":
+        mask = rng.random((B, Lk)) < 0.5
+        mask[:, 0] = False  # a hole before the first valid key
+    else:
+        raise ValueError(f"unknown mask kind {mask_kind!r}")
+    mask[-(B // 4 or 1):] = False  # the batcher's zero-pad rows
+    if B > 2 and mask_kind == "prefix":
+        mask[0] = True
+    return q, k, v, torch.from_numpy(mask).to(device)
+
+
+def k1_errors(out, ref, dt_name: str):
+    """(max |out - ref|, the largest over rows of max |out - ref| / max
+    |ref| in the row, the error the case is held to). bf16 keeps 8 bits of
+    each value, so bf16 is held per row, relative to the row's scale: a row
+    that averages 16384 keys has |ref| ~ 0.01, where an absolute 3e-2 would
+    pass a kernel that dropped a key tile. fp32 is held absolutely, since
+    its error is ~1e-6 and a dropped tile moves a value by ~1e-3."""
+    d = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(dim=-1).clamp_min(1e-30)
+    err = float(d.max())
+    rel = float((d.amax(dim=-1) / scale).max())
+    return err, rel, rel if dt_name == "bfloat16" else err
 
 
 def valid_rows(mask, B, Lq, Lk, causal, device):
@@ -204,12 +329,31 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     results = _build.build()
+    libraries = {}
     for name, r in results.items():
         print(f"[ptxas {name}]\n{r['ptxas']}", file=sys.stderr, flush=True)
+        report = ptxas_report(r["ptxas"])
+        registers: dict = {}
+        for e in report:
+            registers.setdefault(e["kernel"], {}).setdefault(
+                str(e["dh"]), []).append(e["registers"])
+        libraries[name] = {
+            "seconds": round(r["seconds"], 3), "cached": r["cached"],
+            "instantiations": len(report),
+            "registers": {k: {dh: [min(v), max(v)] for dh, v in d.items()}
+                          for k, d in registers.items()},
+            "spilling": [e for e in report
+                         if e["spill_stores"] or e["spill_loads"]]}
+        if r["cached"]:
+            continue
+        check(bool(report), f"{name}: no ptxas report in the build log")
+        check(len(report) <= 32, f"{name}: {len(report)} kernel "
+                                 "instantiations > 32")
+        spills = [e for e in report if e["kernel"] == "flash_fwd_mma"
+                  and e["dh"] <= 64 and (e["spill_stores"] or e["spill_loads"])]
+        check(not spills, f"{name}: bf16 kernels at Dh <= 64 spill: {spills}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": {n: {"seconds": round(r["seconds"], 3),
-                            "cached": r["cached"]}
-                        for n, r in results.items()}})
+          "libraries": libraries})
 
 
 def phase_kernels() -> float:
@@ -222,10 +366,10 @@ def phase_kernels() -> float:
     rng = np.random.default_rng(0)
     cases = []
     worst = 0.0
-    for name, B, H, Lq, Lk, Dh, causal, masked in KERNEL_CASES:
+    for name, B, H, Lq, Lk, Dh, causal, mask_kind in KERNEL_CASES:
         for dt_name, dtype in (("bfloat16", torch.bfloat16),
                                ("float32", torch.float32)):
-            q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, masked,
+            q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
             out = flash_attention(q, k, v, mask, causal=causal)
             ref = flash_attention_reference(q, k, v, mask, causal=causal)
@@ -234,15 +378,34 @@ def phase_kernels() -> float:
                   f"{name}/{dt_name}: output {out.dtype} {tuple(out.shape)}")
             check(bool(torch.isfinite(out.float()).all()),
                   f"{name}/{dt_name}: non-finite output")
+            # every row, those without a valid key included: the plain
+            # version gives them the mean of V
+            err, rel, held = k1_errors(out, ref, dt_name)
+            check(err <= TOL[dt_name] and held <= TOL[dt_name],
+                  f"{name}/{dt_name}: max |kernel - plain| {err}, per row "
+                  f"relative {rel} > {TOL[dt_name]}")
+            control = None
+            if Lk >= CONTROL_MIN_LK and not causal:
+                dropped = flash_attention_reference(
+                    q, k[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(),
+                    None if mask is None else mask[:, 64:].contiguous())
+                control = k1_errors(dropped, ref, dt_name)[2]
+                check(control > TOL[dt_name],
+                      f"{name}/{dt_name}: the check passes the plain version "
+                      f"without its first key tile ({control})")
+                del dropped
             rows = valid_rows(mask, B, Lq, Lk, causal, "cuda")
-            err = float(((out.float() - ref.float()).abs() * rows).max())
-            check(err <= TOL[dt_name],
-                  f"{name}/{dt_name}: max |kernel - plain| {err} > "
-                  f"{TOL[dt_name]}")
             worst = max(worst, err)
             cases.append({"case": name, "dtype": dt_name,
                           "shape": [B, H, Lq, Lk, Dh], "causal": causal,
-                          "max_abs_err": err, "tol": TOL[dt_name]})
+                          "mask": mask_kind, "max_abs_err": err,
+                          "row_rel_err": rel, "held": held,
+                          "control_without_first_tile": control,
+                          "rows_without_a_valid_key":
+                              int((~rows).sum()) * H,
+                          "tol": TOL[dt_name]})
+            del q, k, v, mask, out, ref
+            torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernels": [
         {"name": "flash_attention", "max_abs_err": worst, "cases": cases}]})
     return worst
@@ -349,17 +512,22 @@ def serve_round(call, prompts: list, n_threads: int):
     return got, latency, time.perf_counter() - t0, errors
 
 
-def device_busy(prof, wall_s: float) -> dict:
-    """Device time of every kernel and copy in a profiled window, its share
-    of the window's wall time, and the five largest entries."""
+def device_rows(prof) -> list:
+    """(device µs, name, count) of every kernel and copy in a profile."""
     rows = []
     for evt in prof.key_averages():
         t = (getattr(evt, "self_device_time_total", None)
              or getattr(evt, "self_cuda_time_total", 0.0) or 0.0)
         if t > 0:
             rows.append((t, evt.key, evt.count))
+    return rows
+
+
+def device_busy(prof, wall_s: float) -> dict:
+    """Device time of every kernel and copy in a profiled window, its share
+    of the window's wall time, and the five largest entries."""
+    rows = sorted(device_rows(prof), reverse=True)
     total_us = sum(r[0] for r in rows)
-    rows.sort(reverse=True)
     return {"device_ms": total_us / 1e3,
             "busy_share": total_us / 1e6 / wall_s,
             "top": [{"name": k[:80], "device_ms": t / 1e3, "count": c}
@@ -454,9 +622,12 @@ def time_ms(fn, n: int = 200, reps: int = 15, warmup: int = 20) -> float:
     return statistics.median(samples)
 
 
-def device_kernel_ms(fn, n: int = 50) -> "float | None":
-    """Mean device time of the CUDA kernels ``fn`` launches, from the
-    profiler; None when the profiler reports no device time."""
+def device_kernel_ms(fn, n: int = 50) -> dict:
+    """Device time of the CUDA kernels that ``n`` calls of ``fn`` launch,
+    from the profiler: per call, and per kernel record it kept. ``fn``
+    launches one kernel, so ``records`` below ``n`` means the profiler lost
+    some and the time per call reads low; both are None without device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,8 +637,12 @@ def device_kernel_ms(fn, n: int = 50) -> "float | None":
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_ms = device_busy(prof, 1.0)["device_ms"]
-    return total_ms / n if total_ms > 0 else None
+    rows = device_rows(prof)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    records = sum(r[2] for r in rows)
+    return {"calls": n, "records": records,
+            "ms_per_call": total_ms / n if total_ms > 0 else None,
+            "ms_per_record": total_ms / records if total_ms > 0 else None}
 
 
 def phase_timing() -> dict:
@@ -482,7 +657,7 @@ def phase_timing() -> dict:
 
     B, H, L, Dh = 32, 4, 64, 16
     q, k, v, mask = make_qkv(np.random.default_rng(4), B, H, L, L, Dh,
-                             torch.bfloat16, True, "cuda")
+                             torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
     out = torch.empty_like(q)
     lib = _build.load_library("flash_attention")
@@ -506,21 +681,18 @@ def phase_timing() -> dict:
     def library():
         F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
 
-    # kernel, plain, plain, kernel: compare within one call, in turns
+    # kernel, plain, plain, kernel and kernel, SDPA, SDPA, kernel: compare
+    # within one call, in turns
     kernel_ms = [time_ms(kernel)]
     plain_ms = [time_ms(plain)]
     plain_ms.append(time_ms(plain))
     kernel_ms.append(time_ms(kernel))
+    library_ms = [time_ms(library)]
+    library_ms.append(time_ms(library))
+    kernel_ms.append(time_ms(kernel))
     wrapper_ms = time_ms(wrapper)
-    library_ms = time_ms(library)
-    kernel_device_ms = device_kernel_ms(kernel)
-
-    elem = q.element_size()
-    n_bytes = 4 * B * H * L * Dh * elem + B * L * 4
-    n_ops = 4 * B * H * L * L * Dh
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    kernel_device = device_kernel_ms(kernel)
+    bound = attention_bound(B, H, L, L, Dh, q.element_size(), stats=False)
 
     cfg, params = load_pretrained()
     tokens = torch.from_numpy(encode_texts(seeded_texts(B, seed=5),
@@ -538,14 +710,12 @@ def phase_timing() -> dict:
               "dtype": "bfloat16",
               "kernel_ms": statistics.median(kernel_ms),
               "kernel_ms_runs": kernel_ms,
-              "kernel_device_ms": kernel_device_ms,
+              "kernel_device": kernel_device,
               "wrapper_ms": wrapper_ms,
               "plain_ms": statistics.median(plain_ms),
               "plain_ms_runs": plain_ms,
-              "library_ms": library_ms,
-              "bound_ms": bound_ms, "bound_by":
-                  "bytes" if t_bytes >= t_ops else "operations",
-              "bytes": n_bytes, "operations": n_ops,
+              "library_ms": statistics.median(library_ms),
+              "library_ms_runs": library_ms, **bound,
               "launches_per_forward": per_forward}
     emit(record)
     return record
@@ -574,10 +744,10 @@ def phase_kernels_stats() -> float:
     rng = np.random.default_rng(10)
     cases = []
     worst = 0.0
-    for name, B, H, Lq, Lk, Dh, causal, masked in STATS_CASES:
+    for name, B, H, Lq, Lk, Dh, causal, mask_kind in STATS_CASES:
         for dt_name, dtype in (("bfloat16", torch.bfloat16),
                                ("float32", torch.float32)):
-            q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, masked,
+            q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
             got = flash_attention(q, k, v, mask, causal=causal,
                                   return_stats=True)
@@ -610,7 +780,7 @@ def phase_kernels_stats() -> float:
             worst = max(worst, err)
             cases.append({"case": name, "dtype": dt_name,
                           "shape": [B, H, Lq, Lk, Dh], "causal": causal,
-                          "m_abs_err": em, "l_rel_err": el,
+                          "mask": mask_kind, "m_abs_err": em, "l_rel_err": el,
                           "acc_rel_err": ea, "tol": TOL[dt_name],
                           "rows_without_a_valid_key": masked_rows})
             del q, k, v, mask, got, want, acc, m, l
@@ -795,6 +965,35 @@ def phase_serve_long(smi: str) -> dict:
     return {"launches": k2, "k1_launches": k1}
 
 
+def sfu_rates() -> dict:
+    """The card's own rates of the per-score instructions of the bf16
+    kernel that do not run on the FMA pipes (``csrc/sfu_probe.cu``):
+    ex2.approx alone, cvt.rn.bf16x2 alone and both interleaved 1:1, on
+    every SM at full occupancy (8 blocks of 256 threads each), with CUDA
+    events. ``steps_per_s`` counts one ex2, one cvt or one pair per step."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import _build
+
+    lib = _build.load_library("sfu_probe")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 8 * sms, 256, 2048
+    steps = blocks * threads * iters * SFU_PROBE_CHAINS
+    out = torch.empty(blocks * threads, dtype=torch.float32, device="cuda")
+    rates = {"sms": sms, "steps": steps}
+    for op, name in enumerate(("ex2", "cvt_bf16x2", "ex2_and_cvt_bf16x2")):
+        def probe(op=op):
+            err = lib.sfu_probe(op, blocks, threads, iters, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SmokeFailure(f"sfu_probe {op}: CUDA error {err}")
+
+        ms = time_ms(probe, n=5, reps=5, warmup=2)
+        check(bool(torch.isfinite(out).all()), f"sfu_probe {op}: non-finite")
+        rates[name] = {"ms": ms, "steps_per_s": steps / ms * 1e3}
+    return rates
+
+
 def phase_timing_stats() -> dict:
     import numpy as np
     import torch
@@ -838,38 +1037,59 @@ def phase_timing_stats() -> dict:
             fa.flash_attention_stats_reference(q[b:b + 1], k[b:b + 1],
                                                v[b:b + 1], mask[b:b + 1])
 
+    def k1_plain():
+        for b in range(B):
+            fa.flash_attention_reference(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                         mask[b:b + 1])
+
     sdpa_mask = bias.to(q.dtype)[:, None, None, :]
 
     def library():
         F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
 
-    kernel_ms = [time_ms(kernel, n=3, reps=5, warmup=1)]
+    # in turns within this call: K2, plain, plain, K2; K1, SDPA, SDPA, K1;
+    # K1's plain version after
+    kernel_ms = [time_ms(kernel, n=5, reps=5, warmup=2)]
     plain_ms = [time_ms(plain, n=1, reps=3, warmup=1)]
     plain_ms.append(time_ms(plain, n=1, reps=3, warmup=0))
-    kernel_ms.append(time_ms(kernel, n=3, reps=5, warmup=0))
-    k1_ms = time_ms(k1_same_shape, n=3, reps=5, warmup=1)
-    sdpa_ms = time_ms(library, n=10, reps=5, warmup=2)
+    kernel_ms.append(time_ms(kernel, n=5, reps=5, warmup=0))
+    k1_ms = [time_ms(k1_same_shape, n=5, reps=5, warmup=2)]
+    sdpa_ms = [time_ms(library, n=5, reps=5, warmup=2)]
+    sdpa_ms.append(time_ms(library, n=5, reps=5, warmup=0))
+    k1_ms.append(time_ms(k1_same_shape, n=5, reps=5, warmup=0))
+    k1_plain_ms = [time_ms(k1_plain, n=1, reps=3, warmup=1)]
+    # the profiler's reading, in short windows, with the records it kept
+    k2_device = [device_kernel_ms(kernel, n=5) for _ in range(3)]
+    k1_device = [device_kernel_ms(k1_same_shape, n=5) for _ in range(3)]
+    # the exponential floor at the rate this card does ex2 in this run
+    sfu = sfu_rates()
+    exp_floor_measured_ms = (B * H * L * L / sfu["ex2"]["steps_per_s"]
+                             * 1e3)
 
-    n_bytes = (3 * B * H * L * Dh * q.element_size()   # q, k, v
-               + B * H * L * Dh * 4                    # acc, fp32
-               + 2 * B * H * L * 4                     # m, l
-               + B * L * 4)                            # bias row
-    n_ops = 4 * B * H * L * L * Dh
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    elem = q.element_size()
     record = {"phase": "timing_stats", "shape": [B, H, L, L, Dh],
               "dtype": "bfloat16", "kv_mask": "every key valid",
               "kernel_ms": statistics.median(kernel_ms),
               "kernel_ms_runs": kernel_ms,
+              "kernel_device": k2_device,
               "plain_ms": statistics.median(plain_ms),
               "plain_ms_runs": plain_ms,
               "library_ms": None,
-              "sdpa_normalized_ms": sdpa_ms,
-              "k1_same_shape_ms": k1_ms,
-              "bound_ms": max(t_bytes, t_ops),
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-              "bytes": n_bytes, "operations": n_ops,
-              "launches_per_forward": "n_layers x dp x sp^2 (2 at 1x1)"}
+              "sdpa_normalized_ms": statistics.median(sdpa_ms),
+              **attention_bound(B, H, L, L, Dh, elem, stats=True),
+              "exp_floor_measured_ms": exp_floor_measured_ms,
+              "sfu": sfu,
+              "launches_per_forward": "n_layers x dp x sp^2 (2 at 1x1)",
+              # K1 on the same inputs: SDPA computes exactly its function
+              "k1_same_shape": {
+                  "kernel_ms": statistics.median(k1_ms),
+                  "kernel_ms_runs": k1_ms,
+                  "kernel_device": k1_device,
+                  "plain_ms": statistics.median(k1_plain_ms),
+                  "library_ms": statistics.median(sdpa_ms),
+                  "library_ms_runs": sdpa_ms,
+                  **attention_bound(B, H, L, L, Dh, elem, stats=False),
+                  "exp_floor_measured_ms": exp_floor_measured_ms}}
     emit(record)
     return record
 
@@ -893,12 +1113,20 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
+    k1_long = timing_stats["k1_same_shape"]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": served["launches"],
         "max_abs_err": worst, "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]},
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "long_shape": {"shape": timing_stats["shape"],
+                       "launches": served_long["k1_launches"],
+                       "ms": k1_long["kernel_ms"],
+                       "bound_ms": k1_long["bound_ms"],
+                       "bound_by": k1_long["bound_by"],
+                       "plain_ms": k1_long["plain_ms"],
+                       "library_ms": k1_long["library_ms"]}},
         {"name": "flash_attention_stats", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES_STATS, "launches": served_long["launches"],
          "max_abs_err": worst_stats, "ms": timing_stats["kernel_ms"],

@@ -1,0 +1,212 @@
+"""chip_smoke.py's arithmetic and inputs, on the CPU.
+
+``attention_bound`` gives the least time the card could take for one
+attention launch (the guide's bound) and the floor that its exponentials
+set; it is pinned here against hand counts at the two serve shapes.
+``ptxas_report`` reads the compiler's register and spill lines,
+``make_qkv`` makes the masks of the kernel cases, and ``k1_errors`` is the
+check K1 is held to, which must fail a plain version that dropped a key
+tile at the long shape. chip_smoke's top level
+imports only the standard library, so importing it here runs nothing.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+
+from vainplex_openclaw_tpu_torch.ops.flash_attention import (  # noqa: E402
+    SUPPORTED_HEAD_DIMS, flash_attention_reference)
+
+
+def test_k2_long_shape_hand_counts():
+    """K2 at B=8, H=2, L=16384, Dh=16, bf16."""
+    b = chip_smoke.attention_bound(8, 2, 16384, 16384, 16, 2, stats=True)
+    assert b["operations"] == 274_877_906_944        # 4·B·H·L²·Dh
+    assert b["bytes"] == (3 * 8 * 2 * 16384 * 16 * 2  # q, k, v in bf16
+                          + 8 * 2 * 16384 * 16 * 4   # acc in fp32
+                          + 2 * 8 * 2 * 16384 * 4    # m and l in fp32
+                          + 8 * 16384 * 4)           # the bias row
+    assert b["bytes"] == 44_564_480
+    assert b["exponentials"] == 4_294_967_296        # B·H·L²
+    assert b["exp_floor_ms"] == pytest.approx(1.1013, abs=1e-4)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(0.277935, abs=1e-6)
+
+
+def test_k1_serve_shape_hand_counts():
+    """K1 at B=32, H=4, L=64, Dh=16, bf16: bound by bytes."""
+    b = chip_smoke.attention_bound(32, 4, 64, 64, 16, 2, stats=False)
+    assert b["bytes"] == 4 * 32 * 4 * 64 * 16 * 2 + 32 * 64 * 4 == 1_056_768
+    assert b["operations"] == 4 * 32 * 4 * 64 * 64 * 16
+    assert b["exponentials"] == 32 * 4 * 64 * 64
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(0.000315453, abs=1e-9)
+
+
+def test_k1_long_shape_has_the_same_work_as_k2():
+    """K1 and K2 at the long shape differ only in what they write."""
+    k1 = chip_smoke.attention_bound(8, 2, 16384, 16384, 16, 2, stats=False)
+    k2 = chip_smoke.attention_bound(8, 2, 16384, 16384, 16, 2, stats=True)
+    assert k1["operations"] == k2["operations"]
+    assert k1["exponentials"] == k2["exponentials"]
+    assert k1["exp_floor_ms"] == k2["exp_floor_ms"]
+    assert k2["bytes"] - k1["bytes"] == (8 * 2 * 16384 * 16 * (4 - 2)
+                                         + 2 * 8 * 2 * 16384 * 4)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 16), (3, 2, 100, 129, 32),
+                                   (2, 4, 96, 200, 64), (4, 16, 2048, 2048, 64)])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_bound_is_the_larger_of_bytes_and_operations(shape, stats, elem):
+    B, H, Lq, Lk, Dh = shape
+    b = chip_smoke.attention_bound(B, H, Lq, Lk, Dh, elem, stats=stats)
+    t_bytes = b["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+    t_ops = b["operations"] / chip_smoke.PEAK_BF16_OPS_PER_S * 1e3
+    assert b["bound_ms"] == max(t_bytes, t_ops)
+    assert b["bound_by"] == ("bytes" if t_bytes >= t_ops else "operations")
+    assert b["exp_floor_ms"] == pytest.approx(
+        B * H * Lq * Lk / chip_smoke.SFU_EXP_PER_S * 1e3)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389793mma13flash_fwd_mmaILi32ELb0ELb1EEEvPK13__nv_bfloat16S4_S4_PKfPvPfS8_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389793mma13flash_fwd_mmaILi32ELb0ELb1EEEvPK13__nv_bfloat16S4_S4_PKfPvPfS8_iiiif
+    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compile time = 60.425 ms
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389796scalar14flash_fwd_fp32ILi128ELb1ELb0EEEvPKfS3_S3_S3_PfS4_S4_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389796scalar14flash_fwd_fp32ILi128ELb1ELb0EEEvPKfS3_S3_S3_PfS4_S4_iiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_instantiation():
+    report = chip_smoke.ptxas_report(PTXAS_LOG)
+    assert report == [
+        {"kernel": "flash_fwd_mma", "dh": 32, "causal": False, "stats": True,
+         "registers": 96, "spill_stores": 8, "spill_loads": 16},
+        {"kernel": "flash_fwd_fp32", "dh": 128, "causal": True,
+         "stats": False, "registers": 255, "spill_stores": 0,
+         "spill_loads": 0}]
+
+
+def test_ptxas_report_of_an_empty_log_is_empty():
+    assert chip_smoke.ptxas_report("") == []
+
+
+@pytest.mark.parametrize("kind", ["prefix", "last_tile", "holes"])
+@pytest.mark.parametrize("Lk", [63, 64, 65, 129, 200])
+def test_make_qkv_masks(kind, Lk):
+    B, H, Lq, Dh = 4, 2, 70, 16
+    q, k, v, mask = chip_smoke.make_qkv(np.random.default_rng(Lk), B, H, Lq,
+                                        Lk, Dh, torch.bfloat16, kind, "cpu")
+    assert q.shape == (B, H, Lq, Dh) and k.shape == v.shape == (B, H, Lk, Dh)
+    assert q.dtype == torch.bfloat16
+    m = mask.numpy()
+    assert m.shape == (B, Lk) and m.dtype == bool
+    assert not m[-1].any()  # the batcher's zero-pad row
+    live = m[:-1]
+    assert live.any(axis=1).all() or kind == "holes"
+    if kind == "prefix":
+        assert m[0].all()
+        for row in live:
+            n = int(row.sum())
+            assert row[:n].all() and not row[n:].any()
+    elif kind == "last_tile":
+        first = (Lk - 1) // 64 * 64
+        assert not live[:, :first].any() and live[:, first:].all()
+    else:
+        assert not live[:, 0].any()
+        assert any(row.any() and not row[:int(row.sum())].all()
+                   for row in live), "holes mask is a prefix"
+
+
+def test_make_qkv_without_a_mask():
+    *_, mask = chip_smoke.make_qkv(np.random.default_rng(0), 2, 1, 8, 8, 16,
+                                   torch.float32, False, "cpu")
+    assert mask is None
+
+
+@pytest.mark.parametrize("case", chip_smoke.KERNEL_CASES + chip_smoke.STATS_CASES,
+                         ids=lambda c: c[0])
+def test_kernel_cases_are_shapes_the_kernel_takes(case):
+    _, B, H, Lq, Lk, Dh, causal, kind = case
+    assert min(B, H, Lq, Lk) >= 1 and Dh in SUPPORTED_HEAD_DIMS
+    assert Lq == Lk or not causal
+    assert kind in (False, "prefix", "last_tile", "holes")
+
+
+def test_k1_errors_of_equal_outputs_are_zero():
+    x = torch.randn(2, 2, 8, 16).to(torch.bfloat16)
+    assert chip_smoke.k1_errors(x, x.clone(), "bfloat16") == (0.0, 0.0, 0.0)
+
+
+def test_k1_errors_scale_each_row_by_its_largest_value():
+    ref = torch.tensor([[[[1.0, -4.0], [0.01, 0.02]]]])
+    out = ref + torch.tensor([[[[0.0, 0.04], [0.001, 0.0]]]])
+    err, rel, held = chip_smoke.k1_errors(out, ref, "bfloat16")
+    assert err == pytest.approx(0.04)
+    assert rel == pytest.approx(0.05)     # 0.001 / 0.02 in the second row
+    assert held == rel
+    assert chip_smoke.k1_errors(out, ref, "float32")[2] == err
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k1_check_fails_a_dropped_key_tile_at_16384_keys(dtype):
+    """A row that averages 16384 keys has |out| ~ 0.01. The plain version
+    without its first key tile must fail the check the card holds K1 to
+    (in bf16 it stays within an absolute 3e-2, so only the per-row
+    relative check sees it), while the same function computed in another
+    order (float64, p rounded the same way) passes with room."""
+    tdt = getattr(torch, dtype)
+    tol = chip_smoke.TOL[dtype]
+    q, k, v, _ = chip_smoke.make_qkv(np.random.default_rng(7), 1, 2, 128,
+                                     16384, 16, tdt, False, "cpu")
+    ref = flash_attention_reference(q, k, v)
+    dropped = flash_attention_reference(q, k[:, :, 64:].contiguous(),
+                                        v[:, :, 64:].contiguous())
+    err, _, held = chip_smoke.k1_errors(dropped, ref, dtype)
+    assert held > 3 * tol
+    if dtype == "bfloat16":
+        assert err <= tol
+    s = q.double() @ k.double().transpose(-1, -2) / 4
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    other = ((p.to(tdt).double() @ v.double())
+             / p.sum(dim=-1, keepdim=True)).to(tdt)
+    assert chip_smoke.k1_errors(other, ref, dtype)[2] <= tol / 3
+
+
+def test_every_long_k1_case_gets_the_control():
+    controlled = {c[0] for c in chip_smoke.KERNEL_CASES
+                  if c[4] >= chip_smoke.CONTROL_MIN_LK and not c[6]}
+    assert {"mfu_shape", "long_16384", "long_16384_masked"} <= controlled
+    assert any(c[4] == 16384 and c[7] is False
+               for c in chip_smoke.KERNEL_CASES)
+
+
+def test_kernel_cases_reach_the_tile_edges():
+    """The card checks cover Lk one below, at and one above a 64-key tile
+    multiple, Lq off the 64-row tile, causal at L=130 with Dh 16 and 128,
+    and masks valid only in the last tile or with holes."""
+    for cases in (chip_smoke.KERNEL_CASES, chip_smoke.STATS_CASES):
+        lks = {c[4] for c in cases}
+        assert {63, 65, 129} <= lks
+        assert any(c[3] % 64 for c in cases)
+        assert {(130, 16), (130, 128)} <= {(c[3], c[5]) for c in cases
+                                           if c[6]}
+        assert {"last_tile", "holes"} <= {c[7] for c in cases}
+    assert {63, 64, 65, 127, 128, 129} <= {c[4] for c in chip_smoke.KERNEL_CASES}

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from vainplex_openclaw_tpu.ops import flash_attention as jax_fa
 from vainplex_openclaw_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention)
 from vainplex_openclaw_tpu_torch.ops import _build
@@ -251,6 +252,43 @@ def test_stats_l_matches_dense_log_sum_exp(no_kernel_build):
                                np.exp(scores - mm[..., None]).sum(-1),
                                rtol=1e-5)
     np.testing.assert_allclose(m.numpy(), mm, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_rows_without_a_valid_key_follow_the_dense_reference(
+        dtype, no_kernel_build):
+    """A causal row that sees no valid key scores -1e30 on every key, so the
+    JAX package's dense reference (``_dense_stats_ref``) gives it m = -1e30,
+    l = Lk and acc = the sum of V over every key. The port's plain version,
+    which the card holds K1 and K2 to on every row, gives the same. The
+    Pallas kernel skips the key blocks after such a row's query block and
+    averages fewer keys; no served configuration is causal."""
+    B, H, L, Dh = 3, 2, 48, 16
+    q, k, v, _ = make_inputs(12, B, H, L, L, Dh, None)
+    mask = np.ones((B, L), bool)
+    mask[1, :20] = False  # rows 0..19 of batch element 1 see no valid key
+    mask[2] = False       # every row of batch element 2
+    tdt, jdt = DTYPES[dtype]
+    args = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    m_ = torch.from_numpy(mask)
+    out = fa.flash_attention(*args, m_, causal=True)
+    got = tuple(t.numpy() for t in fa.flash_attention(
+        *args, m_, causal=True, return_stats=True))
+    bias = jnp.where(jnp.asarray(mask), 0.0, jax_fa.NEG_INF)[:, None, :]
+    want = tuple(np.asarray(t, dtype=np.float32) for t in jax_fa._dense_stats_ref(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), bias, True))
+    empty = ~valid_rows(mask, B, L, L, True)[:, 0, :, 0]
+    assert empty.sum() == 20 + L
+    rows = np.broadcast_to(empty[:, None, :, None], (B, H, L, 1))
+    r = rows[..., 0]
+    assert (got[1][r] == np.float32(-1e30)).all()
+    assert (want[1][r] == np.float32(-1e30)).all()
+    assert (got[2][r] == L).all() and (want[2][r] == L).all()
+    assert max(stats_errors(got, want, rows)) <= TOL[dtype]
+    v_mean = args[2].float().numpy().mean(axis=2, keepdims=True)
+    np.testing.assert_allclose(
+        out.float().numpy() * rows, np.broadcast_to(v_mean, out.shape) * rows,
+        atol=TOL[dtype], rtol=0)
 
 
 def test_stats_fully_masked_row_counts_real_keys(no_kernel_build):

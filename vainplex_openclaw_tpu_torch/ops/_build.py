@@ -42,6 +42,11 @@ SIGNATURES = {
         "flash_attention_stats_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
         "kernel_error_string": ([_I], ctypes.c_char_p),
     },
+    # A throughput probe of the special function unit that chip_smoke.py
+    # times; no path of the port calls it.
+    "sfu_probe": {
+        "sfu_probe": ([_I] * 4 + [_P] * 2, _I),
+    },
 }
 
 _libs: dict = {}

@@ -11,90 +11,80 @@
 // [B,H,Lq,Dh] and the running max m and unclamped sum l [B,H,Lq] in fp32;
 // the TPU kernel's 128-lane broadcast of m and l is a layout of its VMEM
 // scratch and has no counterpart here. The two modes share one template
-// and differ only in the epilogue (the STATS flag).
+// per dtype and differ only in the epilogue (the STATS flag). The kernel
+// masks its own ragged edge instead of the TPU's padding: keys at or past
+// Lk contribute exactly 0 and query rows at or past Lq are not stored. So
+// in K2 a row whose every key is masked has m = -1e30 (finite) and l = the
+// number of real keys, where the TPU kernel counts its padded keys too.
 //
-// Bound on an H100. K1 at the short serve path's shape (B=32, H=4, L=64,
-// Dh=16, bf16) must move q, k, v and out once, 4*B*H*L*Dh*2 bytes
-// (~1.05 MB) plus the fp32 bias row (8 KB): ~0.32 us at 3.35 TB/s. Its
-// 4*B*H*L*L*Dh operations (~33.5 MFLOP) take ~0.03 us at the bf16 tensor
-// rate. So K1 there is bound by bytes, and in practice by the launch. K2
-// at the long serve path's shape (B=8, H=2, L=16384, Dh=16, bf16) does
-// 4*B*H*L*L*Dh = 2.75e11 operations, 0.278 ms at 989 TFLOP/s, against
-// ~44.6 MB of q, k, v, acc, m, l and bias (0.013 ms): bound by operations.
+// What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s, 132 SMs).
+// Each score costs 4*Dh tensor-core operations (q . k and p . v) and one
+// exponential. At the long serve shape (B=8, H=2, L=16384, Dh=16, bf16)
+// that is 2.75e11 operations (0.278 ms), ~44.6 MB of q, k, v, acc, m, l
+// and bias (0.013 ms), and B*H*L^2 = 4.29e9 exponentials. The special
+// function units do 16 ex2 per clock per SM, ~3.9e12 a second as Shah et
+// al. (FlashAttention-3, 2024) give it: 1.10 ms, four times the
+// tensor-core bound. sfu_probe.cu measures the card's own rate: 4.20e12 a
+// second on an H100 80GB HBM3 at 700 W (1.02 ms), with cvt.rn.bf16x2 at
+// four times that on a unit of its own. At Dh=16 the exponentials, and the
+// fp32 softmax arithmetic around them on the CUDA cores, set the floor,
+// not the products. At the short serve shape
+// (B=32, H=4, L=64) the ~1.06 MB of bytes bound it (0.3 us), in practice
+// the launch.
 //
-// What the design does about it. One thread block per (batch*head,
-// 64-row query tile); each of its 64 threads owns one query row, with q
-// and the fp32 accumulator in registers (Dh is a template parameter, so
-// both arrays are fully unrolled). K and V tiles are staged in shared
-// memory in their input dtype by 16-byte copies, and every thread reads
-// the same key at the same time (a broadcast, no bank conflict). Each
-// input byte is read from device memory once per query tile (once in all
-// when Lq <= 64, as on the short path) and each output byte is written
-// once; the scores never leave registers. The dot products run on the
-// CUDA cores, not the tensor cores: right for K1's byte-bound shape, and
-// the reason K2, whose shape is bound by operations, runs far from its
-// bound (mma/wgmma is the later redesign). The kernel masks its own ragged
-// edge (keys at or past Lk contribute exactly 0, query rows at or past Lq
-// idle) instead of the TPU's padding, and skips key tiles wholly after a
-// causal query tile. So in K2 a row whose every key is masked has m = -1e30
-// (finite) and l = the number of real keys it walked, where the TPU kernel
-// counts its padded keys too. At Dh=128 in fp32, q and acc take 256
-// registers and spill; no path of the repo runs that shape.
+// What the bf16 design (flash_attention_mma.cuh) does about each.
+// - Products: both run on mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+//   Each warp owns 16 query rows; its q fragments are loaded once with
+//   ldmatrix, k fragments with ldmatrix and v fragments with ldmatrix.trans.
+//   The fp32 score fragment is rounded to bf16 in registers and is the A
+//   fragment of the PV product: scores never touch shared memory. At
+//   Dh=16 a 64-key tile's q . k^T is one k-step, so mma.sync is enough to
+//   keep the products under the exponential floor; wgmma is not needed.
+// - Bytes: K, V and the tile's bias row move by cp.async (16-byte copies,
+//   zero-filled past Lk) into a ring of 3 shared-memory stages (2 at
+//   Dh=128), so the next tiles load while this one computes; rows are
+//   padded by 16 bytes so that ldmatrix has no bank conflicts. Each input
+//   byte is read once per 64-row query tile and each output written once.
+// - Exponentials: one fused multiply-add and one ex2.approx per score,
+//   p = 2^(s * log2 e - m * log2 e), and one ex2 per row and tile for the
+//   correction. The row max is taken over s in natural units across the
+//   quad of lanes that shares a row, so m is the plain version's max of
+//   the same scores. A warp holding a row with no valid key yet (s == m ==
+//   -1e30, where p must be exactly 1 and the rounding of m * log2 e would
+//   break that) takes the difference s - m first: one fp32 op more.
+// - Causal: key tiles wholly after a query tile are skipped, unless a row
+//   of the tile sees no valid key (causal_kv_end).
+//
+// fp32 inputs (the parity paths: no served configuration runs them) take
+// the scalar walk below: one thread per query row, the dot products on the
+// CUDA cores, since a tensor-core fp32 path would be TF32. The dispatch
+// chooses by dtype alone. At Dh=128 in fp32, q and acc take 256 registers
+// and spill; no path of the repo runs that shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstdint>
+#include "flash_attention_mma.cuh"
 
 namespace {
 
+namespace scalar {
+
 constexpr int kBlockM = 64;  // query rows per block, one per thread
 constexpr int kChunk = 16;   // keys per online-softmax step
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-// Keys per shared-memory tile: K and V tiles together stay at 32 KB.
-template <typename T, int DH>
-__host__ __device__ constexpr int block_n() {
-  return DH * static_cast<int>(sizeof(T)) <= 256 ? 64 : 32;
-}
-
-// out is T [B,H,Lq,Dh] (K1) or fp32 acc [B,H,Lq,Dh] (K2); m_out and l_out
-// are fp32 [B,H,Lq] in K2 and unused in K1.
-template <typename T, int DH, bool CAUSAL, bool STATS>
+// out is fp32 [B,H,Lq,Dh], normalized (K1) or the unnormalized acc (K2);
+// m_out and l_out are fp32 [B,H,Lq] in K2 and unused in K1.
+template <int DH, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(kBlockM)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     void* __restrict__ out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int H, int Lq, int Lk,
-                     int n_qtiles, float scale) {
-  constexpr int BN = block_n<T, DH>();
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16 B
-  constexpr int kRowVecs = DH / kVec;
-  static_assert(DH % kVec == 0, "a row must be a whole number of 16 B");
+    flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ bias,
+                   float* __restrict__ out, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int H, int Lq, int Lk, int n_qtiles,
+                   float scale) {
+  constexpr int BN = DH <= 64 ? 64 : 32;  // keys per tile: K and V stay at 32 KB
+  constexpr int kRowVecs = DH / 4;  // float4 per row
 
-  __shared__ __align__(16) unsigned char k_raw[BN * DH * sizeof(T)];
-  __shared__ __align__(16) unsigned char v_raw[BN * DH * sizeof(T)];
+  __shared__ __align__(16) float k_s[BN * DH];
+  __shared__ __align__(16) float v_s[BN * DH];
   __shared__ float b_s[BN];
-  T* k_s = reinterpret_cast<T*>(k_raw);
-  T* v_s = reinterpret_cast<T*>(v_raw);
 
   const int bh = blockIdx.x / n_qtiles;
   const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
@@ -102,42 +92,35 @@ __global__ void __launch_bounds__(kBlockM)
   const int row = q0 + threadIdx.x;
   const bool active = row < Lq;
 
-  const T* kp = k + static_cast<size_t>(bh) * Lk * DH;
-  const T* vp = v + static_cast<size_t>(bh) * Lk * DH;
+  const float* kp = k + static_cast<size_t>(bh) * Lk * DH;
+  const float* vp = v + static_cast<size_t>(bh) * Lk * DH;
   const float* bp = bias + static_cast<size_t>(b) * Lk;
 
   float qr[DH];
   float acc[DH];
   {
-    __align__(16) T qt[DH];
-    if (active) {
-      const uint4* src = reinterpret_cast<const uint4*>(
-          q + (static_cast<size_t>(bh) * Lq + row) * DH);
-#pragma unroll
-      for (int i = 0; i < kRowVecs; ++i) reinterpret_cast<uint4*>(qt)[i] = src[i];
-    }
+    const float* src = q + (static_cast<size_t>(bh) * Lq + (active ? row : 0)) * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) {
-      qr[d] = active ? to_float(qt[d]) : 0.f;
+      qr[d] = active ? src[d] : 0.f;
       acc[d] = 0.f;
     }
   }
   float m = kNegInf;
   float l = 0.f;
 
-  // Under causality no key at or past the tile's last row + 1 can count.
-  const int kv_end = CAUSAL ? min(Lk, q0 + kBlockM) : Lk;
+  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kBlockM) : Lk;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
     const int n = min(BN, kv_end - kv0);
     __syncthreads();  // every thread is done with the previous tile
     {
-      const uint4* kg = reinterpret_cast<const uint4*>(kp + static_cast<size_t>(kv0) * DH);
-      const uint4* vg = reinterpret_cast<const uint4*>(vp + static_cast<size_t>(kv0) * DH);
-      uint4* ks4 = reinterpret_cast<uint4*>(k_s);
-      uint4* vs4 = reinterpret_cast<uint4*>(v_s);
+      const float4* kg = reinterpret_cast<const float4*>(kp + static_cast<size_t>(kv0) * DH);
+      const float4* vg = reinterpret_cast<const float4*>(vp + static_cast<size_t>(kv0) * DH);
+      float4* ks4 = reinterpret_cast<float4*>(k_s);
+      float4* vs4 = reinterpret_cast<float4*>(v_s);
       const int live = n * kRowVecs;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int i = threadIdx.x; i < BN * kRowVecs; i += kBlockM) {
         ks4[i] = i < live ? kg[i] : zero;
         vs4[i] = i < live ? vg[i] : zero;
@@ -155,10 +138,10 @@ __global__ void __launch_bounds__(kBlockM)
         const int j = c + jj;
         float sv = -INFINITY;  // past the tile's end: p is exactly 0
         if (j < n) {
-          const T* kr = k_s + j * DH;
+          const float* kr = k_s + j * DH;
           float dot = 0.f;
 #pragma unroll
-          for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], to_float(kr[d]), dot);
+          for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
           sv = dot * scale + b_s[j];
           if (CAUSAL && kv0 + j > row) sv = kNegInf;
         }
@@ -177,10 +160,9 @@ __global__ void __launch_bounds__(kBlockM)
         if (j < n) {
           const float p = expf(s[jj] - m_new);
           l += p;
-          const float pr = to_float(from_float<T>(p));
-          const T* vr = v_s + j * DH;
+          const float* vr = v_s + j * DH;
 #pragma unroll
-          for (int d = 0; d < DH; ++d) acc[d] = fmaf(pr, to_float(vr[d]), acc[d]);
+          for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
         }
       }
       m = m_new;
@@ -189,61 +171,53 @@ __global__ void __launch_bounds__(kBlockM)
 
   if (!active) return;
   const size_t orow = static_cast<size_t>(bh) * Lq + row;
-  if constexpr (STATS) {
-    float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + orow * DH);
+  float4* dst = reinterpret_cast<float4*>(out + orow * DH);
+  const float lc = STATS ? 1.f : fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DH / 4; ++i)
+  for (int i = 0; i < kRowVecs; ++i) {
+    if constexpr (STATS) {
       dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+    } else {
+      dst[i] = make_float4(acc[4 * i] / lc, acc[4 * i + 1] / lc, acc[4 * i + 2] / lc,
+                           acc[4 * i + 3] / lc);
+    }
+  }
+  if constexpr (STATS) {
     m_out[orow] = m;
     l_out[orow] = l;
-  } else {
-    const float lc = fmaxf(l, 1e-30f);
-    __align__(16) T o[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) o[d] = from_float<T>(acc[d] / lc);
-    uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(out) + orow * DH);
-#pragma unroll
-    for (int i = 0; i < kRowVecs; ++i) dst[i] = reinterpret_cast<const uint4*>(o)[i];
   }
 }
 
-template <typename T, int DH, bool STATS>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   void* out, float* m_out, float* l_out, int B, int H, int Lq,
-                   int Lk, int causal, cudaStream_t stream) {
+template <int DH, bool STATS>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   float* m_out, float* l_out, int B, int H, int Lq, int Lk, int causal,
+                   cudaStream_t stream) {
   const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kBlockM);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const float* bt = static_cast<const float*>(bias);
-  if (causal) {
-    flash_fwd_kernel<T, DH, true, STATS><<<grid, block, 0, stream>>>(
-        qt, kt, vt, bt, out, m_out, l_out, H, Lq, Lk, n_qtiles, scale);
-  } else {
-    flash_fwd_kernel<T, DH, false, STATS><<<grid, block, 0, stream>>>(
-        qt, kt, vt, bt, out, m_out, l_out, H, Lq, Lk, n_qtiles, scale);
-  }
+  auto kernel = causal ? flash_fwd_fp32<DH, true, STATS> : flash_fwd_fp32<DH, false, STATS>;
+  kernel<<<static_cast<unsigned>(blocks), kBlockM, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), m_out, l_out, H, Lq, Lk,
+      n_qtiles, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool STATS>
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void* bias,
-                        void* out, float* m_out, float* l_out, int B, int H, int Lq,
-                        int Lk, int Dh, int causal, cudaStream_t stream) {
-  switch (Dh) {
-    case 16:
-      return launch<T, 16, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
-    case 32:
-      return launch<T, 32, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
-    case 64:
-      return launch<T, 64, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
-    case 128:
-      return launch<T, 128, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal, stream);
+}  // namespace scalar
+
+// dtype 0 = fp32 (the scalar walk), 1 = bf16 (the tensor-core kernel).
+template <int DH, bool STATS>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   float* m_out, float* l_out, int B, int H, int Lq, int Lk, int dtype,
+                   int causal, cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return scalar::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
+                                       stream);
+    case 1:
+      return mma::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
+                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -258,12 +232,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(m_out);
   float* l = static_cast<float*>(l_out);
-  switch (dtype) {
-    case 0:
-      return dispatch_dh<float, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal, s);
-    case 1:
-      return dispatch_dh<__nv_bfloat16, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh,
-                                               causal, s);
+  switch (Dh) {
+    case 16:
+      return launch<16, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+    case 32:
+      return launch<32, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+    case 64:
+      return launch<64, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+    case 128:
+      return launch<128, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
     default:
       return cudaErrorInvalidValue;
   }

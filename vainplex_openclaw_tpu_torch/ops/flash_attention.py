@@ -29,9 +29,15 @@ On a CPU tensor :func:`flash_attention` computes the plain version
 On a CUDA tensor it launches the kernel in ``csrc/flash_attention.cu`` and
 adds one to :data:`launches` (K1) or :data:`stats_launches` (K2); if the
 library cannot be built or loaded, or the launch fails, it raises. There is
-no fallback from the kernel to the plain version. The TPU block table
+no fallback from the kernel to the plain version. The library picks its
+kernel by dtype alone: bf16 runs on the tensor cores
+(``csrc/flash_attention_mma.cuh``), fp32 on a scalar walk of the CUDA cores
+(a tensor-core fp32 path would be TF32). The TPU block table
 (``default_block``) has no counterpart: the kernel's tiles are its own
 compile-time constants, and it masks its own ragged edge instead of padding.
+Under ``causal`` it skips key tiles wholly after a query tile unless a row
+of that tile has no valid key, so such a row averages V over every key, as
+the plain version does.
 """
 
 from __future__ import annotations
