@@ -69,7 +69,39 @@ is driven after it:
     ex2 rate (``sfu_rates``), which gives the exponential floor measured
     in this run beside the one from the published rate.
 
-Then one line ``{"kernels": [...]}`` listing K1 and K2 and, last,
+Training and the other consumers of the forward follow:
+
+11. grad: one batch of 64 from ``synthetic_split`` through ``loss_fn`` at
+    ``TINY_CONFIG``, fp32 and bf16, from the same fp32 masters on the card
+    (K1 forward, its dense-recompute backward) and on the CPU: every leaf's
+    gradient within ``GRAD_TOL`` of the CPU leaf's max |g|, every attention
+    q, k, v gradient nonzero, K1 launched ``n_layers`` times per forward;
+12. train: ``train_and_ship`` on the card with the JAX recipe (600 steps
+    of batch 64 at ``TINY_CONFIG``'s full width) into a temporary
+    directory: held-out keep and severity accuracy at least 0.9 after the
+    float16 ship, mood at least the majority class, K1 launched n_layers ×
+    (steps + eval batches) times; then 64 requests served from that
+    checkpoint through ``make_local_call_llm()``, verdicts equal to the
+    CPU one-shot path's;
+13. train_moe: the repository's MoE encoder (``__graft_entry__``'s widths,
+    4 experts) trained 100 steps on the card: the loss falls, ``moe_aux``
+    stays finite, and the trained model's fp32 forward on the card is
+    within 1e-4 of the CPU's;
+14. triage_embed: ``local_triage`` on 64 seeded findings whose texts
+    split the keep head and ``LocalEmbeddings`` search over 200 seeded
+    facts on the card against the CPU: triage decisions identical, keep
+    logits within ``TRIAGE_TOL`` (and uniform attention, the control,
+    outside it), search ids identical in fp32 (the shipped weights as an
+    fp32 checkpoint) and the top-1 ids in bf16 (the shipped checkpoint);
+15. timing_train: K1 at the training shape (B=64, H=4, L=64, Dh=16 bf16)
+    beside its bound, its plain version and SDPA; the dense-recompute
+    backward of one attention call; a training step split into forward,
+    backward, AdamW and the rest, and the card's busy share over a
+    profiled window of steps.
+
+Then a line with K1's exponential floors at the serve and training shapes
+at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
+K1 and K2 (measured numbers and the bound only) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -83,6 +115,7 @@ import subprocess
 import sys
 import threading
 import time
+from dataclasses import dataclass
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM bytes/s and dense
 # bf16 tensor-core operations per second.
@@ -101,6 +134,17 @@ REPLACES = "vainplex_openclaw_tpu/ops/flash_attention.py:130"
 REPLACES_STATS = "vainplex_openclaw_tpu/ops/flash_attention.py:180"
 LONG_L = 16384  # long_context_config's length on the card
 LONG_THRESHOLD = 1024  # serve.longContext.thresholdTokens, its default
+# Gradients on the card against the CPU, per leaf, relative to the CPU
+# leaf's max |g|. bf16: the kernel and the CPU's plain version sum in other
+# orders, and a bf16 forward rounds that into every gradient (worst leaf
+# measured on an H100: 0.0051).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The shipped bf16 checkpoint's logits on the card against the CPU, as
+# phase 4 holds them (measured on an H100 there: 0.0044); uniform attention
+# moves the keep logits by about 1.7 on the CPU.
+TRIAGE_TOL = 5e-2
+TRAIN_STEPS = 600  # the JAX recipe, pretrained.py:train_and_ship
+MOE_STEPS = 100
 
 # (name, B, H, Lq, Lk, Dh, causal, mask) for K2 and, below, K1. mask is
 # False (every key valid), "prefix" (a valid prefix per batch element, the
@@ -513,9 +557,15 @@ def serve_round(call, prompts: list, n_threads: int):
 
 
 def device_rows(prof) -> list:
-    """(device µs, name, count) of every kernel and copy in a profile."""
+    """(device µs, name, count) of every kernel and copy in a profile. Only
+    the device's own events count: a host op's device time repeats the
+    time of the kernels it launched, which have rows of their own."""
+    from torch.autograd import DeviceType
+
     rows = []
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:
+            continue
         t = (getattr(evt, "self_device_time_total", None)
              or getattr(evt, "self_cuda_time_total", 0.0) or 0.0)
         if t > 0:
@@ -1094,6 +1144,500 @@ def phase_timing_stats() -> dict:
     return record
 
 
+def tiny_batch(cfg, n: int = 64):
+    """The first training batch of ``n`` from the ``synthetic_split`` the
+    recipe trains on."""
+    from vainplex_openclaw_tpu_torch.models.data import (
+        TextClassificationData, synthetic_split)
+
+    train_ex, _ = synthetic_split(4096, 512, seed=0)
+    data = TextClassificationData(train_ex, n, seq_len=cfg.seq_len,
+                                  vocab_size=cfg.vocab_size, seed=0)
+    return next(data.epoch(0))
+
+
+def leaf_grads(masters: dict, cfg, batch: dict, device) -> tuple:
+    """(loss, {leaf: grad or None}) of ``loss_fn`` at fp32 copies of
+    ``masters`` on ``device``."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import train
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        flatten_tree, params_from_numpy)
+
+    params = train.init_state(params_from_numpy(masters, cfg, device,
+                                                cast=False),
+                              train.make_optimizer()).params
+    loss = train.loss_fn(params, train.batch_to(batch, torch.device(device)),
+                         cfg)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad for k, p in
+                                  flatten_tree(params).items()}
+
+
+def phase_grad() -> dict:
+    import dataclasses
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.encoder import init_params
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    masters = init_params(TINY_CONFIG, torch.Generator().manual_seed(0))
+    batch = tiny_batch(TINY_CONFIG)
+    record = {"phase": "grad", "batch": 64, "tol": GRAD_TOL}
+    for dt_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(TINY_CONFIG, dtype=dt_name)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        loss, got = leaf_grads(masters, cfg, batch, "cuda")
+        torch.cuda.synchronize()
+        launches = fa.launches
+        ref_loss, want = leaf_grads(masters, cfg, batch, "cpu")
+        check(launches == cfg.n_layers,
+              f"grad {dt_name}: K1 launches {launches} != {cfg.n_layers}")
+        errors, worst_key, worst = {}, None, 0.0
+        for key, w in want.items():
+            g = got[key]
+            check((g is None) == (w is None),
+                  f"grad {dt_name}: {key} has a gradient on one side only")
+            if w is None:
+                continue
+            check(bool(torch.isfinite(g).all()),
+                  f"grad {dt_name}: {key} non-finite")
+            err = float((g.float().cpu() - w.float()).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            errors[key] = err
+            if err > worst:
+                worst, worst_key = err, key
+        attn = {k: float(got[k].abs().max()) for k in got
+                if "/attn/" in k and k.rsplit("/", 1)[1] in "qkv"}
+        check(len(attn) == 3 * cfg.n_layers and min(attn.values()) > 0,
+              f"grad {dt_name}: an attention q/k/v gradient is zero: {attn}")
+        check(worst <= GRAD_TOL[dt_name],
+              f"grad {dt_name}: {worst_key} differs by {worst} of its max "
+              f"|g| > {GRAD_TOL[dt_name]}")
+        record[dt_name] = {"loss": loss, "cpu_loss": ref_loss,
+                           "k1_launches": launches, "worst_leaf": worst_key,
+                           "worst_rel_err": worst,
+                           "attn_qkv_min_max_abs_grad": min(attn.values()),
+                           "rel_err": errors}
+    emit(record)
+    return record
+
+
+def phase_train(smi: str) -> dict:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.data import synthetic_split
+    from vainplex_openclaw_tpu_torch.models.pretrained import (
+        TINY_CONFIG, clear_cache, load_pretrained, train_and_ship)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, steps = TINY_CONFIG, TRAIN_STEPS
+    stamps = []
+
+    def log(msg: str) -> None:  # once per epoch, after reading the loss
+        stamps.append((time.perf_counter(), msg))
+
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        metrics = train_and_ship(out, total_steps=steps, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.launches
+        n_eval = max(64, 4608 // 9)
+        eval_batches = -(-n_eval // 64)
+        check(launches == cfg.n_layers * (steps + eval_batches),
+              f"train: K1 launches {launches} != {cfg.n_layers} × "
+              f"({steps} steps + {eval_batches} eval batches)")
+        _, heldout = synthetic_split(4608 - n_eval, n_eval, seed=0)
+        majority = max(np.bincount([lab["mood"] for _, lab in heldout]))
+        majority /= len(heldout)
+        for head in ("keep", "severity"):
+            check(metrics[f"{head}_accuracy"] >= 0.9,
+                  f"train: held-out {head} accuracy "
+                  f"{metrics[f'{head}_accuracy']} < 0.9")
+        check(metrics["mood_accuracy"] >= majority,
+              f"train: mood accuracy {metrics['mood_accuracy']} < majority "
+              f"{majority}")
+        # ms per step per epoch from the epoch-end stamps (each waits for
+        # the epoch's last loss); the first epoch carries the warm-up
+        steps_per_epoch = (4608 - n_eval) // 64
+        bounds = [t0] + [t for t, _ in stamps]
+        per_epoch = [(b - a) * 1e3 / steps_per_epoch
+                     for a, b in zip(bounds, bounds[1:])]
+        per_epoch[-1] = (bounds[-1] - bounds[-2]) * 1e3 / (
+            steps - steps_per_epoch * (len(stamps) - 1))
+
+        # the card-trained checkpoint served on the card and on the CPU
+        prompts = [as_prompt(t) for t in seeded_texts(64, seed=21)]
+        clear_cache()
+        loaded = load_pretrained(out)
+        check(loaded is not None and loaded[0] == cfg,
+              "train: the shipped checkpoint does not load")
+        call = serve.make_local_call_llm(out)
+        got, _, serve_wall, errors = serve_round(call, prompts, 8)
+        oracle_call = serve.make_local_call_llm(
+            out, serve_cfg={"continuousBatching": False}, device="cpu")
+        oracle = [oracle_call(p) for p in prompts]
+        serve.close_batchers()
+        clear_cache()
+    check(not errors, f"train serve errors: {errors[:3]}")
+    mismatches = sum(a != b for a, b in zip(got, oracle))
+    check(mismatches == 0, f"train: {mismatches} served verdicts differ "
+                           "from the CPU one-shot path")
+    steady = sorted(per_epoch[1:]) or per_epoch
+    record = {"phase": "train", "nvidia_smi": smi, "steps": steps,
+              "batch": 64, "config": "TINY_CONFIG bf16",
+              "eval": metrics, "mood_majority": majority,
+              "k1_launches": launches, "wall_s": wall,
+              "steps_per_s": steps / wall,
+              "ms_per_step_by_epoch": per_epoch,
+              "ms_per_step_p50": steady[len(steady) // 2],
+              "epoch_log": [m for _, m in stamps],
+              "served": len(prompts), "verdict_mismatches": 0,
+              "distinct_verdicts": len(set(got)),
+              "serve_wall_s": serve_wall}
+    emit(record)
+    return record
+
+
+MOE_WIDTHS = dict(vocab_size=512, seq_len=32, d_model=64, n_heads=4,
+                  n_layers=2, d_ff=128, n_experts=4)
+
+
+def phase_train_moe() -> dict:
+    import dataclasses
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import train
+    from vainplex_openclaw_tpu_torch.models.data import (
+        TextClassificationData, synthetic_examples)
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        EncoderConfig, forward, init_params, params_from_numpy)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, steps = EncoderConfig(**MOE_WIDTHS), MOE_STEPS
+    init = params_from_numpy(init_params(cfg, torch.Generator().manual_seed(2)),
+                             cfg, "cuda", cast=False)
+    state = train.init_state(init, train.make_optimizer())
+    data = TextClassificationData(synthetic_examples(2048, seed=5), 64,
+                                  seq_len=cfg.seq_len,
+                                  vocab_size=cfg.vocab_size, seed=5)
+    losses = []
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    epoch = 0
+    while state.step < steps:
+        for batch in data.epoch(epoch):
+            state, loss = train.train_step(state, batch, cfg)
+            losses.append(loss)
+            if state.step >= steps:
+                break
+        epoch += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    losses = [float(x) for x in losses]
+    check(launches == cfg.n_layers * steps,
+          f"train_moe: K1 launches {launches} != {cfg.n_layers} × {steps}")
+    first, last = (sum(losses[:10]) / 10, sum(losses[-10:]) / 10)
+    check(all(math.isfinite(x) for x in losses) and last < first,
+          f"train_moe: loss {first} -> {last} did not fall")
+    batch = train.batch_to(next(data.epoch(epoch + 1)), torch.device("cpu"))
+    fp32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        gpu = forward(state.params, batch["tokens"].cuda(), fp32)
+        cpu = forward(params_from_numpy(state.params, fp32, "cpu",
+                                        cast=False), batch["tokens"], fp32)
+        aux_bf16 = float(forward(state.params, batch["tokens"].cuda(),
+                                 cfg)["moe_aux"])
+    err = compare_outputs(gpu, cpu)
+    aux_err = abs(float(gpu["moe_aux"]) - float(cpu["moe_aux"]))
+    check(math.isfinite(aux_bf16) and math.isfinite(float(gpu["moe_aux"])),
+          "train_moe: moe_aux not finite")
+    check(err <= 1e-4 and aux_err <= 1e-4,
+          f"train_moe: fp32 forward card vs CPU differs by {err}, moe_aux by "
+          f"{aux_err} > 1e-4")
+    record = {"phase": "train_moe", "config": {**MOE_WIDTHS,
+                                               "dtype": cfg.dtype},
+              "steps": steps, "batch": 64, "k1_launches": launches,
+              "loss_first10": first, "loss_last10": last,
+              "moe_aux_bf16": aux_bf16,
+              "moe_aux_fp32": float(gpu["moe_aux"]),
+              "fp32_max_abs_err": err, "moe_aux_abs_err": aux_err,
+              "wall_s": wall, "steps_per_s": steps / wall}
+    emit(record)
+    return record
+
+
+@dataclass
+class Finding:
+    """A trace-analyzer finding as ``local_triage`` reads it."""
+    signal: str
+    severity: str
+    summary: str
+    evidence: list
+
+
+@dataclass
+class Fact:
+    """A knowledge fact as ``LocalEmbeddings.sync`` reads it."""
+    id: str
+    subject: str
+    predicate: str
+    object: str
+
+
+def triage_findings(n: int, seed: int) -> list:
+    """Findings over the held-out texts of ``synthetic_split``, whose keep
+    labels split about two to one, so the keep head keeps some and drops
+    some; half carry an exit code as evidence."""
+    import numpy as np
+
+    from vainplex_openclaw_tpu_torch.models.data import synthetic_split
+
+    rng = np.random.default_rng(seed)
+    severities = ("info", "low", "medium", "high", "critical")
+    out = []
+    for text, _ in synthetic_split(0, n, seed=seed)[1]:
+        evidence = [f"exit {int(rng.integers(0, 3))}"] \
+            if rng.random() < 0.5 else []
+        out.append(Finding("tool_failure", severities[rng.integers(5)], text,
+                           evidence))
+    return out
+
+
+def seeded_facts(n: int, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    preds = ("emits", "runs-on", "failed-with", "depends-on", "owns")
+    return [Fact(f"f{i}", f"{_SUBJECTS[rng.integers(len(_SUBJECTS))]} {i}",
+                 preds[rng.integers(len(preds))], text)
+            for i, text in enumerate(seeded_texts(n, seed))]
+
+
+def phase_triage_embed() -> dict:
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier import (
+        keep_logits, local_triage)
+    from vainplex_openclaw_tpu_torch.knowledge.embeddings import (
+        LocalEmbeddings)
+    from vainplex_openclaw_tpu_torch.models import encoder
+    from vainplex_openclaw_tpu_torch.models.checkpoint import read_checkpoint
+    from vainplex_openclaw_tpu_torch.models.encoder import unflatten_tree
+    from vainplex_openclaw_tpu_torch.models.pretrained import (
+        DEFAULT_DIR, TINY_CONFIG, clear_cache, write_pretrained)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    class Log:
+        def info(self, *_):
+            pass
+
+        warn = error = info
+
+    findings = triage_findings(64, seed=31)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    decisions = {sev: local_triage(findings, min_severity=sev)
+                 for sev in ("critical", "medium")}
+    card = keep_logits(findings)
+    torch.cuda.synchronize()
+    triage_launches = fa.launches
+    for sev, got in decisions.items():
+        want = local_triage(findings, min_severity=sev, device="cpu")
+        check(got == want, f"triage_embed: local_triage at {sev} differs "
+                           f"card vs CPU ({sum(a != b for a, b in zip(got, want))})")
+    # the decisions alone barely see attention: the logits are compared too
+    host = keep_logits(findings, device="cpu")
+    err = float((card - host).abs().max())
+    check(err <= TRIAGE_TOL, f"triage_embed: keep logits differ card vs CPU "
+                             f"by {err} > {TRIAGE_TOL}")
+    model_kept = int(host.argmax(dim=-1).sum())
+    check(len(findings) // 8 <= model_kept <= len(findings) * 7 // 8,
+          f"triage_embed: the keep head kept {model_kept} of "
+          f"{len(findings)}; the findings do not split it")
+    # control: uniform attention (queries zeroed) must leave the tolerance
+    real_attention = encoder.flash_attention
+    encoder.flash_attention = lambda q, k, v, mask=None, **kw: \
+        real_attention(torch.zeros_like(q), k, v, mask, **kw)
+    try:
+        control_err = float((keep_logits(findings) - host).abs().max())
+    finally:
+        encoder.flash_attention = real_attention
+    check(control_err > TRIAGE_TOL, f"triage_embed: uniform attention moved "
+                                    f"the keep logits only {control_err}")
+    record = {"phase": "triage_embed", "findings": len(findings),
+              "kept": {k: sum(v) for k, v in decisions.items()},
+              "model_kept": model_kept,
+              "logits_max_abs_err": err, "tol": TRIAGE_TOL,
+              "control_max_abs_err": control_err,
+              "triage_k1_launches": triage_launches}
+
+    facts = seeded_facts(200, seed=32)
+    queries = seeded_texts(24, seed=33)
+    with tempfile.TemporaryDirectory() as fp32_dir:
+        flat = {k: torch.as_tensor(v).float()
+                for k, v in read_checkpoint(DEFAULT_DIR).items()}
+        write_pretrained(fp32_dir, dataclasses.replace(TINY_CONFIG,
+                                                       dtype="float32"),
+                         unflatten_tree(flat))
+        for name, ckpt, k in (("float32", fp32_dir, 5), ("bfloat16", None, 1)):
+            card = LocalEmbeddings(Log(), checkpoint_dir=ckpt)
+            host = LocalEmbeddings(Log(), checkpoint_dir=ckpt, device="cpu")
+            torch.cuda.synchronize()
+            fa.launches = 0
+            card.sync(facts)
+            got = [[h["id"] for h in card.search(q, k=k)] for q in queries]
+            torch.cuda.synchronize()
+            launches = fa.launches
+            host.sync(facts)
+            want = [[h["id"] for h in host.search(q, k=k)] for q in queries]
+            check(got == want, f"triage_embed: {name} search ids differ card "
+                               "vs CPU")
+            record[f"embed_{name}"] = {"facts": len(facts),
+                                       "queries": len(queries), "k": k,
+                                       "k1_launches": launches}
+        clear_cache()
+    emit(record)
+    return record
+
+
+def phase_timing_train(smi: str) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from vainplex_openclaw_tpu_torch.models import train
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        init_params, params_from_numpy)
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, Dh = 64, 4, 64, 16
+    q, k, v, mask = make_qkv(np.random.default_rng(41), B, H, L, L, Dh,
+                             torch.bfloat16, "prefix", "cuda")
+    bias = fa._bias(mask, B, L, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load_library("flash_attention")
+
+    def kernel():
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, L, L, Dh, fa._DTYPE_CODES[q.dtype], 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"train timing launch failed: CUDA error {err}")
+
+    def plain():
+        fa.flash_attention_reference(q, k, v, mask)
+
+    sdpa_mask = bias.to(q.dtype)[:, None, None, :]
+
+    def library():
+        F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fwd = fa.flash_attention(*leaves, mask)
+    cot = torch.randn_like(fwd)
+
+    def backward():
+        torch.autograd.grad(fwd, leaves, cot, retain_graph=True)
+
+    kernel_ms = [time_ms(kernel)]
+    plain_ms = [time_ms(plain), time_ms(plain)]
+    kernel_ms.append(time_ms(kernel))
+    library_ms = [time_ms(library), time_ms(library)]
+    kernel_ms.append(time_ms(kernel))
+    backward_ms = time_ms(backward, n=50, reps=7, warmup=5)
+    # the profiler drops records: three short windows, read per record
+    kernel_device = [device_kernel_ms(kernel, n=5) for _ in range(3)]
+    bound = attention_bound(B, H, L, L, Dh, q.element_size(), stats=False)
+
+    # a training step at the recipe's shape, split by what it runs
+    cfg = TINY_CONFIG
+    state = train.init_state(params_from_numpy(
+        init_params(cfg, torch.Generator().manual_seed(0)), cfg, "cuda",
+        cast=False), train.make_optimizer())
+    batch = tiny_batch(cfg)
+    dev_batch = train.batch_to(batch, torch.device("cuda"))
+    n = 50
+
+    def host_ms(fn, reps: int = 5) -> float:
+        samples = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t) * 1e3 / n)
+        return statistics.median(samples)
+
+    def fwd_only():
+        train.loss_fn(state.params, dev_batch, cfg)
+
+    def fwd_bwd():
+        state.opt_state.zero_grad(set_to_none=True)
+        train.loss_fn(state.params, dev_batch, cfg).backward()
+
+    def step():
+        nonlocal state
+        state, _ = train.train_step(state, batch, cfg)
+
+    for fn in (fwd_only, fwd_bwd, step):
+        fn()
+    fwd_ms, fwd_bwd_ms, step_ms = host_ms(fwd_only), host_ms(fwd_bwd), \
+        host_ms(step)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+    busy = device_busy(prof, time.perf_counter() - t)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:8]
+    busy["host_top"] = [{"name": e.key[:80], "self_cpu_ms": e.self_cpu_time_total
+                         / 1e3, "count": e.count} for e in host]
+    record = {"phase": "timing_train", "nvidia_smi": smi,
+              "shape": [B, H, L, L, Dh], "dtype": "bfloat16",
+              "kernel_ms": statistics.median(kernel_ms),
+              "kernel_ms_runs": kernel_ms, "kernel_device": kernel_device,
+              "plain_ms": statistics.median(plain_ms),
+              "plain_ms_runs": plain_ms,
+              "library_ms": statistics.median(library_ms),
+              "library_ms_runs": library_ms, **bound,
+              "dense_backward_ms": backward_ms,
+              "step": {"batch": 64, "config": "TINY_CONFIG bf16",
+                       "forward_ms": fwd_ms,
+                       "backward_ms": fwd_bwd_ms - fwd_ms,
+                       "adamw_and_rest_ms": step_ms - fwd_bwd_ms,
+                       "step_ms": step_ms,
+                       "k1_backward_ms_per_step": backward_ms * cfg.n_layers,
+                       "profiled_20_steps": busy}}
+    emit(record)
+    return record
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -1110,16 +1654,48 @@ def main() -> int:
         phase_ring()
         served_long = phase_serve_long(info["nvidia_smi"])
         timing_stats = phase_timing_stats()
+        grad = phase_grad()
+        trained = phase_train(info["nvidia_smi"])
+        trained_moe = phase_train_moe()
+        triage = phase_triage_embed()
+        timing_train = phase_timing_train(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
     k1_long = timing_stats["k1_same_shape"]
+    # K1's exponential floors at the ex2 rate timing_stats measured (the
+    # long shape's is in that record); derived, so not on the kernels line
+    ex2_per_s = timing_stats["sfu"]["ex2"]["steps_per_s"]
+    emit({"phase": "exp_floor_measured", "ex2_per_s": ex2_per_s,
+          "serve_shape": timing["shape"],
+          "serve_ms": timing["exponentials"] / ex2_per_s * 1e3,
+          "train_shape": timing_train["shape"],
+          "train_ms": timing_train["exponentials"] / ex2_per_s * 1e3})
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": served["launches"],
         "max_abs_err": worst, "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "launches_by_path": {
+            "serve": served["launches"],
+            "serve_long": served_long["k1_launches"],
+            "grad": grad["float32"]["k1_launches"]
+            + grad["bfloat16"]["k1_launches"],
+            "train": trained["k1_launches"],
+            "train_moe": trained_moe["k1_launches"],
+            "triage": triage["triage_k1_launches"],
+            "embed": triage["embed_float32"]["k1_launches"]
+            + triage["embed_bfloat16"]["k1_launches"]},
+        "train_shape": {"shape": timing_train["shape"],
+                        "launches": trained["k1_launches"],
+                        "ms": timing_train["kernel_ms"],
+                        "bound_ms": timing_train["bound_ms"],
+                        "bound_by": timing_train["bound_by"],
+                        "plain_ms": timing_train["plain_ms"],
+                        "library_ms": timing_train["library_ms"],
+                        "dense_backward_ms":
+                            timing_train["dense_backward_ms"]},
         "long_shape": {"shape": timing_stats["shape"],
                        "launches": served_long["k1_launches"],
                        "ms": k1_long["kernel_ms"],

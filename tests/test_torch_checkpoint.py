@@ -358,8 +358,10 @@ class TestParamsFromNumpy:
             params_from_numpy(unflatten_tree(flat), cfg, "cpu")
 
     def test_moe_config_not_ported(self):
+        """An MoE config is ported now; a tree without its ``moe`` leaves
+        is refused like any other missing leaf."""
         cfg = EncoderConfig(n_experts=2)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(KeyError, match="moe"):
             params_from_numpy({}, cfg, "cpu")
 
 

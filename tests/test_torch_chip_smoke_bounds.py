@@ -210,3 +210,88 @@ def test_kernel_cases_reach_the_tile_edges():
                                            if c[6]}
         assert {"last_tile", "holes"} <= {c[7] for c in cases}
     assert {63, 64, 65, 127, 128, 129} <= {c[4] for c in chip_smoke.KERNEL_CASES}
+
+
+def test_k1_training_shape_hand_counts():
+    """K1 at the recipe's training shape, B=64, H=4, L=64, Dh=16, bf16."""
+    b = chip_smoke.attention_bound(64, 4, 64, 64, 16, 2, stats=False)
+    assert b["bytes"] == 4 * 64 * 4 * 64 * 16 * 2 + 64 * 64 * 4
+    assert b["bytes"] == 2_113_536
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(0.000631, abs=1e-6)
+    assert b["exponentials"] == 1_048_576  # B·H·L·L
+    # the serve row's exponentials, which the measured ex2 rate turns
+    # into its floor
+    assert chip_smoke.attention_bound(32, 4, 64, 64, 16, 2, False)[
+        "exponentials"] == 524_288
+
+
+class _Evt:
+    def __init__(self, key, device_type, us, count=1):
+        from torch.autograd import DeviceType
+
+        self.key, self.count = key, count
+        self.device_type = getattr(DeviceType, device_type)
+        self.self_device_time_total = us
+
+
+class _Prof:
+    def __init__(self, events):
+        self.events = events
+
+    def key_averages(self):
+        return self.events
+
+
+def test_device_rows_count_each_kernel_once():
+    """A host op's device time repeats its kernels' time; only the device
+    events are summed."""
+    prof = _Prof([_Evt("aten::index_put_", "CPU", 1700.0),
+                  _Evt("indexing_backward_kernel", "CUDA", 1650.0),
+                  _Evt("Memcpy HtoD", "CUDA", 50.0, count=4),
+                  _Evt("aten::empty", "CPU", 0.0)])
+    rows = chip_smoke.device_rows(prof)
+    assert sorted(r[1] for r in rows) == ["Memcpy HtoD",
+                                          "indexing_backward_kernel"]
+    busy = chip_smoke.device_busy(prof, wall_s=0.017)
+    assert busy["device_ms"] == pytest.approx(1.7)
+    assert busy["busy_share"] == pytest.approx(0.1)
+
+
+def test_training_phase_inputs_are_the_recipe_and_repo_configs():
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+
+    batch = chip_smoke.tiny_batch(TINY_CONFIG)
+    assert batch["tokens"].shape == (64, TINY_CONFIG.seq_len)
+    assert chip_smoke.TRAIN_STEPS == 600
+    assert chip_smoke.MOE_WIDTHS == dict(vocab_size=512, seq_len=32,
+                                         d_model=64, n_heads=4, n_layers=2,
+                                         d_ff=128, n_experts=4)
+    findings = chip_smoke.triage_findings(64, seed=31)
+    facts = chip_smoke.seeded_facts(8, seed=2)
+    assert len({f.severity for f in findings}) == 5
+    assert [f.id for f in facts] == [f"f{i}" for i in range(8)]
+    assert all(f.summary for f in findings)
+    assert 0 < sum(bool(f.evidence) for f in findings) < len(findings)
+
+
+def test_triage_findings_split_the_keep_head_and_the_control_moves_it():
+    """On the CPU: the shipped keep head keeps some of the triage phase's
+    findings and drops some, and uniform attention moves its logits past
+    the phase's tolerance."""
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier import (
+        keep_logits)
+    from vainplex_openclaw_tpu_torch.models import encoder
+
+    findings = chip_smoke.triage_findings(64, seed=31)
+    host = keep_logits(findings, device="cpu")
+    kept = int(host.argmax(dim=-1).sum())
+    assert len(findings) // 8 <= kept <= len(findings) * 7 // 8
+    real = encoder.flash_attention
+    try:
+        encoder.flash_attention = lambda q, k, v, mask=None, **kw: real(
+            torch.zeros_like(q), k, v, mask, **kw)
+        control = keep_logits(findings, device="cpu")
+    finally:
+        encoder.flash_attention = real
+    assert float((control - host).abs().max()) > 10 * chip_smoke.TRIAGE_TOL

@@ -154,7 +154,8 @@ def test_unknown_impl_and_moe_raise():
     toks = torch.from_numpy(tokens_with_pad_row(2))
     with pytest.raises(ValueError, match="attn_impl"):
         forward(params, toks, dataclasses.replace(cfg, attn_impl="ring"))
-    with pytest.raises(NotImplementedError):
+    # an MoE config over a dense parameter tree
+    with pytest.raises(ValueError, match="moe"):
         forward(params, toks, dataclasses.replace(cfg, n_experts=2))
 
 

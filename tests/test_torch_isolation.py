@@ -19,7 +19,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "vainplex_openclaw_tpu_torch")
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "ml_dtypes", "vainplex_openclaw_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "ml_dtypes", "optax",
+                   "vainplex_openclaw_tpu")
 
 
 def forbidden(name: str) -> bool:
@@ -45,7 +46,7 @@ def port_modules() -> list:
 
 def test_forbidden_matcher():
     assert forbidden("jax") and forbidden("jax.numpy")
-    assert forbidden("vainplex_openclaw_tpu")
+    assert forbidden("vainplex_openclaw_tpu") and forbidden("optax")
     assert forbidden("vainplex_openclaw_tpu.models.encoder")
     assert not forbidden("vainplex_openclaw_tpu_torch")
     assert not forbidden("vainplex_openclaw_tpu_torch.models.encoder")
@@ -70,7 +71,12 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.models.long_context",
                 "vainplex_openclaw_tpu_torch.parallel.mesh",
                 "vainplex_openclaw_tpu_torch.parallel.plan",
-                "vainplex_openclaw_tpu_torch.parallel.ring_attention"):
+                "vainplex_openclaw_tpu_torch.parallel.ring_attention",
+                "vainplex_openclaw_tpu_torch.models.data",
+                "vainplex_openclaw_tpu_torch.models.moe",
+                "vainplex_openclaw_tpu_torch.models.train",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier",
+                "vainplex_openclaw_tpu_torch.knowledge.embeddings"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

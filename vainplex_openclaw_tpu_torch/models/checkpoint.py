@@ -15,6 +15,11 @@ leaves as ``uint16`` views with ``bfloat16`` in the manifest, the manifest
 renamed into place before the npz (``latest_step`` keys on the npz, so a
 visible step always has its dtypes), each through a temporary file, and
 steps beyond ``keep`` pruned oldest first.
+
+:func:`restore_checkpoint` refuses a checkpoint whose leaves are not
+exactly those of its ``like`` template, as the JAX restore does. A
+training state is a tree like any other here: ``models/train.py`` lays it
+out in the JAX package's keys (``TrainState.to_tree``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .encoder import flatten_tree
+from .encoder import flatten_tree, unflatten_tree
 
 _STEP_RE = re.compile(r"^step-(\d+)\.npz$")
 
@@ -65,10 +70,11 @@ def _apply_dtype(arr: np.ndarray, name: Optional[str]) -> Leaf:
     return arr.view(want)
 
 
-def read_checkpoint(ckpt_dir: str) -> dict:
-    """``{path_key: leaf}`` for the latest checkpoint in ``ckpt_dir``, with
-    the manifest's dtypes applied."""
-    step = latest_step(ckpt_dir)
+def read_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """``{path_key: leaf}`` for the checkpoint at ``step`` (default: the
+    latest) in ``ckpt_dir``, with the manifest's dtypes applied."""
+    if step is None:
+        step = latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step-{step}.npz")
@@ -133,3 +139,32 @@ def save_checkpoint(ckpt_dir: str, tree, step: int, keep: int = 3,
         if os.path.exists(mpath):
             os.unlink(mpath)
     return final
+
+
+def _as_like(leaf, like):
+    """A restored leaf in the dtype (and, for a tensor, on the device) of
+    its ``like`` leaf."""
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(leaf).to(device=like.device, dtype=like.dtype)
+    want = np.asarray(like).dtype
+    arr = leaf.float().numpy() if isinstance(leaf, torch.Tensor) else leaf
+    return np.asarray(arr).astype(want)
+
+
+def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None):
+    """The checkpoint at ``step`` (default: the latest) in the structure of
+    ``like``, a tree whose tensor leaves say the dtype and device of each
+    restored leaf. A leaf missing from the checkpoint, or a leaf ``like``
+    does not have, raises ``KeyError``."""
+    flat = read_checkpoint(ckpt_dir, step)
+    template = flatten_tree(like)
+    missing = sorted(set(template) - set(flat))
+    extra = sorted(set(flat) - set(template))
+    if missing:
+        raise KeyError(f"checkpoint in {ckpt_dir} is missing leaves "
+                       f"{missing[:5]}")
+    if extra:
+        raise KeyError(f"checkpoint in {ckpt_dir} has extra leaves "
+                       f"{extra[:5]}")
+    return unflatten_tree({k: _as_like(flat[k], template[k])
+                           for k in template})

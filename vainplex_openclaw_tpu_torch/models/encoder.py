@@ -17,7 +17,12 @@ Numerics that must match the JAX forward, each pinned by a test:
 - ``attn_impl="dense"`` rounds q·kᵀ to the activation dtype before the
   fp32 softmax, as the JAX dense path does; ``"flash"`` does not (the
   kernel keeps scores in fp32). ``"auto"`` is ``"flash"`` on every device:
-  the card's main path is the kernel.
+  the card's main path is the kernel;
+- with ``n_experts > 0`` each block's FFN is the mixture of experts of
+  ``models/moe.py`` and ``moe_aux`` sums its load-balance loss over layers.
+
+The forward is differentiable: every parameter is cast to the activation
+dtype where it is used, so a training step keeps fp32 masters.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
+from .moe import MoEConfig, moe_ffn, moe_init_std, moe_shapes
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -48,7 +54,7 @@ class EncoderConfig:
     n_mood: int = 5       # frustrated | neutral | satisfied | urgent | confused
     dtype: str = "bfloat16"  # activation dtype by name (a key of DTYPES)
     attn_impl: str = "auto"  # "auto" | "flash" | "dense"
-    n_experts: int = 0       # > 0 (MoE FFN) is not ported yet
+    n_experts: int = 0       # 0 = dense MLP; > 0 = MoE FFN (models/moe.py)
     moe_aux_weight: float = 0.01
     # Accepted for config parity: the JAX package scans stacked blocks to
     # shorten its trace. PyTorch runs eagerly, so the same loop runs.
@@ -58,12 +64,15 @@ class EncoderConfig:
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    @property
+    def moe(self) -> MoEConfig:
+        return MoEConfig(self.d_model, self.d_ff, self.n_experts)
+
 
 def param_shapes(cfg: EncoderConfig) -> dict:
-    """``{path_key: shape}`` of the dense parameter tree, as the JAX
-    ``init_params`` lays it out."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE encoder blocks are not ported yet")
+    """``{path_key: shape}`` of the parameter tree, as the JAX
+    ``init_params`` lays it out: ``blocks/i/mlp/{w1,w2}``, or with
+    ``n_experts > 0`` ``blocks/i/moe/{gate,w1,w2}``."""
     D, F_ = cfg.d_model, cfg.d_ff
     shapes = {"embed/tok": (cfg.vocab_size, D), "embed/pos": (cfg.seq_len, D),
               "final_norm/scale": (D,),
@@ -74,15 +83,20 @@ def param_shapes(cfg: EncoderConfig) -> dict:
             shapes[f"blocks/{i}/attn/{name}"] = (D, D)
         shapes[f"blocks/{i}/norm1/scale"] = (D,)
         shapes[f"blocks/{i}/norm2/scale"] = (D,)
-        shapes[f"blocks/{i}/mlp/w1"] = (D, F_)
-        shapes[f"blocks/{i}/mlp/w2"] = (F_, D)
+        if cfg.n_experts > 0:
+            for name, shape in moe_shapes(cfg.moe).items():
+                shapes[f"blocks/{i}/moe/{name}"] = shape
+        else:
+            shapes[f"blocks/{i}/mlp/w1"] = (D, F_)
+            shapes[f"blocks/{i}/mlp/w2"] = (F_, D)
     return shapes
 
 
 def init_params(cfg: EncoderConfig, generator: torch.Generator) -> dict:
     """A random fp32 parameter tree on the CPU with the JAX
     ``init_params`` shapes and scales: embeddings ``N(0, 0.02²)``, every
-    matrix ``N(0, 1/fan_in)``, norm scales 1. The values are not JAX's
+    matrix ``N(0, 1/fan_in)``, norm scales 1, and the MoE leaves as
+    ``models/moe.py`` scales them. The values are not JAX's
     (another generator); the parity tests carry JAX's weights across with
     :func:`params_from_numpy` instead."""
     flat = {}
@@ -90,7 +104,12 @@ def init_params(cfg: EncoderConfig, generator: torch.Generator) -> dict:
         if key.endswith("/scale"):
             flat[key] = torch.ones(shape, dtype=torch.float32)
             continue
-        std = 0.02 if key.startswith("embed/") else 1.0 / math.sqrt(shape[0])
+        if key.startswith("embed/"):
+            std = 0.02
+        elif "/moe/" in key:
+            std = moe_init_std(key.rsplit("/", 1)[1], shape)
+        else:
+            std = 1.0 / math.sqrt(shape[0])
         flat[key] = torch.randn(shape, generator=generator,
                                 dtype=torch.float32) * std
     return unflatten_tree(flat)
@@ -208,14 +227,24 @@ def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
         @ p["mlp"]["w2"].to(dt)
 
 
-def _block(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
-           impl: str) -> torch.Tensor:
-    x = x + _attention(_rmsnorm(x, p["norm1"]["scale"]), p["attn"], n_heads,
-                       mask, impl)
-    return _mlp(x, p)
+def _block(x: torch.Tensor, p: dict, cfg: EncoderConfig,
+           mask: torch.Tensor):
+    """One block → ``(x, aux)``: the MoE load-balance loss, or 0 for the
+    dense MLP."""
+    x = x + _attention(_rmsnorm(x, p["norm1"]["scale"]), p["attn"],
+                       cfg.n_heads, mask, cfg.attn_impl)
+    if cfg.n_experts > 0:
+        if "moe" not in p:
+            raise ValueError(f"n_experts={cfg.n_experts} but the block has "
+                             "no moe leaves (a dense parameter tree)")
+        y, aux = moe_ffn(_rmsnorm(x, p["norm2"]["scale"]), p["moe"],
+                         cfg.moe, mask)
+        return x + y, aux
+    return _mlp(x, p), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _outputs(pooled: torch.Tensor, heads: dict) -> dict:
+def _outputs(pooled: torch.Tensor, heads: dict,
+             moe_aux: "torch.Tensor | None" = None) -> dict:
     """The fp32 heads on the pooled ``[B, D]`` vector."""
     emb = pooled @ heads["embed_proj"]
     return {
@@ -224,24 +253,26 @@ def _outputs(pooled: torch.Tensor, heads: dict) -> dict:
         "mood": pooled @ heads["mood"],
         "embedding": emb / (torch.linalg.vector_norm(
             emb, dim=-1, keepdim=True) + 1e-6),
-        "moe_aux": torch.zeros((), dtype=torch.float32, device=pooled.device),
+        "moe_aux": moe_aux if moe_aux is not None else torch.zeros(
+            (), dtype=torch.float32, device=pooled.device),
     }
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: EncoderConfig) -> dict:
     """tokens ``[B, L]`` int on the parameters' device →
     ``{severity, keep, mood}`` fp32 logits, the unit-norm pooled
-    ``embedding`` and ``moe_aux`` (0 for the dense MLP)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE encoder blocks are not ported yet")
+    ``embedding`` and ``moe_aux`` (the MoE load-balance loss summed over
+    layers; 0 for the dense MLP)."""
     tokens = tokens.long()
     mask = tokens > 0
     dt = cfg.torch_dtype
     x = params["embed"]["tok"].to(dt)[tokens] \
         + params["embed"]["pos"].to(dt)[None, :, :]
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
-        x = _block(x, p, cfg.n_heads, mask, cfg.attn_impl)
+        x, aux = _block(x, p, cfg, mask)
+        moe_aux = moe_aux + aux
     x = _rmsnorm(x, params["final_norm"]["scale"])
     denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
     pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
-    return _outputs(pooled, params["heads"])
+    return _outputs(pooled, params["heads"], moe_aux)

@@ -72,7 +72,8 @@ def forward_long_placed(params: dict, shards: list, cfg: EncoderConfig,
     the token block of dp row i and sp column j on its grid device
     (``parallel.plan.place_tokens``)."""
     if cfg.n_experts > 0:
-        raise NotImplementedError("MoE encoder blocks are not ported yet")
+        raise NotImplementedError(
+            "MoE blocks in the long-context family are not ported yet")
     grid = mesh.grid(dp_axis, sp_axis)
     outs = [_forward_row(params, row, devs, cfg)
             for row, devs in zip(shards, grid)]

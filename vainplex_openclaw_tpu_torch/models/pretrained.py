@@ -8,8 +8,14 @@ JAX one: float16 on disk → float32 (what ``restore_checkpoint`` does
 through its fp32 template) → the ``cast_params`` rule, so the big matrices
 are bf16 and ``norm1``, ``norm2``, ``final_norm`` and ``heads`` stay fp32.
 :func:`write_pretrained` writes a checkpoint in the same layout
-(``config.json`` + step npz), which both packages load. Training and
-shipping stay in the JAX package for now.
+(``config.json`` + step npz), which both packages load.
+
+:func:`train_and_ship` is the JAX recipe (``train_and_ship`` in the JAX
+module) run by the port: ``TINY_CONFIG`` trained from a seeded init on the
+noun-disjoint synthetic split, shipped as float16 params only, and
+evaluated on the held-out split after the float16 round trip. Its
+``out_dir`` has no default: the port never writes into the JAX package's
+shipped directory.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from typing import Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .checkpoint import latest_step, read_checkpoint, save_checkpoint
-from .encoder import DTYPES, EncoderConfig, params_from_numpy, unflatten_tree
+from .checkpoint import (latest_step, read_checkpoint, restore_checkpoint,
+                         save_checkpoint)
+from .encoder import (DTYPES, EncoderConfig, flatten_tree, init_params,
+                      params_from_numpy, unflatten_tree)
 
 TINY_CONFIG = EncoderConfig(vocab_size=2048, seq_len=64, d_model=64,
                             n_heads=4, n_layers=2, d_ff=256)
@@ -96,3 +104,66 @@ def load_pretrained(ckpt_dir: Optional[str] = None,
 def clear_cache() -> None:
     with _cache_lock:
         _cache.clear()
+
+
+def train_and_ship(out_dir: str, total_steps: int = 600,
+                   n_examples: int = 4608, batch_size: int = 64,
+                   seed: int = 0, log=None, device: DeviceLike = None) -> dict:
+    """Train ``TINY_CONFIG`` on ``device`` (default: the card) with the JAX
+    recipe, write its float16 params as ``step-<total_steps>.npz`` and
+    ``config.json`` (with ``eval`` and ``provenance``) into ``out_dir``, and
+    return the held-out metrics, measured after the float16 round trip:
+    what a user loads is what was measured."""
+    from .data import TextClassificationData, synthetic_split
+    from .train import evaluate, init_state, make_optimizer, train_loop
+
+    dev = resolve_device(device)
+    if os.path.abspath(out_dir) == os.path.abspath(DEFAULT_DIR):
+        raise ValueError("train_and_ship never writes over the shipped "
+                         "checkpoint; pick another out_dir")
+    cfg = TINY_CONFIG
+    n_eval = max(batch_size, n_examples // 9)
+    # noun-disjoint: no eval text can repeat a training text
+    train_examples, eval_examples = synthetic_split(n_examples - n_eval,
+                                                    n_eval, seed=seed)
+    train_data = TextClassificationData(train_examples, batch_size,
+                                        seq_len=cfg.seq_len,
+                                        vocab_size=cfg.vocab_size, seed=seed)
+    heldout = TextClassificationData(eval_examples, batch_size,
+                                     seq_len=cfg.seq_len,
+                                     vocab_size=cfg.vocab_size, seed=seed)
+    init = params_from_numpy(
+        init_params(cfg, torch.Generator().manual_seed(seed)), cfg, dev,
+        cast=False)
+    state = train_loop(init_state(init, make_optimizer()), train_data, cfg,
+                       total_steps=total_steps, log=log)
+
+    shipped = {k: v.detach().to(torch.float16).cpu()
+               for k, v in flatten_tree(state.params).items()}
+    os.makedirs(out_dir, exist_ok=True)
+    save_checkpoint(out_dir, unflatten_tree(shipped), step=state.step,
+                    keep=1)
+    restored = restore_checkpoint(out_dir, like=state.params)
+    metrics = evaluate(restored, heldout, cfg)
+    meta = {
+        "config": config_to_manifest(cfg),
+        "eval": {k: float(v) for k, v in metrics.items()},
+        "provenance": {
+            "corpus": f"synthetic_split(n_train={n_examples - n_eval}, "
+                      f"n_eval={n_eval}, seed={seed})",
+            "heldout": n_eval,
+            "heldout_protocol": "noun-disjoint: eval nouns never appear in "
+                                "any training text (same 16 templates)",
+            "total_steps": total_steps,
+            "batch_size": batch_size,
+            "trained_by": "vainplex_openclaw_tpu_torch/models/pretrained.py"
+                          ":train_and_ship",
+            "device": str(dev),
+        },
+    }
+    tmp = os.path.join(out_dir, "config.json.tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=1)
+    os.replace(tmp, os.path.join(out_dir, "config.json"))
+    clear_cache()
+    return metrics

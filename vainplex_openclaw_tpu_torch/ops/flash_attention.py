@@ -38,6 +38,22 @@ compile-time constants, and it masks its own ragged edge instead of padding.
 Under ``causal`` it skips key tiles wholly after a query tile unless a row
 of that tile has no valid key, so such a row averages V over every key, as
 the plain version does.
+
+Both modes are differentiable, as the JAX package's custom VJPs make them
+(``_flash_norm``, ``_flash_stats``). Both go through one
+``torch.autograd.Function`` (:class:`_Flash`) whose forward is the kernel on CUDA and the plain version on the CPU, and
+whose backward is the vector-Jacobian product of the plain version,
+recomputed densely, as JAX's backward differentiates ``_dense_stats_ref``.
+Its fp32 scores are what XLA computes there too: under ``jit`` the bf16
+q·kᵀ einsum followed by a cast to fp32 becomes one product with an fp32
+result, never rounded to bf16 (a backward that rounds the scores first
+misses JAX's bf16 gradients by more than 0.1 of their scale in stats
+mode, where an argmax picks m; ``tests/test_torch_train.py`` holds this one
+to 1.5e-2 and the rounding one as a control). There is no backward
+kernel, as the JAX
+package has none. The bias gets no gradient. Only a forward adds to the
+launch counts; under ``torch.inference_mode()`` or ``torch.no_grad()``
+nothing is saved for a backward.
 """
 
 from __future__ import annotations
@@ -120,6 +136,13 @@ def _reference(q, k, v, bias, causal: bool) -> torch.Tensor:
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def _plain(q, k, v, bias, causal: bool, return_stats: bool):
+    if return_stats:
+        acc, m, l = _stats(q, k, v, bias, causal)
+        return acc, m[..., 0], l[..., 0]
+    return _reference(q, k, v, bias, causal)
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               kv_mask: Optional[torch.Tensor] = None, *,
@@ -129,8 +152,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     PV). The CPU path and the tests use it; on the card only checks that
     hold the kernel against it do."""
     _check(q, k, v, kv_mask, causal)
-    B, Lk = q.shape[0], k.shape[2]
-    return _reference(q, k, v, _bias(kv_mask, B, Lk, q.device), causal)
+    return _plain(q, k, v, _bias(kv_mask, q.shape[0], k.shape[2], q.device),
+                  causal, False)
 
 
 def flash_attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
@@ -141,33 +164,18 @@ def flash_attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
     ``[B, H, Lq, Dh]`` unnormalized, m and l fp32 ``[B, H, Lq]``, l
     unclamped."""
     _check(q, k, v, kv_mask, causal)
-    B, Lk = q.shape[0], k.shape[2]
-    acc, m, l = _stats(q, k, v, _bias(kv_mask, B, Lk, q.device), causal)
-    return acc, m[..., 0], l[..., 0]
+    return _plain(q, k, v, _bias(kv_mask, q.shape[0], k.shape[2], q.device),
+                  causal, True)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_mask: Optional[torch.Tensor] = None, *,
-                    causal: bool = False, return_stats: bool = False):
-    """q ``[B, H, Lq, Dh]``, k and v ``[B, H, Lk, Dh]``, kv_mask ``[B, Lk]``
-    bool or None → ``[B, H, Lq, Dh]`` in q's dtype, or with
-    ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+def _launch(q, k, v, bias, causal: bool, return_stats: bool):
+    """K1 (or K2 with ``return_stats``) on CUDA tensors; adds one to its
+    count once the launch is accepted, or raises."""
     global launches, stats_launches
-    _check(q, k, v, kv_mask, causal)
-    B, H, Lq, Dh = q.shape
-    Lk = k.shape[2]
-    bias = _bias(kv_mask, B, Lk, q.device)
-    if q.device.type == "cpu":
-        if return_stats:
-            acc, m, l = _stats(q, k, v, bias, causal)
-            return acc, m[..., 0], l[..., 0]
-        return _reference(q, k, v, bias, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     from ._build import load_library
 
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
     lib = load_library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -196,3 +204,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             launches += 1
     return (acc, m, l) if return_stats else out
+
+
+def _forward(q, k, v, bias, causal: bool, return_stats: bool):
+    """The plain version on CPU tensors, the kernel on CUDA tensors."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, bias, causal, return_stats)
+    return _plain(q, k, v, bias, causal, return_stats)
+
+
+class _Flash(torch.autograd.Function):
+    """K1 (or K2 with ``return_stats``) forward, dense-recompute backward
+    (JAX ``_flash_norm_bwd`` / ``_flash_stats_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, return_stats):
+        ctx.causal, ctx.return_stats = causal, return_stats
+        ctx.save_for_backward(q, k, v, bias)
+        return _forward(q, k, v, bias, causal, return_stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        """dq, dk, dv: the plain version recomputed densely and
+        differentiated by autograd against ``grads``."""
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            outs = _plain(*qkv, bias, ctx.causal, ctx.return_stats)
+            dqkv = torch.autograd.grad(
+                outs, qkv, grads if ctx.return_stats else grads[0])
+        return (*dqkv, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor] = None, *,
+                    causal: bool = False, return_stats: bool = False):
+    """q ``[B, H, Lq, Dh]``, k and v ``[B, H, Lk, Dh]``, kv_mask ``[B, Lk]``
+    bool or None → ``[B, H, Lq, Dh]`` in q's dtype, or with
+    ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise. Differentiable in q, k and v on both."""
+    _check(q, k, v, kv_mask, causal)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    bias = _bias(kv_mask, q.shape[0], k.shape[2], q.device)
+    return _Flash.apply(q, k, v, bias, causal, return_stats)
