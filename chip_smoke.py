@@ -25,9 +25,10 @@ non-zero before the last line is printed.
    another order), over every row (a row with no valid key averages V),
    every row finite; the cases reach the key tile's edges (Lk 63/64/65,
    127/128/129), query counts off the 64-row tile, causal at L=130, masks
-   valid only in the last key tile and masks with holes, and L=16384; at
-   2048 keys or more the plain version without its first key tile must
-   fail the same check (``CONTROL_MIN_LK``);
+   valid only in the last key tile and masks with holes, L=16384, and the
+   shard shapes the mesh phases launch (16-21); at 2048 keys or more the
+   plain version without its first key tile must fail the same check
+   (``CONTROL_MIN_LK``);
 4. forward: the port's forward on the card against the same forward on the
    CPU (the plain attention), on the shipped weights over 512 seeded texts
    and on random weights at ``EncoderConfig()`` width;
@@ -98,6 +99,38 @@ Training and the other consumers of the forward follow:
     backward of one attention call; a training step split into forward,
     backward, AdamW and the rest, and the card's busy share over a
     profiled window of steps.
+
+Every mesh-serving family follows, each grid repeating the one card (the
+sharded arithmetic and placement of a mesh, not copies between cards), and
+each against the single-device path in the same call (requests/s and p50
+from 64 seeded prompts at 8 threads, measurements with no claim):
+
+16. mesh_default: ``make_local_call_llm(serve_cfg={"meshServing": True})``
+    from the shipped checkpoint: a ``1x1`` grid over (dp, tp), verdicts
+    (severity-3 templates included) equal to the one-shot card path, K1
+    launched n_layers times per sub-batch;
+17. mesh_tp: ``encoder_validator`` on (2, 2) and (1, 4) grids through
+    ``ContinuousBatcher(mesh=...)``: verdicts equal; the shipped weights'
+    logits within 1e-5 (cast to fp32) and 5e-2 with the argmax equal
+    (bf16) of the single-device card forward; K1 n_layers × dp × tp times
+    per forward; a control with the ``attn/o`` psum replaced by one
+    column's partial must fail the fp32 check;
+18. mesh_pp: ``encoder_validator_pp`` on two stages, 4 microbatches:
+    verdicts and logits as above, ``microbatch`` charged 4 × batches, K1
+    n_layers × M per forward;
+19. mesh_ep: ``encoder_validator_moe`` on (2, 2) over (dp, ep) from a
+    seeded 4-expert fp32 checkpoint: verdicts equal, ``auxMean`` within
+    1e-5 of the single-device forward on the same batches, K1 n_layers ×
+    dp per forward;
+20. embed_mesh: ``embeddings_forward`` on (4,) and
+    ``embeddings_forward_moe`` on (1, 2): search ids equal to the
+    single-device port (fp32 top-5, bf16 top-1), K1 n_layers × dp per
+    embedding forward;
+21. timing_mesh: K1 at the shard shapes (a tp=2 column of a dp=2 row at
+    the 32 bucket, B=16 H=2, and a pipeline microbatch, B=8 H=4) beside
+    its bound, its plain version and SDPA, with the wrapper's output on
+    the same inputs held against the plain version; then one line with
+    the seconds each mesh phase took.
 
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
@@ -190,6 +223,12 @@ KERNEL_CASES = [
     ("holes", 4, 2, 150, 150, 32, False, "holes"),
     ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
     ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, "prefix"),
+    # the shard shapes of the mesh phases: a tp=2 column of a dp=2 row, a
+    # tp=4 column, a pipeline microbatch, and an MoE dp row
+    ("mesh_tp2_shard", 16, 2, 64, 64, 16, False, "prefix"),
+    ("mesh_tp4_shard", 32, 1, 64, 64, 16, False, "prefix"),
+    ("mesh_pp_microbatch", 8, 4, 64, 64, 16, False, "prefix"),
+    ("mesh_moe_dp_row", 16, 4, 32, 32, 16, False, "prefix"),
 ]
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
@@ -1638,6 +1677,555 @@ def phase_timing_train(smi: str) -> dict:
     return record
 
 
+# ── the mesh families (each grid repeats cuda:0) ──────────────────────────
+
+MESH_PROMPTS = 64
+MESH_THREADS = 8
+
+
+def card_grid(axes: tuple, shape: tuple):
+    """A grid of ``shape`` over ``axes`` that repeats the one card: the
+    sharded arithmetic and placement of a mesh, without cross-card copies."""
+    from vainplex_openclaw_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes=axes, shape=shape,
+                     devices=["cuda:0"] * math.prod(shape))
+
+
+def batcher_call(batcher):
+    """A ``call_llm`` over a batcher built directly (a repeated-card grid
+    cannot come from a serve config, which takes distinct cards)."""
+    from vainplex_openclaw_tpu_torch.models import serve
+
+    def call(prompt: str) -> str:
+        return batcher.submit(serve._extract_message(prompt))
+
+    return call
+
+
+def timed_round(call, prompts: list) -> dict:
+    """Requests/s and latency quantiles of one threaded round (after one
+    warm-up request), with its verdicts."""
+    call(as_prompt("warm-up request"))
+    got, latency, wall, errors = serve_round(call, prompts, MESH_THREADS)
+    check(not errors, f"serve errors: {errors[:3]}")
+    lat = sorted(latency)
+    return {"verdicts": got, "requests_per_s": len(prompts) / wall,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
+def mesh_logits(params, tokens, cfg, mesh, family):
+    """The mesh forward of ``family`` and the K1 launches it made."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel import plan
+
+    with torch.inference_mode():
+        placed = plan.place_params(params, mesh, family)
+        shards = plan.place_tokens(tokens, mesh, family)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        out = plan.serve_forward(placed, shards, cfg, mesh, family)
+        torch.cuda.synchronize()
+        return out, fa.launches
+
+
+def shipped_params(dtype: str):
+    """(cfg, params on the card) of the shipped checkpoint, bf16 as it
+    ships or cast to fp32."""
+    import dataclasses
+
+    from vainplex_openclaw_tpu_torch.models import params_from_numpy
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+
+    cfg, params = load_pretrained()
+    if dtype == "bfloat16":
+        return cfg, params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    return cfg32, params_from_numpy(params, cfg32, "cuda")
+
+
+def k1_per_forward(counted: int, **factors) -> dict:
+    """A launch count beside its formula (factors in order)."""
+    want = math.prod(factors.values())
+    check(counted == want, f"K1 per forward {counted} != "
+                           f"{' x '.join(factors)} = {want}")
+    return {"counted": counted,
+            "formula": " x ".join(f"{k} {v}" for k, v in factors.items()),
+            "expected": want}
+
+
+def phase_mesh_default(smi: str) -> dict:
+    """The default ``meshServing: true`` config end to end on one card."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, _ = load_pretrained()
+    prompts = [as_prompt(t) for t in seeded_texts(MESH_PROMPTS, seed=51)]
+    oneshot = serve.make_local_call_llm(
+        serve_cfg={"continuousBatching": False})
+    oracle = [oneshot(p) for p in prompts]
+    single = timed_round(serve.make_local_call_llm(
+        serve_cfg={"windowMs": 0.0}), prompts)
+    check(single["verdicts"] == oracle, "single-device batcher differs from "
+                                        "the one-shot path")
+    call = serve.make_local_call_llm(serve_cfg={"meshServing": True,
+                                                "windowMs": 0.0})
+    batcher = call.batcher
+    call(as_prompt("warm-up request"))
+    runs0 = batcher.mesh_runs["forward"]
+    torch.cuda.synchronize()
+    fa.launches = 0
+    got, latency, wall, errors = serve_round(call, prompts, MESH_THREADS)
+    launches = fa.launches
+    runs = batcher.mesh_runs["forward"] - runs0
+    check(not errors, f"mesh default errors: {errors[:3]}")
+    mismatches = sum(a != b for a, b in zip(got, oracle))
+    check(mismatches == 0, f"mesh default: {mismatches} verdicts differ "
+                           "from the one-shot card path")
+    stats = batcher.stats()
+    check(stats["mesh"] == "1x1", f"mesh default: mesh {stats['mesh']}")
+    check(launches == cfg.n_layers * runs,
+          f"mesh default: K1 launches {launches} != {cfg.n_layers} x {runs}")
+    lat = sorted(latency)
+    serve.close_batchers()
+    record = {"phase": "mesh_default", "nvidia_smi": smi,
+              "serve_cfg": {"meshServing": True, "windowMs": 0.0},
+              "mesh": stats["mesh"], "requests": len(prompts),
+              "distinct_verdicts": len(set(got)),
+              "severity3_verdicts": sum('"block"' in v for v in got),
+              "verdict_mismatches": 0, "k1_launches": launches,
+              "sub_batches": runs,
+              "requests_per_s": len(prompts) / wall,
+              "p50_ms": lat[len(lat) // 2],
+              "single_device": {k: single[k] for k in
+                                ("requests_per_s", "p50_ms", "p99_ms")}}
+    emit(record)
+    return {"prompts": prompts, "oracle": oracle, "single": single,
+            "launches": launches}
+
+
+def phase_mesh_tp(smi: str, base: dict) -> dict:
+    """The Megatron validator on (2, 2) and (1, 4) grids over one card."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encode_texts, forward
+    from vainplex_openclaw_tpu_torch.models.batching import ContinuousBatcher
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel import sharded_forward
+
+    prompts, oracle = base["prompts"], base["oracle"]
+    record = {"phase": "mesh_tp", "nvidia_smi": smi,
+              "family": "encoder_validator",
+              "single_device": {k: base["single"][k] for k in
+                                ("requests_per_s", "p50_ms", "p99_ms")}}
+    texts = seeded_texts(MESH_PROMPTS, seed=52)
+    served_launches = {}
+    for shape in ((2, 2), (1, 4)):
+        name = f"{shape[0]}x{shape[1]}"
+        mesh = card_grid(("dp", "tp"), shape)
+        batcher = ContinuousBatcher(window_ms=0.0, mesh=mesh)
+        try:
+            runs0 = batcher.mesh_runs["forward"]
+            fa.launches = 0
+            timed = timed_round(batcher_call(batcher), prompts)
+            launches = fa.launches
+            runs = batcher.mesh_runs["forward"] - runs0
+            stats = batcher.stats()
+        finally:
+            batcher.close()
+        mismatches = sum(a != b for a, b in zip(timed["verdicts"], oracle))
+        check(mismatches == 0, f"mesh_tp {name}: {mismatches} verdicts "
+                               "differ from the one-shot card path")
+        check(stats["mesh"] == name, f"mesh_tp: stats mesh {stats['mesh']}")
+        n_layers = shipped_params("bfloat16")[0].n_layers
+        check(launches == n_layers * shape[0] * shape[1] * runs,
+              f"mesh_tp {name}: served K1 launches {launches} != "
+              f"n_layers x dp x tp x {runs} sub-batches")
+        entry = {"requests_per_s": timed["requests_per_s"],
+                 "p50_ms": timed["p50_ms"], "p99_ms": timed["p99_ms"],
+                 "served_k1_launches": launches, "sub_batches": runs,
+                 "verdict_mismatches": 0}
+        served_launches[name] = launches
+        for dt_name, tol in (("float32", 1e-5), ("bfloat16", 5e-2)):
+            cfg, params = shipped_params(dt_name)
+            tokens = torch.from_numpy(encode_texts(texts, cfg.seq_len,
+                                                   cfg.vocab_size))
+            with torch.inference_mode():
+                want = forward(params, tokens.cuda(), cfg)
+            out, counted = mesh_logits(params, tokens, cfg, mesh,
+                                       "encoder_validator")
+            err = compare_outputs(out, want)
+            same = bool((out["severity"].argmax(-1)
+                         == want["severity"].argmax(-1)).all())
+            check(err <= tol and same, f"mesh_tp {name} {dt_name}: logits "
+                                       f"differ by {err} > {tol} or argmax "
+                                       f"differs ({same})")
+            entry[dt_name] = {"max_abs_err": err, "argmax_equal": same,
+                              "tol": tol,
+                              "k1_per_forward": k1_per_forward(
+                                  counted, n_layers=cfg.n_layers,
+                                  dp=shape[0], tp=shape[1])}
+        record[name] = entry
+    # negative control: the attn/o psum replaced by one column's partial
+    cfg, params = shipped_params("float32")
+    tokens = torch.from_numpy(encode_texts(texts, cfg.seq_len,
+                                           cfg.vocab_size))
+    with torch.inference_mode():
+        want = forward(params, tokens.cuda(), cfg)
+    real = sharded_forward.psum
+    sharded_forward.psum = lambda parts, device, site: (
+        parts[0].to(device) if site == "attn/o" else real(parts, device, site))
+    try:
+        dropped, _ = mesh_logits(params, tokens, cfg,
+                                 card_grid(("dp", "tp"), (2, 2)),
+                                 "encoder_validator")
+    finally:
+        sharded_forward.psum = real
+    control = compare_outputs(dropped, want)
+    check(control > 1e-5, f"mesh_tp: dropping an attn/o partial moved the "
+                          f"fp32 logits only {control}; the check is blind")
+    record["control_dropped_attn_o_partial"] = {"max_abs_err": control,
+                                                "tol": 1e-5,
+                                                "check_fails": True}
+    emit(record)
+    return {"launches": sum(served_launches.values()),
+            "by_shape": served_launches}
+
+
+def phase_mesh_pp(smi: str, base: dict) -> dict:
+    """The GPipe validator on two stages over one card, 4 microbatches."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encode_texts, forward
+    from vainplex_openclaw_tpu_torch.models.batching import ContinuousBatcher
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel.plan import PLAN_TABLE
+
+    M = PLAN_TABLE["encoder_validator_pp"].microbatches
+    mesh = card_grid(("pp",), (2,))
+    batcher = ContinuousBatcher(window_ms=0.0, mesh=mesh,
+                                plan_family="encoder_validator_pp")
+    try:
+        runs0 = batcher.mesh_runs["pipeline"]
+        micro0 = batcher.timer.counts().get("microbatch", 0)
+        batches0 = batcher.batches
+        fa.launches = 0
+        timed = timed_round(batcher_call(batcher), base["prompts"])
+        launches = fa.launches
+        runs = batcher.mesh_runs["pipeline"] - runs0
+        micro = batcher.timer.counts()["microbatch"] - micro0
+        batches = batcher.batches - batches0
+    finally:
+        batcher.close()
+    mismatches = sum(a != b for a, b in zip(timed["verdicts"],
+                                            base["oracle"]))
+    check(mismatches == 0, f"mesh_pp: {mismatches} verdicts differ from "
+                           "the one-shot card path")
+    check(micro == M * batches, f"mesh_pp: microbatch count {micro} != "
+                                f"{M} x {batches} batches")
+    n_layers = shipped_params("bfloat16")[0].n_layers
+    check(launches == n_layers * M * runs,
+          f"mesh_pp: served K1 launches {launches} != n_layers x M x "
+          f"{runs} sub-batches")
+    record = {"phase": "mesh_pp", "nvidia_smi": smi,
+              "family": "encoder_validator_pp", "mesh": "2 (pp)",
+              "microbatches": M, "batches": batches,
+              "microbatch_count": micro, "verdict_mismatches": 0,
+              "requests_per_s": timed["requests_per_s"],
+              "p50_ms": timed["p50_ms"], "p99_ms": timed["p99_ms"],
+              "served_k1_launches": launches, "sub_batches": runs,
+              "single_device": {k: base["single"][k] for k in
+                                ("requests_per_s", "p50_ms", "p99_ms")}}
+    texts = seeded_texts(32, seed=53)
+    for dt_name, tol in (("float32", 1e-5), ("bfloat16", 5e-2)):
+        cfg, params = shipped_params(dt_name)
+        tokens = torch.from_numpy(encode_texts(texts, cfg.seq_len,
+                                               cfg.vocab_size))
+        with torch.inference_mode():
+            want = forward(params, tokens.cuda(), cfg)
+        out, counted = mesh_logits(params, tokens, cfg, mesh,
+                                   "encoder_validator_pp")
+        err = compare_outputs(out, want)
+        same = bool((out["severity"].argmax(-1)
+                     == want["severity"].argmax(-1)).all())
+        check(err <= tol and same, f"mesh_pp {dt_name}: logits differ by "
+                                   f"{err} > {tol} or argmax ({same})")
+        record[dt_name] = {"max_abs_err": err, "argmax_equal": same,
+                           "tol": tol,
+                           "k1_per_forward": k1_per_forward(
+                               counted, n_layers=cfg.n_layers, M=M)}
+    emit(record)
+    return {"launches": launches}
+
+
+def moe_checkpoint(ckpt: str, dtype: str) -> tuple:
+    """The repository's MoE encoder, seeded, written by the port."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        EncoderConfig, init_params)
+    from vainplex_openclaw_tpu_torch.models.pretrained import write_pretrained
+
+    cfg = EncoderConfig(**MOE_WIDTHS, dtype=dtype)
+    tree = init_params(cfg, torch.Generator().manual_seed(3))
+    write_pretrained(ckpt, cfg, tree)
+    return cfg
+
+
+def phase_mesh_ep(smi: str, moe_dir: str) -> dict:
+    """The expert-parallel validator on a (2, 2) (dp, ep) grid over one
+    card, from the seeded 4-expert fp32 checkpoint."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encode_texts, forward, serve
+    from vainplex_openclaw_tpu_torch.models.batching import ContinuousBatcher
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, params = load_pretrained(moe_dir)
+    texts = seeded_texts(MESH_PROMPTS, seed=54)
+    prompts = [as_prompt(t) for t in texts]
+    oneshot = serve.make_local_call_llm(
+        moe_dir, serve_cfg={"continuousBatching": False})
+    oracle = [oneshot(p) for p in prompts]
+    single = timed_round(serve.make_local_call_llm(
+        moe_dir, serve_cfg={"windowMs": 0.0}), prompts)
+    check(single["verdicts"] == oracle, "mesh_ep: single-device batcher "
+                                        "differs from the one-shot path")
+    mesh = card_grid(("dp", "ep"), (2, 2))
+    # stepped: known batches of 16, whose single-device aux is the reference
+    stepped = ContinuousBatcher(moe_dir, max_batch=16, window_ms=0.0,
+                                autostart=False, mesh=mesh,
+                                plan_family="encoder_validator_moe")
+    tickets = [stepped.enqueue(t) for t in texts]
+    fa.launches = 0
+    check(stepped.drain() == len(texts), "mesh_ep: drain")
+    launches = fa.launches
+    got = [t.result for t in tickets]
+    mismatches = sum(a != b for a, b in zip(got, oracle))
+    check(mismatches == 0, f"mesh_ep: {mismatches} verdicts differ from the "
+                           "one-shot card path")
+    moe_stats = stepped.stats()["moe"]
+    with torch.inference_mode():
+        aux = [float(forward(params, torch.from_numpy(encode_texts(
+            texts[i:i + 16], cfg.seq_len, cfg.vocab_size)).cuda(),
+            cfg)["moe_aux"]) for i in range(0, len(texts), 16)]
+    aux_err = abs(moe_stats["auxMean"] - sum(aux) / len(aux))
+    check(moe_stats["batches"] == len(aux) and aux_err <= 1e-5,
+          f"mesh_ep: auxMean {moe_stats['auxMean']} vs single-device "
+          f"{sum(aux) / len(aux)} ({aux_err} > 1e-5)")
+    check(launches == cfg.n_layers * 2 * len(aux),
+          f"mesh_ep: K1 launches {launches} != n_layers x dp x batches")
+    tokens = torch.from_numpy(encode_texts(texts[:32], cfg.seq_len,
+                                           cfg.vocab_size))
+    with torch.inference_mode():
+        want = forward(params, tokens.cuda(), cfg)
+    out, counted = mesh_logits(params, tokens, cfg, mesh,
+                               "encoder_validator_moe")
+    err = compare_outputs(out, want)
+    check(err <= 1e-5, f"mesh_ep: fp32 logits differ by {err} > 1e-5")
+    threaded = ContinuousBatcher(moe_dir, window_ms=0.0, mesh=mesh,
+                                 plan_family="encoder_validator_moe")
+    try:
+        timed = timed_round(batcher_call(threaded), prompts)
+    finally:
+        threaded.close()
+        serve.close_batchers()
+    check(timed["verdicts"] == oracle, "mesh_ep: threaded verdicts differ")
+    record = {"phase": "mesh_ep", "nvidia_smi": smi,
+              "family": "encoder_validator_moe", "mesh": "2x2 (dp, ep)",
+              "config": {**MOE_WIDTHS, "dtype": cfg.dtype},
+              "requests": len(prompts), "verdict_mismatches": 0,
+              "moe_stats": moe_stats, "single_device_aux_mean":
+                  sum(aux) / len(aux), "aux_mean_abs_err": aux_err,
+              "aux_tol": 1e-5, "fp32_max_abs_err": err,
+              "served_k1_launches": launches,
+              "k1_per_forward": k1_per_forward(counted, n_layers=cfg.n_layers,
+                                               dp=2),
+              "requests_per_s": timed["requests_per_s"],
+              "p50_ms": timed["p50_ms"], "p99_ms": timed["p99_ms"],
+              "single_device": {k: single[k] for k in
+                                ("requests_per_s", "p50_ms", "p99_ms")}}
+    emit(record)
+    return {"launches": launches}
+
+
+def phase_embed_mesh(smi: str, moe_dirs: dict) -> dict:
+    """Both embeddings families on repeated-card grids against the
+    single-device port on the card: fp32 top-5 and bf16 top-1 ids."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.knowledge.embeddings import (
+        LocalEmbeddings)
+    from vainplex_openclaw_tpu_torch.models.checkpoint import read_checkpoint
+    from vainplex_openclaw_tpu_torch.models.encoder import unflatten_tree
+    from vainplex_openclaw_tpu_torch.models.pretrained import (
+        DEFAULT_DIR, TINY_CONFIG, clear_cache, write_pretrained)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    class Log:
+        def info(self, *_):
+            pass
+
+        warn = error = info
+
+    facts = seeded_facts(200, seed=32)
+    queries = seeded_texts(24, seed=33)
+    record = {"phase": "embed_mesh", "nvidia_smi": smi, "facts": len(facts),
+              "queries": len(queries)}
+    total = 0
+    with tempfile.TemporaryDirectory() as fp32_dir:
+        flat = {k: torch.as_tensor(v).float()
+                for k, v in read_checkpoint(DEFAULT_DIR).items()}
+        write_pretrained(fp32_dir, dataclasses.replace(TINY_CONFIG,
+                                                       dtype="float32"),
+                         unflatten_tree(flat))
+        cases = [("embeddings_forward", ("dp",), (4,), TINY_CONFIG.n_layers,
+                  (("float32", fp32_dir, 5), ("bfloat16", None, 1))),
+                 ("embeddings_forward_moe", ("dp", "ep"), (1, 2),
+                  MOE_WIDTHS["n_layers"],
+                  (("float32", moe_dirs["float32"], 5),
+                   ("bfloat16", moe_dirs["bfloat16"], 1)))]
+        for family, axes, shape, n_layers, legs in cases:
+            mesh = card_grid(axes, shape)
+            entry = {"mesh": "x".join(map(str, shape)) + f" {axes}"}
+            for dt_name, ckpt, k in legs:
+                single = LocalEmbeddings(Log(), checkpoint_dir=ckpt)
+                meshy = LocalEmbeddings(Log(), checkpoint_dir=ckpt, mesh=mesh,
+                                        plan_family=family)
+                single.sync(facts)
+                want = [[h["id"] for h in single.search(q, k=k)]
+                        for q in queries]
+                torch.cuda.synchronize()
+                fa.launches = 0
+                t = time.perf_counter()
+                meshy.sync(facts)
+                got = [[h["id"] for h in meshy.search(q, k=k)]
+                       for q in queries]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = fa.launches
+                check(got == want, f"embed_mesh {family} {dt_name}: search "
+                                   "ids differ from the single-device port")
+                forwards = 1 + meshy.query_cache_misses
+                check(launches == n_layers * shape[0] * forwards,
+                      f"embed_mesh {family} {dt_name}: K1 launches "
+                      f"{launches} != n_layers x dp x {forwards} forwards")
+                total += launches
+                entry[dt_name] = {"k": k, "k1_launches": launches,
+                                  "forwards": forwards,
+                                  "sync_and_search_s": wall,
+                                  "shard_commits":
+                                      meshy.timer.counts().get("shard", 0)}
+            record[family] = entry
+        clear_cache()
+    record["k1_launches"] = total
+    emit(record)
+    return {"launches": total}
+
+
+def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
+    """K1 at one shape (bf16, prefix mask) beside its plain version, SDPA
+    and the bound, in turns within this call."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, L, L, Dh,
+                             torch.bfloat16, "prefix", "cuda")
+    bias = fa._bias(mask, B, L, q.device)
+    out = torch.empty_like(q)
+    lib = _build.load_library("flash_attention")
+
+    def kernel():
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, L, L, Dh, fa._DTYPE_CODES[q.dtype], 0,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"K1 timing launch failed: CUDA error {err}")
+
+    sdpa_mask = bias.to(q.dtype)[:, None, None, :]
+    kernel_ms = [time_ms(kernel)]
+    plain_ms = [time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
+                for _ in range(2)]
+    kernel_ms.append(time_ms(kernel))
+    library_ms = [time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=sdpa_mask)) for _ in range(2)]
+    kernel_ms.append(time_ms(kernel))
+    ref = fa.flash_attention_reference(q, k, v, mask)
+    err = k1_errors(out, ref, "bfloat16")[2]
+    check(err <= TOL["bfloat16"], f"K1 at {[B, H, L, Dh]}: {err}")
+    # the wrapper the mesh paths call (bias, dtype dispatch), same inputs
+    wrapper_err = k1_errors(fa.flash_attention(q, k, v, mask), ref,
+                            "bfloat16")[2]
+    check(wrapper_err <= TOL["bfloat16"],
+          f"K1 wrapper at {[B, H, L, Dh]}: {wrapper_err}")
+    return {"shape": [B, H, L, L, Dh], "dtype": "bfloat16",
+            "wrapper_row_rel_err": wrapper_err,
+            "kernel_ms": statistics.median(kernel_ms),
+            "kernel_ms_runs": kernel_ms,
+            "plain_ms": statistics.median(plain_ms),
+            "library_ms": statistics.median(library_ms),
+            "row_rel_err": err,
+            **attention_bound(B, H, L, L, Dh, q.element_size(), stats=False)}
+
+
+def phase_timing_mesh(smi: str) -> dict:
+    """K1 at the shard shapes the mesh phases launch: a tp=2 column of a
+    dp=2 row at the serve bucket (B=16, H=2) and a pipeline microbatch
+    (B=8, H=4)."""
+    record = {"phase": "timing_mesh", "nvidia_smi": smi,
+              "tp2_shard": time_k1(16, 2, 64, 16, seed=61),
+              "pp_microbatch": time_k1(8, 4, 64, 16, seed=62)}
+    emit(record)
+    return record
+
+
+def phase_mesh(smi: str) -> dict:
+    """Every mesh family, each grid repeating the one card."""
+    import tempfile
+
+    from vainplex_openclaw_tpu_torch.models.pretrained import clear_cache
+
+    seconds: dict = {}
+
+    def timed(name: str, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    t0 = time.perf_counter()
+    out = {"default": timed("mesh_default", phase_mesh_default, smi)}
+    out["tp"] = timed("mesh_tp", phase_mesh_tp, smi, out["default"])
+    out["pp"] = timed("mesh_pp", phase_mesh_pp, smi, out["default"])
+    with tempfile.TemporaryDirectory() as root:
+        moe_dirs = {}
+        for dt_name in ("float32", "bfloat16"):
+            moe_dirs[dt_name] = f"{root}/moe-{dt_name}"
+            moe_checkpoint(moe_dirs[dt_name], dt_name)
+        out["ep"] = timed("mesh_ep", phase_mesh_ep, smi, moe_dirs["float32"])
+        out["embed"] = timed("embed_mesh", phase_embed_mesh, smi, moe_dirs)
+        clear_cache()
+    out["timing"] = timed("timing_mesh", phase_timing_mesh, smi)
+    emit({"phase": "mesh_seconds", "nvidia_smi": smi, "seconds": seconds,
+          "total": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -1659,6 +2247,7 @@ def main() -> int:
         trained_moe = phase_train_moe()
         triage = phase_triage_embed()
         timing_train = phase_timing_train(info["nvidia_smi"])
+        mesh = phase_mesh(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1686,7 +2275,22 @@ def main() -> int:
             "train_moe": trained_moe["k1_launches"],
             "triage": triage["triage_k1_launches"],
             "embed": triage["embed_float32"]["k1_launches"]
-            + triage["embed_bfloat16"]["k1_launches"]},
+            + triage["embed_bfloat16"]["k1_launches"],
+            "mesh_default": mesh["default"]["launches"],
+            "mesh_tp": mesh["tp"]["launches"],
+            "mesh_pp": mesh["pp"]["launches"],
+            "mesh_ep": mesh["ep"]["launches"],
+            "embed_mesh": mesh["embed"]["launches"]},
+        "shard_shapes": [
+            {"path": path, "shape": t["shape"], "launches": launches,
+             "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "plain_ms": t["plain_ms"],
+             "library_ms": t["library_ms"]}
+            for path, t, launches in (
+                ("mesh_tp 2x2", mesh["timing"]["tp2_shard"],
+                 mesh["tp"]["by_shape"]["2x2"]),
+                ("mesh_pp", mesh["timing"]["pp_microbatch"],
+                 mesh["pp"]["launches"]))],
         "train_shape": {"shape": timing_train["shape"],
                         "launches": trained["k1_launches"],
                         "ms": timing_train["kernel_ms"],

@@ -314,12 +314,29 @@ def test_auto_mesh_shape_takes_every_cpu_entry(long_ckpt):
 
 @pytest.mark.parametrize("scfg", [
     {"meshServing": True},
-    {"meshServing": True, "planFamily": "encoder_validator_pp"},
-    {"meshServing": True, "planFamily": "encoder_validator_moe"},
+    {"meshServing": True, "planFamily": "encoder_validator_pp",
+     "meshAxes": ["pp"], "meshShape": [2]},
+    {"meshServing": True, "planFamily": "encoder_validator_moe",
+     "meshAxes": ["dp", "ep"]},
     {"planFamily": "encoder_validator_long"}])
 def test_other_mesh_families_still_raise(scfg, long_ckpt):
-    with pytest.raises(NotImplementedError):
-        serve.make_local_call_llm(long_ckpt, device="cpu", serve_cfg=scfg)
+    """The other families serve this (dense) checkpoint now, with verdicts
+    equal to the JAX one-shot oracle: dp×tp on the auto grid, the
+    pipeline over two stages, and a plan family without meshServing on
+    one device. The MoE family still raises, loudly, as the JAX mesh path
+    does: its expert rules match no leaf of a dense tree."""
+    call = serve.make_local_call_llm(long_ckpt, device="cpu",
+                                     serve_cfg=dict(scfg, windowMs=0.0))
+    prompts = [build_prompt(t, []) for t in LONG_TEXTS + SHORT_TEXTS]
+    if scfg.get("planFamily") == "encoder_validator_moe":
+        with pytest.raises(ValueError, match="rule-table validation"):
+            call(prompts[0])
+        return
+    oracle = jax_serve.make_local_call_llm(
+        checkpoint_dir=long_ckpt, force=True,
+        serve_cfg={"continuousBatching": False})
+    assert [call(p) for p in prompts] == [oracle(p) for p in prompts]
+    assert (call.batcher.mesh is None) == (not scfg.get("meshServing"))
 
 
 def test_mesh_needs_its_axes(long_ckpt):

@@ -24,6 +24,8 @@ from vainplex_openclaw_tpu.parallel import plan as jax_plan
 from vainplex_openclaw_tpu.parallel.ring_attention import (
     dense_attention_reference as jax_dense,
     ring_attention as jax_ring)
+from vainplex_openclaw_tpu_torch.models.encoder import (
+    EncoderConfig, forward, init_params)
 from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 from vainplex_openclaw_tpu_torch.parallel import plan
 from vainplex_openclaw_tpu_torch.parallel.mesh import (
@@ -144,9 +146,30 @@ def test_long_plan_equals_jax():
     "encoder_validator", "embeddings_forward", "encoder_validator_pp",
     "encoder_validator_moe", "embeddings_forward_moe"])
 def test_unported_families_raise(family):
-    assert family in jax_plan.PLAN_TABLE
-    with pytest.raises(NotImplementedError):
-        plan.resolve_plan(family)
+    """Once unported, each family now resolves to the JAX plan and serves:
+    its mesh forward on a grid of its axes equals the single-device
+    forward (fp32, 1e-5)."""
+    got, want = plan.resolve_plan(family), jax_plan.PLAN_TABLE[family]
+    for name in ("family", "axes", "runner", "gather", "bucket_min",
+                 "microbatches", "source", "description"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.data_spec == tuple(want.data_spec)
+    assert [(pat, spec) for pat, spec in got.rules] == \
+        [(pat, tuple(spec)) for pat, spec in want.rules]
+    cfg = EncoderConfig(vocab_size=512, seq_len=16, d_model=64, n_heads=4,
+                        n_layers=2, d_ff=128, dtype="float32",
+                        n_experts=4 if "moe" in family else 0)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    mesh = make_mesh(axes=got.axes, shape=(2,) * len(got.axes),
+                     device="cpu")
+    tok = np.random.default_rng(1).integers(0, 512, size=(4, 16))
+    with torch.inference_mode():
+        out = plan.serve_forward(
+            plan.place_params(params, mesh, family),
+            plan.place_tokens(tok, mesh, family), cfg, mesh, family)
+        ref = forward(params, torch.from_numpy(tok), cfg)
+    for head in ("severity", "keep", "mood", "embedding", "moe_aux"):
+        torch.testing.assert_close(out[head], ref[head], atol=1e-5, rtol=0)
 
 
 def test_unknown_family_raises_key_error():
@@ -186,8 +209,11 @@ def test_sharded_params_cached_per_key_mesh_and_params():
     mesh = torch_mesh((2, 4))
     params = {"a": torch.ones(2), "b": [torch.zeros(1)]}
     placed = plan.sharded_params("k", params, mesh, "encoder_validator_long")
-    assert list(placed) == [CPU]  # one copy per distinct device
-    assert placed[CPU]["a"] is params["a"]  # already there: shared
+    # keyed by grid position, one tree per (dp row, sp column)
+    assert [len(row) for row in placed.trees] == [4, 4]
+    assert placed.grid == [[CPU] * 4] * 2
+    # replicated leaves already on their device are shared, not copied
+    assert all(t["a"] is params["a"] for row in placed.trees for t in row)
     assert plan.sharded_params("k", params, mesh,
                                "encoder_validator_long") is placed
     reloaded = {"a": torch.ones(2), "b": [torch.zeros(1)]}

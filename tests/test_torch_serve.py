@@ -32,6 +32,7 @@ from vainplex_openclaw_tpu.resilience.admission import (
 from vainplex_openclaw_tpu.utils.stage_timer import StageTimer as JaxTimer
 from vainplex_openclaw_tpu_torch.config.loader import deep_merge
 from vainplex_openclaw_tpu_torch.models import batching, serve
+from vainplex_openclaw_tpu_torch.parallel.mesh import cached_mesh
 from vainplex_openclaw_tpu_torch.resilience.admission import (
     AdmissionController)
 from vainplex_openclaw_tpu_torch.utils.stage_timer import StageTimer
@@ -368,8 +369,23 @@ class TestDeviceAndUnportedOptions:
         {"meshServing": True}, {"planFamily": "encoder_validator_pp"},
         {"modelRegistry": True}, {"modelRegistry": {"benchRounds": 1}}])
     def test_unported_serve_options_raise(self, scfg):
-        with pytest.raises(NotImplementedError):
-            serve.make_local_call_llm(serve_cfg=scfg, device="cpu")
+        """The model registry still raises; mesh serving (the default
+        dp×tp family over the auto grid) and a plan family without
+        meshServing (one device) serve the JAX oracle's verdicts."""
+        if "modelRegistry" in scfg:
+            with pytest.raises(NotImplementedError):
+                serve.make_local_call_llm(serve_cfg=scfg, device="cpu")
+            return
+        try:
+            call = serve.make_local_call_llm(
+                serve_cfg=dict(scfg, windowMs=0.0), device="cpu")
+            texts = mixed_texts(6, seed=2)
+            assert [call(build_prompt(t, [])) for t in texts] == \
+                jax_oracle(texts)
+            assert call.batcher.stats()["mesh"] == \
+                ("2x4" if scfg.get("meshServing") else None)
+        finally:
+            serve.close_batchers()
 
     def test_registry_off_dict_is_accepted(self):
         call = serve.make_local_call_llm(
@@ -377,11 +393,28 @@ class TestDeviceAndUnportedOptions:
                        "continuousBatching": False}, device="cpu")
         assert json.loads(call("ok"))["verdict"] in ("pass", "flag", "block")
 
-    @pytest.mark.parametrize("kw", [{"mesh": object()},
+    @pytest.mark.parametrize("kw", [{"mesh": (2, 2)},
                                     {"registry": object()}])
     def test_batcher_mesh_and_registry_raise(self, kw):
-        with pytest.raises(NotImplementedError):
-            make_batcher(**kw)
+        """A registry still raises; a dp×tp mesh serves the verdicts of the
+        meshless batcher."""
+        if "registry" in kw:
+            with pytest.raises(NotImplementedError):
+                make_batcher(**kw)
+            return
+        meshy = make_batcher(mesh=cached_mesh(kw["mesh"], ("dp", "tp"),
+                                              "cpu"))
+        plain = make_batcher()
+        texts = mixed_texts(7, seed=3)
+        try:
+            got = [meshy.enqueue(t) for t in texts]
+            want = [plain.enqueue(t) for t in texts]
+            assert meshy.drain() == plain.drain() == len(texts)
+        finally:
+            meshy.close()
+            plain.close()
+        assert [t.result for t in got] == [t.result for t in want]
+        assert meshy.stats()["mesh"] == "2x2"
 
     def test_swap_to_raises(self):
         batcher = make_batcher()

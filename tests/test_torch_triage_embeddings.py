@@ -287,8 +287,17 @@ def test_create_embeddings_backends():
     local = port_emb.create_embeddings({}, log, device="cpu")
     assert isinstance(local, port_emb.LocalEmbeddings)
     assert port_emb.create_embeddings({"backend": "other"}, log) is None
-    with pytest.raises(NotImplementedError, match="meshServing"):
-        port_emb.create_embeddings({"meshServing": True}, log, device="cpu")
+    # meshServing: the dp family over every CPU grid entry, search ids
+    # equal to the meshless backend's
+    meshy = port_emb.create_embeddings({"meshServing": True}, log,
+                                       device="cpu")
+    assert meshy._mesh.shape == {"dp": 8}
+    facts = [Fact(id=f"f{i}", subject=f"service {i}", predicate="runs-on",
+                  object=("k8s" if i % 2 else "the deploy failed"),
+                  source="test", created_at="2026") for i in range(11)]
+    assert meshy.sync(facts) == local.sync(facts) == len(facts)
+    for q in ("deploy failed", "service 3 runs on k8s"):
+        assert ids(meshy.search(q, k=4)) == ids(local.search(q, k=4))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             port_emb.create_embeddings({}, log)

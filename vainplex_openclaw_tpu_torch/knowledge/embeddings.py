@@ -1,7 +1,7 @@
 """Fact embeddings for the knowledge engine: Chroma sync or on-device search.
 
-Counterpart of ``vainplex_openclaw_tpu/knowledge/embeddings.py`` on one
-device. Two backends:
+Counterpart of ``vainplex_openclaw_tpu/knowledge/embeddings.py``. Two
+backends:
 
 - ``chroma``: facts become ``"subject predicate object."`` documents POSTed
   to a ChromaDB-v2-shaped endpoint through an injected ``http_post``
@@ -9,13 +9,17 @@ device. Two backends:
 - ``local``: :class:`LocalEmbeddings`, the port's encoder on the card
   (``device=None``) or the CPU, with cosine top-k over an in-memory arena.
 
-``meshServing`` (the data-parallel ``embeddings_forward`` plan families) is
-not ported: :func:`create_embeddings` raises ``NotImplementedError`` for it.
+``meshServing: true`` gives the local backend a mesh: the embedding
+forward runs through the plan of ``planFamily`` (``embeddings_forward``:
+weights replicated, batch over dp; ``embeddings_forward_moe``: expert
+matrices over ep as well) and search scores the arena with its rows split
+over dp (``parallel.plan.arena_scores``).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import threading
 from collections import OrderedDict
@@ -30,6 +34,8 @@ from ..models.encoder import (EncoderConfig, forward, init_params,
 from ..models.pretrained import load_pretrained
 from ..models.tokenizer import encode_texts
 from ..ops.similarity import pad_rows, pow2_bucket
+from ..parallel import plan as sharding_plan
+from ..parallel.mesh import _factor, available_devices, cached_mesh
 from ..utils.stage_timer import StageTimer
 
 
@@ -131,18 +137,38 @@ class LocalEmbeddings:
       results, so a cached query scores against the current arena.
     - Arena and cache are guarded by one lock (a maintenance thread syncs
       while a serve thread searches); the embedding compute stays outside.
-    - ``timer`` attributes ``sync`` and ``search`` time.
+    - ``timer`` attributes ``sync`` and ``search`` time, and with a mesh
+      ``shard``: committing the arena to the mesh, which happens again
+      only after ``sync`` or ``remove`` changed it.
+    - ``mesh`` (a :class:`~..parallel.mesh.Mesh` on ``device``'s type)
+      serves the forward through the plan of ``plan_family`` and scores
+      the arena with its rows split over dp; its first device is the
+      model's.
     """
 
     def __init__(self, logger, seed: int = 11, learned_weight: float = 0.5,
                  checkpoint_dir: Optional[str] = None,
                  timer: Optional[StageTimer] = None,
-                 query_cache_size: int = 256, device: DeviceLike = None):
+                 query_cache_size: int = 256, device: DeviceLike = None,
+                 mesh=None, plan_family: str = "embeddings_forward"):
         self.logger = logger
         self.seed = seed
         self.learned_weight = learned_weight
         self.checkpoint_dir = checkpoint_dir
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._plan_family = plan_family
+        if mesh is not None:
+            sharding_plan.check_servable(
+                sharding_plan.resolve_plan(plan_family, mesh), mesh)
+            if {d.type for d in mesh.devices} != {self.device.type}:
+                raise ValueError(f"mesh devices {mesh.distinct_devices()} "
+                                 f"are not on {self.device.type}")
+            self.device = mesh.devices[0]
+        # the arena's rows on the mesh, committed again after a mutation
+        self._device_arena = None
+        self._device_arena_rows = 0
+        self._arena_dirty = True
         self.timer = timer if timer is not None else StageTimer()
         self._model = None
         self._lock = threading.Lock()
@@ -179,10 +205,21 @@ class LocalEmbeddings:
         cfg, params = self._ensure_model()
         n = len(texts)
         tokens = encode_texts(texts, cfg.seq_len, cfg.vocab_size)
-        padded = pad_rows(tokens, pow2_bucket(n))
         with torch.inference_mode():
-            out = forward(params, torch.from_numpy(padded).to(self.device),
-                          cfg)
+            if self._mesh is not None:
+                padded = pad_rows(tokens, sharding_plan.serve_bucket(
+                    n, self._mesh, plan=self._plan_family))
+                placed = sharding_plan.sharded_params(
+                    (self.checkpoint_dir or "shipped-default", self.seed),
+                    params, self._mesh, self._plan_family)
+                out = sharding_plan.serve_forward(
+                    placed, sharding_plan.place_tokens(
+                        padded, self._mesh, self._plan_family),
+                    cfg, self._mesh, self._plan_family)
+            else:
+                padded = pad_rows(tokens, pow2_bucket(n))
+                out = forward(params,
+                              torch.from_numpy(padded).to(self.device), cfg)
             learned = out["embedding"][:n].float().cpu().numpy()  # unit norm
 
         mask = tokens > 1  # drop PAD/CLS
@@ -251,7 +288,27 @@ class LocalEmbeddings:
                     self._pos[fact.id] = self._size
                     self._ids.append(fact.id)
                     self._size += 1
+                self._arena_dirty = True
         return len(facts)
+
+    def _scores(self, q: np.ndarray, size: int) -> np.ndarray:
+        """Scores of the live rows (the caller holds ``self._lock``): the
+        host matmul, or with a mesh the dp-split one over the committed
+        arena, padded to a dp multiple (zero rows score 0.0)."""
+        if self._mesh is None:
+            return self._arena[:size] @ q
+        rows = sharding_plan.serve_bucket(size, self._mesh,
+                                          plan=self._plan_family)
+        if self._arena_dirty or self._device_arena_rows != rows:
+            with self.timer.stage("shard"):
+                self._device_arena = sharding_plan.place_rows(
+                    pad_rows(self._arena[:size], rows), self._mesh)
+                self._device_arena_rows = rows
+                self._arena_dirty = False
+        with torch.inference_mode():
+            scores = sharding_plan.arena_scores(
+                self._device_arena, torch.from_numpy(q), self._mesh)
+            return scores.cpu().numpy()[:size]
 
     def search(self, query: str, k: int = 5) -> list[dict]:
         if self._size == 0:
@@ -262,7 +319,7 @@ class LocalEmbeddings:
                 size = self._size
                 if size == 0:  # raced with a remove draining the arena
                     return []
-                scores = self._arena[:size] @ q
+                scores = self._scores(q, size)
                 if 0 < k < size:
                     # every index at or above the kth score, so boundary
                     # ties are cut by (-score, id) as a full sort would
@@ -296,6 +353,7 @@ class LocalEmbeddings:
                     self._pos[moved] = row
                 self._ids.pop()
                 self._size -= 1
+            self._arena_dirty = True
         return len(dead)
 
     def count(self) -> int:
@@ -307,17 +365,31 @@ def create_embeddings(config: dict, logger,
                       timer: Optional[StageTimer] = None,
                       device: DeviceLike = None):
     """The backend ``config["backend"]`` names (``local`` by default), or
-    None for an unknown one."""
+    None for an unknown one. ``meshServing`` builds the local backend's
+    mesh now, so a config that cannot get its devices fails here:
+    ``meshAxes`` (default ``["dp"]``) over ``meshShape`` (default: every
+    device of ``device``'s type); one axis takes the shape's device count,
+    and a shape of another rank than the axes is factored as the serve
+    config's is."""
     config = config or {}
     backend = config.get("backend", "local")
     if backend == "chroma":
         return ChromaEmbeddings(config, logger, http_post)
     if backend == "local":
+        mesh = None
+        dev = resolve_device(device)
         if config.get("meshServing"):
-            raise NotImplementedError(
-                "embeddings meshServing (the embeddings_forward plan "
-                "families) is not ported yet")
-        return LocalEmbeddings(logger,
-                               checkpoint_dir=config.get("checkpointDir"),
-                               timer=timer, device=device)
+            axes = tuple(config.get("meshAxes") or ("dp",))
+            shape = tuple(int(s) for s in config.get("meshShape")
+                          or (len(available_devices(dev)),))
+            n = math.prod(shape)
+            if len(axes) == 1:
+                shape = (n,)
+            elif len(shape) != len(axes):
+                shape = _factor(n) + (1,) * (len(axes) - 2)
+            mesh = cached_mesh(shape, axes, dev.type)
+        return LocalEmbeddings(
+            logger, checkpoint_dir=config.get("checkpointDir"), timer=timer,
+            device=dev, mesh=mesh,
+            plan_family=config.get("planFamily", "embeddings_forward"))
     return None

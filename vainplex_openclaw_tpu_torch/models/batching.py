@@ -19,14 +19,20 @@ Tokens move host → device once per batch, and severity comes back with one
 kernel keeps such rows finite, and they are sliced away before decode.
 
 With a ``mesh`` (a :class:`~..parallel.mesh.Mesh`) the batch serves through
-the plan of ``plan_family``; the port serves ``encoder_validator_long``,
-whose runner is ring attention over (dp, sp). Rows with at least
-``long_threshold`` real tokens take that program (``forward_long``, kernel
-K2); the rest take its short-path twin, the dense forward (kernel K1), over
-the same placed weights. Each sub-batch is bucketed by ``serve_bucket``.
-Two more stages are timed: ``shard`` (placing weights and token shards)
-and ``gather`` (severity back to the host). The model registry and hot
-swap are not ported yet: passing ``registry`` raises.
+the plan of ``plan_family``, any family of ``parallel.plan.PLAN_TABLE``:
+the ``forward`` runner (dp rows, tensor or expert parallel, kernel K1 on
+every shard), the ``pipeline`` wavefront (K1 per microbatch and stage) or,
+for ``encoder_validator_long``, ring attention over (dp, sp): rows with at
+least ``long_threshold`` real tokens take that program (``forward_long``,
+kernel K2), the rest its short-path twin over the same placed weights.
+Each sub-batch is bucketed by ``serve_bucket``. Two more stages are timed:
+``shard`` (placing weights and token shards) and ``gather`` (severity back
+to the host); a pipeline plan also charges each of its microbatches
+``prefill / M`` under ``microbatch`` (a mean, not a measured hop). An MoE
+model on a mesh reports its load-balance aux under ``stats()["moe"]``.
+Without a mesh ``plan_family`` is not read: every family serves
+single-device. The model registry and hot swap are not ported yet:
+passing ``registry`` raises.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ class ContinuousBatcher:
         if registry is not None:
             raise NotImplementedError("the model registry is not ported yet")
         self.device = resolve_device(device)
-        # Mesh serving: the plan resolves here, so an unported family fails
+        # Mesh serving: the plan resolves here, so an unknown family fails
         # at construction, not on the first request. ``searched_plans`` is
         # the JAX knob; no searched row exists for a CUDA grid.
         self.mesh = mesh
@@ -117,8 +123,11 @@ class ContinuousBatcher:
         self.long_threshold = max(1, int(long_threshold))
         self.long_routed = 0
         # Sub-batches served per runner ("long": ring attention, K2;
-        # "forward": the dense forward, K1), for launch accounting.
-        self.mesh_runs = {"long": 0, "forward": 0}
+        # "forward" and "pipeline": K1), for launch accounting.
+        self.mesh_runs = {runner: 0 for runner in sharding_plan.RUNNERS}
+        self._moe_aux_last = 0.0
+        self._moe_aux_sum = 0.0
+        self._moe_batches = 0
         if mesh is not None:
             plan = sharding_plan.resolve_plan(plan_family, mesh,
                                               searched=self.searched_plans)
@@ -346,11 +355,22 @@ class ContinuousBatcher:
                     torch.cuda.synchronize(d)
         t2 = self._clock()
         self.timer.add("prefill", (t2 - t_sh) * 1e3)
+        if plan.runner == "pipeline" and plan.microbatches:
+            # the wavefront's prefill, shared evenly by its microbatches
+            per_mb = (t2 - t_sh) * 1e3 / plan.microbatches
+            for _ in range(plan.microbatches):
+                self.timer.add("microbatch", per_mb)
         severity = torch.zeros((len(tokens), cfg.n_severity),
                                dtype=torch.float32)
         for idx, out in outs:
             severity[torch.from_numpy(idx)] = \
                 out["severity"][:idx.size].float().cpu()
+        if cfg.n_experts > 0 and outs:
+            aux = float(outs[0][1]["moe_aux"])
+            with self._lock:
+                self._moe_aux_last = aux
+                self._moe_aux_sum += aux
+                self._moe_batches += 1
         t_g = self._clock()
         self.timer.add("gather", (t_g - t2) * 1e3)
         return severity, t_g
@@ -380,6 +400,13 @@ class ContinuousBatcher:
         if self.mesh is not None:
             base["longRouted"] = self.long_routed
             base["meshRuns"] = dict(self.mesh_runs)
+        if self._moe_batches:
+            # the router's imbalance: n_experts × the balance term
+            base["moe"] = {
+                "auxLast": round(self._moe_aux_last, 6),
+                "auxMean": round(self._moe_aux_sum / self._moe_batches, 6),
+                "batches": self._moe_batches,
+            }
         if self.admission is not None:
             base["admission"] = self.admission.stats()
         base["stages"] = self.timer.snapshot()

@@ -17,7 +17,8 @@ visible step always has its dtypes), each through a temporary file, and
 steps beyond ``keep`` pruned oldest first.
 
 :func:`restore_checkpoint` refuses a checkpoint whose leaves are not
-exactly those of its ``like`` template, as the JAX restore does. A
+exactly those of its ``like`` template, as the JAX restore does, and with a
+mesh and a plan places the restored tree per the plan's rules. A
 training state is a tree like any other here: ``models/train.py`` lays it
 out in the JAX package's keys (``TrainState.to_tree``).
 """
@@ -151,11 +152,22 @@ def _as_like(leaf, like):
     return np.asarray(arr).astype(want)
 
 
-def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None):
+def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
+                       mesh=None, plan=None):
     """The checkpoint at ``step`` (default: the latest) in the structure of
     ``like``, a tree whose tensor leaves say the dtype and device of each
     restored leaf. A leaf missing from the checkpoint, or a leaf ``like``
-    does not have, raises ``KeyError``."""
+    does not have, raises ``KeyError``.
+
+    Resharding on load: with ``mesh`` (a ``parallel.mesh.Mesh``) and
+    ``plan`` (a ``ShardingPlan`` or a family name) the restored tree is
+    placed per the plan's rules and a ``parallel.plan.Placement`` comes
+    back; a pipeline plan's tree is stacked into stages on the host first
+    (``prepare_params``). The rule-table check is armed, and a mesh without
+    a plan raises. ``Placement.gather()`` gives back the meshless restore
+    (stacked, for a pipeline plan) bit for bit."""
+    if mesh is not None and plan is None:
+        raise ValueError("restore_checkpoint: mesh given without a plan")
     flat = read_checkpoint(ckpt_dir, step)
     template = flatten_tree(like)
     missing = sorted(set(template) - set(flat))
@@ -166,5 +178,10 @@ def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None):
     if extra:
         raise KeyError(f"checkpoint in {ckpt_dir} has extra leaves "
                        f"{extra[:5]}")
-    return unflatten_tree({k: _as_like(flat[k], template[k])
+    tree = unflatten_tree({k: _as_like(flat[k], template[k])
                            for k in template})
+    if mesh is None:
+        return tree
+    from ..parallel.plan import place_params
+
+    return place_params(tree, mesh, plan)

@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
-from .moe import MoEConfig, moe_ffn, moe_init_std, moe_shapes
+from .moe import (MoEConfig, load_balance_loss, moe_ffn_parts, moe_init_std,
+                  moe_shapes)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -138,8 +139,9 @@ def unflatten_tree(flat: dict) -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = leaf
-    if "blocks" in tree:
-        blocks = tree["blocks"]
+    blocks = tree.get("blocks")
+    if isinstance(blocks, dict) and all(k.isdigit() for k in blocks):
+        # a per-layer list; a stacked stage tree keeps its dict
         tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
     return tree
 
@@ -188,9 +190,10 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _split_heads(x: torch.Tensor, w: torch.Tensor,
                  n_heads: int) -> torch.Tensor:
-    """``[B, L, D] @ w`` → contiguous ``[B, H, L, Dh]``."""
-    B, L, D = x.shape
-    return (x @ w.to(x.dtype)).reshape(B, L, n_heads, D // n_heads) \
+    """``[B, L, D] @ w`` (``w`` ``[D, H·Dh]``) → contiguous
+    ``[B, H, L, Dh]``."""
+    B, L, _ = x.shape
+    return (x @ w.to(x.dtype)).reshape(B, L, n_heads, -1) \
         .transpose(1, 2).contiguous()
 
 
@@ -200,23 +203,27 @@ def _merge_heads(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, L, H * Dh) @ w.to(out.dtype)
 
 
-def _attention(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
-               impl: str) -> torch.Tensor:
-    Dh = x.shape[-1] // n_heads
-    dt = x.dtype
-    q, k, v = (_split_heads(x, p[n], n_heads) for n in ("q", "k", "v"))
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor, impl: str) -> torch.Tensor:
+    """Attention over ``[B, H, L, Dh]`` heads with the ``[B, L]`` key
+    mask: the kernel (``"flash"``, and ``"auto"``) or the dense scores."""
     if impl == "auto":
         impl = "flash"
     if impl == "flash":
-        out = flash_attention(q, k, v, mask)
-    elif impl == "dense":
-        scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(Dh)
+        return flash_attention(q, k, v, mask)
+    if impl == "dense":
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() \
+            / math.sqrt(q.shape[-1])
         scores = torch.where(mask[:, None, None, :], scores, -1e30)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
-    else:
-        raise ValueError(f"unknown attn_impl {impl!r}")
-    return _merge_heads(out, p["o"])
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def _attention(x: torch.Tensor, p: dict, n_heads: int, mask: torch.Tensor,
+               impl: str) -> torch.Tensor:
+    q, k, v = (_split_heads(x, p[n], n_heads) for n in ("q", "k", "v"))
+    return _merge_heads(attend(q, k, v, mask, impl), p["o"])
 
 
 def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -227,20 +234,62 @@ def _mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
         @ p["mlp"]["w2"].to(dt)
 
 
-def _block(x: torch.Tensor, p: dict, cfg: EncoderConfig,
-           mask: torch.Tensor):
-    """One block → ``(x, aux)``: the MoE load-balance loss, or 0 for the
+def attention_half(x: torch.Tensor, p: dict, cfg: EncoderConfig,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """The block's first half: ``x + attn(norm1(x))``."""
+    return x + _attention(_rmsnorm(x, p["norm1"]["scale"]), p["attn"],
+                          cfg.n_heads, mask, cfg.attn_impl)
+
+
+def ffn_half(x: torch.Tensor, p: dict, cfg: EncoderConfig,
+             mask: torch.Tensor):
+    """The block's second half → ``(x, sums)``: the MoE FFN's
+    load-balance sums ``(route_sum, prob_sum, count)``, or None for the
     dense MLP."""
-    x = x + _attention(_rmsnorm(x, p["norm1"]["scale"]), p["attn"],
-                       cfg.n_heads, mask, cfg.attn_impl)
     if cfg.n_experts > 0:
         if "moe" not in p:
             raise ValueError(f"n_experts={cfg.n_experts} but the block has "
                              "no moe leaves (a dense parameter tree)")
-        y, aux = moe_ffn(_rmsnorm(x, p["norm2"]["scale"]), p["moe"],
-                         cfg.moe, mask)
-        return x + y, aux
-    return _mlp(x, p), torch.zeros((), dtype=torch.float32, device=x.device)
+        y, *sums = moe_ffn_parts(_rmsnorm(x, p["norm2"]["scale"]), p["moe"],
+                                 cfg.moe, mask)
+        return x + y, tuple(sums)
+    return _mlp(x, p), None
+
+
+def block_aux(sums, cfg: EncoderConfig, device) -> torch.Tensor:
+    """One block's load-balance loss from :func:`ffn_half`'s sums; 0 for
+    the dense MLP."""
+    if sums is None:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return load_balance_loss(*sums, cfg.n_experts)
+
+
+def _block(x: torch.Tensor, p: dict, cfg: EncoderConfig,
+           mask: torch.Tensor):
+    """One block → ``(x, aux)``: the MoE load-balance loss, or 0 for the
+    dense MLP."""
+    x, sums = ffn_half(attention_half(x, p, cfg, mask), p, cfg, mask)
+    return x, block_aux(sums, cfg, x.device)
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: EncoderConfig,
+          offset: int = 0) -> torch.Tensor:
+    """tokens ``[B, L]`` → the token embedding plus positions ``offset ..
+    offset + L`` of the positional table, in the activation dtype."""
+    dt = cfg.torch_dtype
+    L = tokens.shape[1]
+    return params["embed"]["tok"].to(dt)[tokens.long()] \
+        + params["embed"]["pos"].to(dt)[offset:offset + L][None, :, :]
+
+
+def pool_outputs(x: torch.Tensor, mask: torch.Tensor, params: dict,
+                 moe_aux: "torch.Tensor | None" = None) -> dict:
+    """The final norm, the fp32 mean over the valid tokens (the
+    denominator clamped ≥ 1) and the heads."""
+    x = _rmsnorm(x, params["final_norm"]["scale"])
+    denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
+    pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
+    return _outputs(pooled, params["heads"], moe_aux)
 
 
 def _outputs(pooled: torch.Tensor, heads: dict,
@@ -263,16 +312,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: EncoderConfig) -> dict:
     ``{severity, keep, mood}`` fp32 logits, the unit-norm pooled
     ``embedding`` and ``moe_aux`` (the MoE load-balance loss summed over
     layers; 0 for the dense MLP)."""
-    tokens = tokens.long()
     mask = tokens > 0
-    dt = cfg.torch_dtype
-    x = params["embed"]["tok"].to(dt)[tokens] \
-        + params["embed"]["pos"].to(dt)[None, :, :]
+    x = embed(params, tokens, cfg)
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
         x, aux = _block(x, p, cfg, mask)
         moe_aux = moe_aux + aux
-    x = _rmsnorm(x, params["final_norm"]["scale"])
-    denom = mask.sum(dim=1, keepdim=True).clamp_min(1).float()
-    pooled = (x.float() * mask[:, :, None]).sum(dim=1) / denom
-    return _outputs(pooled, params["heads"], moe_aux)
+    return pool_outputs(x, mask, params, moe_aux)

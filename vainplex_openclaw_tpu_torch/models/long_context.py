@@ -14,13 +14,14 @@ distinct cards their kernels overlap, since nothing here synchronises.
 
 from __future__ import annotations
 
-import torch
+import dataclasses
 
 from ..parallel.mesh import Mesh
-from ..parallel.plan import gather_rows, split_tokens, tree_to
+from ..parallel.plan import (PLAN_TABLE, Placement, gather_rows,
+                             place_params, split_tokens)
 from ..parallel.ring_attention import ring_attention_local
 from .encoder import (EncoderConfig, _merge_heads, _mlp, _outputs, _rmsnorm,
-                      _split_heads)
+                      _split_heads, embed)
 
 
 def long_context_config(L: int) -> EncoderConfig:
@@ -33,15 +34,13 @@ def long_context_config(L: int) -> EncoderConfig:
                          n_layers=2, d_ff=64)
 
 
-def _forward_row(params: dict, tokens: list, devices: list,
+def _forward_row(ps: list, tokens: list, devices: list,
                  cfg: EncoderConfig) -> dict:
-    """One dp row: ``tokens[j]`` ``[B, L/sp]`` on ``devices[j]``."""
-    dt = cfg.torch_dtype
+    """One dp row: ``tokens[j]`` ``[B, L/sp]`` and the placed tree
+    ``ps[j]`` on ``devices[j]``."""
     L_loc = tokens[0].shape[1]
-    ps = [params[d] for d in devices]
     masks = [t > 0 for t in tokens]
-    xs = [p["embed"]["tok"].to(dt)[t.long()]
-          + p["embed"]["pos"].to(dt)[j * L_loc:(j + 1) * L_loc][None]
+    xs = [embed(p, t, cfg, offset=j * L_loc)
           for j, (p, t) in enumerate(zip(ps, tokens))]
     for layer in range(cfg.n_layers):
         blocks = [p["blocks"][layer] for p in ps]
@@ -64,19 +63,20 @@ def _forward_row(params: dict, tokens: list, devices: list,
     return _outputs(pooled, ps[0]["heads"])
 
 
-def forward_long_placed(params: dict, shards: list, cfg: EncoderConfig,
-                        mesh: Mesh, *, dp_axis: str = "dp",
-                        sp_axis: str = "sp") -> dict:
+def forward_long_placed(params: Placement, shards: list,
+                        cfg: EncoderConfig, mesh: Mesh, *,
+                        dp_axis: str = "dp", sp_axis: str = "sp") -> dict:
     """:func:`forward_long` on inputs already on the mesh: ``params`` is
-    ``{device: tree}`` (``parallel.plan.sharded_params``), ``shards[i][j]``
-    the token block of dp row i and sp column j on its grid device
+    the placement of the family's replicated rules
+    (``parallel.plan.sharded_params``), ``shards[i][j]`` the token block of
+    dp row i and sp column j on its grid device
     (``parallel.plan.place_tokens``)."""
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "MoE blocks in the long-context family are not ported yet")
     grid = mesh.grid(dp_axis, sp_axis)
-    outs = [_forward_row(params, row, devs, cfg)
-            for row, devs in zip(shards, grid)]
+    outs = [_forward_row(trees, row, devs, cfg)
+            for trees, row, devs in zip(params.trees, shards, grid)]
     return gather_rows(outs, mesh.devices[0])
 
 
@@ -87,6 +87,9 @@ def forward_long(params: dict, tokens, cfg: EncoderConfig, mesh: Mesh, *,
     ``moe_aux``) on the mesh's first device, with the batch split over dp
     and the sequence over sp."""
     grid = mesh.grid(dp_axis, sp_axis)
-    placed = {d: tree_to(params, d) for d in mesh.distinct_devices()}
+    plan = dataclasses.replace(PLAN_TABLE["encoder_validator_long"],
+                               axes=(dp_axis, sp_axis),
+                               data_spec=(dp_axis, sp_axis))
+    placed = place_params(params, mesh, plan)
     return forward_long_placed(placed, split_tokens(tokens, grid, True), cfg,
                                mesh, dp_axis=dp_axis, sp_axis=sp_axis)

@@ -8,13 +8,18 @@ builds one from the shipped triage encoder: continuous batching by default,
 or the one-shot path behind ``continuousBatching: false``, kept as the
 equivalence oracle.
 
-Mesh serving is ported for one plan family: ``meshServing: true`` with
-``planFamily: "encoder_validator_long"`` (ring attention over a
-``meshAxes: ["dp", "sp"]`` grid, rows at or above
-``longContext.thresholdTokens`` real tokens routed to it). The grid's
-devices follow ``device``: visible cards for CUDA, repeated ``cpu`` for the
-CPU. Any other plan family, mesh serving of the default family, and the
-model registry raise ``NotImplementedError`` rather than being ignored.
+``meshServing: true`` serves through the plan of ``planFamily`` over a
+``meshAxes`` grid of ``meshShape`` (``null``: every device of the type, so
+``(1, 1)`` over ``("dp", "tp")`` on one card): the default Megatron
+``encoder_validator`` over (dp, tp), ``encoder_validator_pp`` over
+``["pp"]``, ``encoder_validator_moe`` over ``["dp", "ep"]`` and
+``encoder_validator_long`` over ``["dp", "sp"]`` (rows at or above
+``longContext.thresholdTokens`` real tokens routed to ring attention). The
+grid's devices follow ``device``: visible cards for CUDA, repeated ``cpu``
+for the CPU. Without ``meshServing`` the plan family is not read and every
+checkpoint serves single-device, as in the JAX package; an unknown family
+under ``meshServing`` raises ``KeyError`` when the batcher is built. The
+model registry raises ``NotImplementedError`` rather than being ignored.
 """
 
 from __future__ import annotations
@@ -70,19 +75,7 @@ def _extract_message(prompt: str) -> str:
     return body.strip()
 
 
-MESH_FAMILIES = ("encoder_validator_long",)
-
-
 def _check_supported(scfg: dict) -> None:
-    family = scfg.get("planFamily", "encoder_validator")
-    if scfg.get("meshServing"):
-        if family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"serve.meshServing with planFamily {family!r} is not ported "
-                f"yet (ported: {list(MESH_FAMILIES)})")
-    elif family != "encoder_validator":
-        raise NotImplementedError(
-            f"serve.planFamily {family!r} is not ported yet")
     reg = scfg.get("modelRegistry", False)
     if (isinstance(reg, dict) and reg.get("enabled", True)) or reg is True:
         raise NotImplementedError("serve.modelRegistry is not ported yet")

@@ -75,21 +75,30 @@ class Mesh:
         """Every device of the grid once, in grid order."""
         return tuple(dict.fromkeys(self.devices))
 
-    def grid(self, row_axis: str, col_axis: str) -> list:
-        """``[[device]]`` indexed ``[row][col]`` over two axes; every other
-        axis must have size 1."""
+    def grid(self, row_axis: Optional[str], col_axis: Optional[str]) -> list:
+        """``[[device]]`` indexed ``[row][col]`` over two axes, either of
+        which may be None (one row, or one column); every other axis must
+        have size 1."""
         shape = self.shape
         for axis in (row_axis, col_axis):
-            if axis not in shape:
+            if axis is not None and axis not in shape:
                 raise ValueError(f"mesh axes {self.axis_names} lack {axis!r}")
         extra = {a: s for a, s in shape.items()
                  if a not in (row_axis, col_axis) and s != 1}
         if extra:
             raise ValueError(f"axes {sorted(extra)} of size > 1 are not "
                              f"spanned by ({row_axis}, {col_axis})")
-        return [[self.device(**{row_axis: i, col_axis: j})
-                 for j in range(shape[col_axis])]
-                for i in range(shape[row_axis])]
+
+        def at(i: int, j: int) -> torch.device:
+            index = {}
+            if row_axis is not None:
+                index[row_axis] = i
+            if col_axis is not None:
+                index[col_axis] = j
+            return self.device(**index)
+
+        return [[at(i, j) for j in range(shape.get(col_axis, 1))]
+                for i in range(shape.get(row_axis, 1))]
 
 
 def _factor(n: int) -> tuple[int, int]:
