@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and hold its
-hand-written kernel against the kernel's plain PyTorch version.
+hand-written kernels against the kernels' plain PyTorch versions.
 
 Run from the repository root::
 
@@ -132,9 +132,38 @@ from 64 seeded prompts at 8 threads, measurements with no claim):
     the same inputs held against the plain version; then one line with
     the seconds each mesh phase took.
 
+Sharded training, the MoE long path and the similarity twins close the run,
+the grids again repeating the one card:
+
+22. train_mesh: one sharded training step from the same fp32 masters and
+    batch of 64 as the single-device card step, for ``triage-tiny`` on
+    (2, 2) and (1, 4) over (dp, tp) and the repository's MoE encoder on
+    (2, 2) over (dp, ep), fp32 and bf16: every copy's gradient within
+    ``GRAD_TOL`` of the leaf's max |g| (fp32 1e-4, bf16 2e-2), K1 launched
+    ``mesh_k1_per_forward`` times per step (n_layers × dp × min(tp, heads),
+    n_layers × dp under ep); in fp32 the loss within 1e-5, the params after
+    AdamW within 1e-6 of AdamW on one device fed the same gradient and,
+    where the gradient exceeds 1e-6, of the single-device step, the copies
+    bit-equal after 3 steps, a step without the cross-copy sum failing the
+    gradient check (the control), and save, restore onto a fresh placement
+    and the next step's loss bit-exact; ms per sharded step beside the
+    single-device step. Then 30 sharded steps of ``__graft_entry__``'s
+    dense recipe on (2, 2) must lower the held-out keep loss, and K1 is
+    timed at the two training shard shapes;
+23. long_moe: the MoE encoder through ``forward_long`` on (1, 4) over
+    (dp, sp) against the single-device card forward: fp32 logits and
+    ``moe_aux`` within 1e-5, the bf16 severity argmax equal, K2 launched
+    n_layers × dp × sp² times;
+24. similarity: the Jaccard block at N = 64, 512 and 4096 (dim 1024) and the
+    Levenshtein ratios at 32, 256 and 4096 pairs (L = 128) on the card,
+    bit-identical to the numpy formulations (and the ratios to the scalar
+    DP over the 128-byte window); K3, the Levenshtein DP kernel
+    (``ops/csrc/levenshtein.cu``), launched once per batch and equal to its
+    plain version, timed beside it and its bound (``levenshtein_bound``).
+
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
-K1 and K2 (measured numbers and the bound only) and, last,
+K1, K2 and K3 (measured numbers and the bound only) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -199,6 +228,8 @@ STATS_CASES = [
     ("holes", 4, 2, 150, 150, 16, False, "holes"),
     ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
     ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, "prefix"),
+    # the long_moe phase's ring block: one sp shard of 8 tokens, 4 heads
+    ("long_moe_sp4_shard", 8, 4, 8, 8, 16, False, "prefix"),
 ]
 
 KERNEL_CASES = [
@@ -229,6 +260,12 @@ KERNEL_CASES = [
     ("mesh_tp4_shard", 32, 1, 64, 64, 16, False, "prefix"),
     ("mesh_pp_microbatch", 8, 4, 64, 64, 16, False, "prefix"),
     ("mesh_moe_dp_row", 16, 4, 32, 32, 16, False, "prefix"),
+    # the train_mesh shard shapes at batch 64: a tp=2 column of a dp=2 row,
+    # a tp=4 column, an MoE dp row, and the graft recipe's tp=2 column
+    ("train_tp2_shard", 32, 2, 64, 64, 16, False, "prefix"),
+    ("train_tp4_shard", 64, 1, 64, 64, 16, False, "prefix"),
+    ("train_moe_dp_row", 32, 4, 32, 32, 16, False, "prefix"),
+    ("graft_tp2_shard", 2, 4, 64, 64, 16, False, "prefix"),
 ]
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
@@ -2226,6 +2263,546 @@ def phase_mesh(smi: str) -> dict:
     return out
 
 
+# ── sharded training and the MoE long path (each grid repeats cuda:0) ──────
+
+# (name, cfg widths, family, axes, shape): the three settings of train_mesh
+TRAIN_MESH_SETTINGS = (
+    ("tiny_tp_2x2", "tiny", "encoder_validator", ("dp", "tp"), (2, 2)),
+    ("tiny_tp_1x4", "tiny", "encoder_validator", ("dp", "tp"), (1, 4)),
+    ("moe_ep_2x2", "moe", "encoder_validator_moe", ("dp", "ep"), (2, 2)),
+)
+TRAIN_MESH_BATCH = 64
+TRAIN_MESH_STEPS = 3
+# fp32 on the card: the loss and the params after AdamW on the same
+# gradient; gradients relative to each leaf's max |g| (GRAD_TOL)
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_PARAM_TOL = 1e-6
+# the graft's dense config (__graft_entry__.py:106-108) and its recipe of
+# 30 sharded steps at batch 2·dp with a held-out split (:157-199)
+GRAFT_DENSE = dict(d_model=128, n_heads=8, n_layers=2, d_ff=256, seq_len=64,
+                   vocab_size=1024)
+GRAFT_STEPS = 30
+LONG_MOE_BATCH = 8
+
+
+def mesh_k1_per_forward(cfg, axes: tuple, shape: tuple) -> int:
+    """K1 launches of one forward of the ``forward`` runner: each dp row
+    runs ``attend`` once per layer on every tp column that owns a head
+    (min(tp, heads) of them), or once on the row under ep."""
+    dp, col = shape
+    per_row = min(col, cfg.n_heads) if axes[1] == "tp" else 1
+    return cfg.n_layers * dp * per_row
+
+
+def mesh_k1_shape(cfg, batch: int, axes: tuple, shape: tuple) -> tuple:
+    """(B, H, L, Dh) of one of those launches."""
+    dp, col = shape
+    heads = cfg.n_heads // min(col, cfg.n_heads) if axes[1] == "tp" \
+        else cfg.n_heads
+    return batch // dp, heads, cfg.seq_len, cfg.d_model // cfg.n_heads
+
+
+def train_batch(cfg, n: int, seed: int = 5):
+    """A batch of ``n`` labelled synthetic examples at ``cfg``'s widths."""
+    from vainplex_openclaw_tpu_torch.models.data import (
+        TextClassificationData, synthetic_examples)
+
+    data = TextClassificationData(synthetic_examples(4 * n, seed=seed), n,
+                                  seq_len=cfg.seq_len,
+                                  vocab_size=cfg.vocab_size, seed=seed)
+    return list(data.epoch(0))
+
+
+def copy_grad_errors(placement, want: dict) -> tuple:
+    """(worst leaf, its error): every grid position's gradient against its
+    block of the whole gradient ``want``, relative to the whole leaf's max
+    |g|; a copy that holds only its own part of the sum fails it."""
+    from vainplex_openclaw_tpu_torch.models.encoder import flatten_tree
+
+    worst_key, worst = None, 0.0
+    for i, j, tree in placement.positions():
+        for key, p in flatten_tree(tree).items():
+            w = want[key].float()
+            block = placement.cut(key, w, i, j).cpu()
+            err = float((p.grad.float().cpu() - block).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            if err > worst or worst_key is None:
+                worst_key, worst = key, err
+    return worst_key, worst
+
+
+def gathered(state, of=lambda p: p) -> dict:
+    """``{path_key: tensor}`` of a sharded state's leaves (or ``of(leaf)``)
+    gathered whole on the CPU."""
+    from vainplex_openclaw_tpu_torch.models.encoder import flatten_tree
+
+    return {k: v.detach().clone() for k, v in
+            flatten_tree(state.params.map(of).gather()).items()}
+
+
+def train_mesh_setting(name: str, widths: str, family: str, axes: tuple,
+                       shape: tuple) -> dict:
+    """One setting of train_mesh: the sharded card step against the
+    single-device card step from the same fp32 masters and batch."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import train
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        EncoderConfig, flatten_tree, init_params, params_from_numpy)
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel import plan, sharded_train
+
+    base = TINY_CONFIG if widths == "tiny" else EncoderConfig(**MOE_WIDTHS)
+    mesh = card_grid(axes, shape)
+    masters = init_params(base, torch.Generator().manual_seed(6))
+    batches = train_batch(base, TRAIN_MESH_BATCH)[:TRAIN_MESH_STEPS + 1]
+    record = {"family": family, "mesh": "x".join(map(str, shape))
+              + f" {axes}", "batch": TRAIN_MESH_BATCH,
+              "config": "TINY_CONFIG" if widths == "tiny" else MOE_WIDTHS}
+    want_k1 = mesh_k1_per_forward(base, axes, shape)
+
+    def sharded_state(tree=masters):
+        return train.init_state(plan.place_params(tree, mesh, family),
+                                train.make_optimizer())
+
+    def single_state(cfg):
+        return train.init_state(params_from_numpy(masters, cfg, "cuda",
+                                                  cast=False),
+                                train.make_optimizer())
+
+    for dt_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dt_name)
+        single = single_state(cfg)
+        single, loss_s = train.train_step(single, batches[0], cfg)
+        grads_s = {k: p.grad.detach().clone()
+                   for k, p in flatten_tree(single.params).items()}
+        params_s = {k: p.detach().clone()
+                    for k, p in flatten_tree(single.params).items()}
+        state = sharded_state()
+        torch.cuda.synchronize()
+        fa.launches = 0
+        state, loss_p = train.train_step(state, batches[0], cfg)
+        torch.cuda.synchronize()
+        launches = fa.launches
+        check(launches == want_k1,
+              f"train_mesh {name} {dt_name}: K1 launches per step "
+              f"{launches} != {want_k1}")
+        grads_p = gathered(state, lambda p: p.grad)
+        worst_key, worst = copy_grad_errors(state.params, grads_s)
+        check(worst <= GRAD_TOL[dt_name],
+              f"train_mesh {name} {dt_name}: gradient of {worst_key} "
+              f"differs by {worst} of its max |g| > {GRAD_TOL[dt_name]}")
+        loss_err = abs(float(loss_p) - float(loss_s))
+        entry = {"loss": float(loss_p), "single_device_loss": float(loss_s),
+                 "loss_abs_err": loss_err, "k1_launches_per_step": launches,
+                 "k1_formula": want_k1, "worst_grad_leaf": worst_key,
+                 "worst_grad_rel_err": worst,
+                 "grad_tol": GRAD_TOL[dt_name]}
+        if dt_name == "float32":
+            check(loss_err <= TRAIN_LOSS_TOL,
+                  f"train_mesh {name}: loss {float(loss_p)} vs single-device "
+                  f"{float(loss_s)}")
+            # AdamW per copy equals AdamW on one device fed the same
+            # (gathered) gradient; against the single-device step itself,
+            # the elements whose gradient is not within 1e-6 of zero (Adam
+            # normalizes g by |g| + 1e-8, so near zero it reads fp32 noise)
+            ref = single_state(cfg)
+            for k, p in flatten_tree(ref.params).items():
+                p.grad = grads_p[k].cuda()
+            ref.opt_state.step()
+            params_p = gathered(state)
+            same_grad = max(float((params_p[k] - p.detach().cpu())
+                                  .abs().max())
+                            for k, p in flatten_tree(ref.params).items())
+            conditioned = max(float(((params_p[k] - params_s[k].cpu()).abs()
+                                     * (grads_s[k].cpu().abs() > 1e-6))
+                                    .max()) for k in params_s)
+            unconditioned = max(float((params_p[k] - params_s[k].cpu())
+                                      .abs().max()) for k in params_s)
+            check(same_grad <= TRAIN_PARAM_TOL and
+                  conditioned <= TRAIN_PARAM_TOL,
+                  f"train_mesh {name}: params after AdamW differ by "
+                  f"{same_grad} (same gradient) / {conditioned} (|g| > "
+                  f"1e-6) > {TRAIN_PARAM_TOL}")
+            entry.update({"params_same_grad_max_abs_err": same_grad,
+                          "params_vs_single_step_max_abs_err_g_gt_1e-6":
+                              conditioned,
+                          "params_vs_single_step_max_abs_err": unconditioned,
+                          "param_tol": TRAIN_PARAM_TOL})
+            for batch in batches[1:TRAIN_MESH_STEPS]:
+                state, _ = train.train_step(state, batch, cfg)
+            bad = sharded_train.unequal_copies(state.params)
+            check(state.step == TRAIN_MESH_STEPS and not bad,
+                  f"train_mesh {name}: copies differ after "
+                  f"{TRAIN_MESH_STEPS} steps: {bad[:3]}")
+            entry["copies_bit_equal_after_steps"] = TRAIN_MESH_STEPS
+            # the control: each copy's own part of the gradient, no sum
+            control = sharded_state()
+            loss = train.loss_fn(control.params, train.batch_to(
+                batches[0], torch.device("cuda")), cfg)
+            loss.backward()
+            sharded_train.fill_missing_grads(control.params)
+            _, control_err = copy_grad_errors(control.params, grads_s)
+            check(control_err > GRAD_TOL[dt_name],
+                  f"train_mesh {name}: the step without the cross-copy sum "
+                  f"passes the gradient check ({control_err})")
+            entry["control_worst_grad_rel_err"] = control_err
+            # save, restore onto a fresh placement, one more step each
+            with tempfile.TemporaryDirectory() as ckpt:
+                train.save_state(ckpt, state)
+                fresh = sharded_state(init_params(
+                    base, torch.Generator().manual_seed(9)))
+                restored = train.restore_state(ckpt, fresh)
+            nxt = batches[TRAIN_MESH_STEPS]
+            state, loss_a = train.train_step(state, nxt, cfg)
+            restored, loss_b = train.train_step(restored, nxt, cfg)
+            a, b = gathered(state), gathered(restored)
+            check(float(loss_a) == float(loss_b),
+                  f"train_mesh {name}: the loss of the step after restore "
+                  f"is not bit-exact ({float(loss_a)} vs {float(loss_b)})")
+            # the params after that step: equal where the backward is
+            # deterministic (the embedding gather's backward accumulates
+            # with atomics on the CPU at this size)
+            entry["restore_step_loss"] = [float(loss_a), float(loss_b)]
+            entry["restore_step_params_max_abs_diff"] = max(
+                float((a[k] - b[k]).abs().max()) for k in a)
+            sharded = sharded_state()
+            alone = single_state(cfg)
+            entry["ms_per_step"] = wall_ms(
+                lambda: train.train_step(sharded, batches[0], cfg), reps=10)
+            entry["single_device_ms_per_step"] = wall_ms(
+                lambda: train.train_step(alone, batches[0], cfg), reps=10)
+        record[dt_name] = entry
+    record["k1_shape"] = list(mesh_k1_shape(base, TRAIN_MESH_BATCH, axes,
+                                            shape))
+    return record
+
+
+def graft_recipe() -> dict:
+    """30 sharded steps of the graft's dense config on (2, 2) over (dp, tp)
+    at batch 2·dp: the held-out keep loss must fall."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import train
+    from vainplex_openclaw_tpu_torch.models.data import (
+        TextClassificationData, synthetic_examples)
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        EncoderConfig, init_params)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel import plan
+
+    cfg = EncoderConfig(**GRAFT_DENSE)
+    shape = (2, 2)
+    mesh = card_grid(("dp", "tp"), shape)
+    B = max(shape[0] * 2, 2)
+    n_train = max(128, 4 * B)
+    examples = synthetic_examples(n_train + 32, seed=5)
+    train_data = TextClassificationData(examples[:n_train], batch_size=B,
+                                        seq_len=cfg.seq_len,
+                                        vocab_size=cfg.vocab_size, seed=5)
+    heldout = TextClassificationData(examples[n_train:], batch_size=B,
+                                     seq_len=cfg.seq_len,
+                                     vocab_size=cfg.vocab_size, seed=5)
+    state = train.init_state(plan.place_params(
+        init_params(cfg, torch.Generator().manual_seed(0)), mesh,
+        "encoder_validator"), train.make_optimizer())
+    ev0 = train.evaluate(state.params, heldout, cfg)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t = time.perf_counter()
+    epoch = 0
+    while state.step < GRAFT_STEPS:
+        for batch in train_data.epoch(epoch):
+            state, _ = train.train_step(state, batch, cfg)
+            if state.step >= GRAFT_STEPS:
+                break
+        epoch += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = fa.launches
+    ev1 = train.evaluate(state.params, heldout, cfg)
+    want = GRAFT_STEPS * mesh_k1_per_forward(cfg, ("dp", "tp"), shape)
+    check(launches == want, f"graft recipe: K1 launches {launches} != {want}")
+    check(ev1["keep_loss"] < ev0["keep_loss"],
+          f"graft recipe: held-out keep loss {ev0['keep_loss']} -> "
+          f"{ev1['keep_loss']} did not fall")
+    return {"config": {**GRAFT_DENSE, "dtype": cfg.dtype},
+            "mesh": "2x2 ('dp', 'tp')", "batch": B, "steps": GRAFT_STEPS,
+            "k1_launches": launches, "keep_loss": [ev0["keep_loss"],
+                                                   ev1["keep_loss"]],
+            "keep_accuracy": [ev0["keep_accuracy"], ev1["keep_accuracy"]],
+            "severity_accuracy": ev1["severity_accuracy"],
+            "wall_s": wall, "ms_per_step": wall * 1e3 / GRAFT_STEPS,
+            "k1_shape": list(mesh_k1_shape(cfg, B, ("dp", "tp"), shape))}
+
+
+def phase_train_mesh(smi: str) -> dict:
+    """Sharded training on grids that repeat the one card."""
+    t0 = time.perf_counter()
+    record = {"phase": "train_mesh", "nvidia_smi": smi,
+              "grad_tol": GRAD_TOL}
+    for name, widths, family, axes, shape in TRAIN_MESH_SETTINGS:
+        record[name] = train_mesh_setting(name, widths, family, axes, shape)
+    record["graft_recipe"] = graft_recipe()
+    record["k1_launches"] = sum(
+        record[name][dt]["k1_launches_per_step"]
+        for name, *_ in TRAIN_MESH_SETTINGS for dt in ("float32", "bfloat16")
+    ) + record["graft_recipe"]["k1_launches"]
+    record["timing"] = {
+        "dp_tp_shard": time_k1(*record["tiny_tp_2x2"]["k1_shape"], seed=63),
+        "dp_ep_row": time_k1(*record["moe_ep_2x2"]["k1_shape"], seed=64)}
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return record
+
+
+def phase_long_moe(smi: str) -> dict:
+    """The MoE encoder through ``forward_long`` on (1, 4) over (dp, sp)
+    against the single-device card forward."""
+    import dataclasses
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encode_texts, forward
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        EncoderConfig, init_params, params_from_numpy)
+    from vainplex_openclaw_tpu_torch.models.long_context import forward_long
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    base = EncoderConfig(**MOE_WIDTHS)
+    tree = init_params(base, torch.Generator().manual_seed(7))
+    tokens = torch.from_numpy(encode_texts(
+        seeded_texts(LONG_MOE_BATCH, seed=71), base.seq_len,
+        base.vocab_size)).cuda()
+    mesh = card_grid(("dp", "sp"), (1, 4))
+    record = {"phase": "long_moe", "nvidia_smi": smi,
+              "config": MOE_WIDTHS, "mesh": "1x4 ('dp', 'sp')",
+              "batch": LONG_MOE_BATCH}
+    for dt_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dt_name)
+        params = params_from_numpy(tree, cfg, "cuda")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            fa.stats_launches = 0
+            out = forward_long(params, tokens, cfg, mesh)
+            torch.cuda.synchronize()
+            launches = fa.stats_launches
+            want = forward(params, tokens, cfg)
+        want_k2 = cfg.n_layers * 1 * 4 * 4
+        check(launches == want_k2, f"long_moe {dt_name}: K2 launches "
+                                   f"{launches} != n_layers x dp x sp^2")
+        check(all(bool(torch.isfinite(out[h].float()).all())
+                  for h in ("severity", "keep", "mood", "embedding")),
+              f"long_moe {dt_name}: non-finite output")
+        err = compare_outputs(out, want)
+        aux_err = abs(float(out["moe_aux"]) - float(want["moe_aux"]))
+        same = bool((out["severity"].argmax(-1)
+                     == want["severity"].argmax(-1)).all())
+        check(same, f"long_moe {dt_name}: severity argmax differs")
+        if dt_name == "float32":
+            check(err <= 1e-5 and aux_err <= 1e-5,
+                  f"long_moe fp32: logits differ by {err}, moe_aux by "
+                  f"{aux_err} > 1e-5")
+        record[dt_name] = {"max_abs_err": err, "moe_aux": float(out["moe_aux"]),
+                           "moe_aux_abs_err": aux_err, "argmax_equal": same,
+                           "k2_launches": launches,
+                           "tol": 1e-5 if dt_name == "float32" else "argmax"}
+    record["k2_launches"] = sum(record[d]["k2_launches"]
+                                for d in ("float32", "bfloat16"))
+    emit(record)
+    return record
+
+
+# ── the batched similarity twins ─────────────────────────────────────────
+
+SIM_JACCARD_N = (64, 512, 4096)
+SIM_DIM = 1024
+SIM_LEV_N = (32, 256, 4096)
+SIM_LEN = 128
+# K3's bound: per DP cell a compare, two adds and two mins, at the rate of
+# the CUDA cores outside the tensor cores (the data sheet's 67e12 fp32
+# operations a second; int32 runs at no higher rate), so the bound is
+# the least time, not more
+K3_OPS_PER_CELL = 5
+CUDA_CORE_OPS_PER_S = 67e12
+K3_SOURCE = "vainplex_openclaw_tpu_torch/ops/csrc/levenshtein.cu"
+# _batch_levenshtein_jax, the jitted DP K3 stands in for
+K3_REPLACES = "vainplex_openclaw_tpu/ops/similarity.py:273"
+
+
+def seeded_multi_hot(n: int, seed: int):
+    """``n`` multi-hot rows of ``SIM_DIM`` bits, 0 to 12 bits a row (an
+    empty row among them), over a narrow band of bit indices so that rows
+    overlap."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, SIM_DIM), np.float32)
+    for i in range(n):
+        X[i, rng.integers(0, 48, size=rng.integers(0, 13))] = 1.0
+    X[n // 2] = 0.0
+    return X
+
+
+def seeded_pairs(n: int, seed: int) -> list:
+    """``n`` string pairs of 0 to 200 characters over a 4-letter alphabet
+    (long strings pass the 128-byte window), an empty pair and an equal pair
+    among them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def word() -> str:
+        return "".join("acgt"[c] for c in rng.integers(
+            0, 4, size=rng.integers(0, 201)))
+
+    pairs = [(word(), word()) for _ in range(n)]
+    pairs[0] = ("", "")
+    pairs[1] = (pairs[2][0], pairs[2][0])
+    return pairs
+
+
+def jaccard_numpy(Xa, Xb):
+    """The JAX package's numpy formulation of the Jaccard block."""
+    import numpy as np
+
+    inter = Xa @ Xb.T
+    union = Xa.sum(axis=1)[:, None] + Xb.sum(axis=1)[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, 1.0)
+
+
+def levenshtein_numpy(A, B, len_a, len_b):
+    """The JAX package's vectorized numpy row DP
+    (``_batch_levenshtein_numpy``)."""
+    import numpy as np
+
+    n, L = A.shape
+    idx = np.arange(L + 1, dtype=np.int32)
+    prev = np.broadcast_to(idx, (n, L + 1)).copy()
+    for i in range(1, L + 1):
+        cost = (A != B[:, i - 1][:, None]).astype(np.int32)
+        tent = np.empty_like(prev)
+        tent[:, 0] = i
+        tent[:, 1:] = np.minimum(prev[:, 1:] + 1, prev[:, :-1] + cost)
+        curr = np.minimum.accumulate(tent - idx, axis=1) + idx
+        prev = np.where((i <= len_b)[:, None], curr, prev)
+    return prev[np.arange(n), len_a]
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn`` up to the card's end of its work
+    (``torch.cuda.synchronize``), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(samples)
+
+
+def levenshtein_bound(n: int, L: int, cells: int) -> dict:
+    """The least time the card could take for K3 on ``n`` pairs of ``L``
+    int32 tokens: bytes read once (both token rows and both lengths) and
+    written once (the distances), and ``K3_OPS_PER_CELL`` integer
+    operations for each DP cell these inputs need (``cells`` = the sum of
+    len_a · len_b) at the rate of the CUDA cores
+    (``CUDA_CORE_OPS_PER_S``)."""
+    n_bytes = 2 * n * L * 4 + 2 * n * 4 + n * 4
+    n_ops = K3_OPS_PER_CELL * cells
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": n_ops, "cells": cells,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_similarity(smi: str) -> dict:
+    """Both batched similarity twins on the card, bit-identical to the
+    numpy formulations (and the Levenshtein ratios to the scalar DP over
+    the 128-byte window), K3 against its plain version, and their times."""
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    record = {"phase": "similarity", "nvidia_smi": smi, "jaccard": {},
+              "levenshtein": {}}
+    for n in SIM_JACCARD_N:
+        X = seeded_multi_hot(n, seed=70 + n)
+        got = sim.jaccard_from_rows(X)
+        want = jaccard_numpy(X, X).astype(np.float32)
+        check(got.dtype == np.float32 and np.array_equal(
+            got.view(np.int32), want.view(np.int32)),
+              f"similarity: Jaccard at N={n} is not bit-identical to numpy")
+        Xd = torch.from_numpy(X).cuda()
+        record["jaccard"][str(n)] = {
+            "dim": SIM_DIM, "bit_identical": True,
+            "distinct_values": int(len(np.unique(got))),
+            "ms": wall_ms(lambda: sim.jaccard_from_rows(X)),
+            "block_ms": time_ms(lambda: sim._jaccard_block(Xd, Xd), n=20,
+                                reps=5, warmup=3)}
+    launches = 0
+    for n in SIM_LEV_N:
+        pairs = seeded_pairs(n, seed=80 + n)
+        torch.cuda.synchronize()
+        sim.launches = 0
+        got = sim.batch_levenshtein_ratio(pairs)
+        torch.cuda.synchronize()
+        check(sim.launches == 1, f"similarity: K3 launches {sim.launches} "
+                                 f"!= 1 for {n} pairs")
+        launches += sim.launches
+        A = sim.tokenize_fixed([a for a, _ in pairs], SIM_LEN)
+        B = sim.tokenize_fixed([b for _, b in pairs], SIM_LEN)
+        la = (A > 0).sum(axis=1).astype(np.int32)
+        lb = (B > 0).sum(axis=1).astype(np.int32)
+        dist = levenshtein_numpy(A, B, la, lb)
+        max_len = np.maximum(la, lb)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            want = np.where(max_len > 0, 1.0 - dist / max_len,
+                            1.0).astype(np.float32)
+        check(np.array_equal(got.view(np.int32), want.view(np.int32)),
+              f"similarity: Levenshtein at {n} pairs is not bit-identical "
+              "to numpy")
+        scalar = np.array([sim.levenshtein_ratio(a[:SIM_LEN], b[:SIM_LEN])
+                           for a, b in pairs[:256]], np.float32)
+        check(np.array_equal(got[:256], scalar),
+              f"similarity: Levenshtein at {n} pairs differs from the "
+              "scalar DP over the 128-byte window")
+        Ad, Bd, lad, lbd = (torch.from_numpy(x).cuda() for x in (A, B, la, lb))
+        kernel = sim.levenshtein_rows(Ad, Bd, lad, lbd)
+        plain = sim.levenshtein_rows_reference(Ad, Bd, lad, lbd)
+        torch.cuda.synchronize()
+        err = int((kernel - plain).abs().max())
+        check(err == 0 and np.array_equal(kernel.cpu().numpy(), dist),
+              f"similarity: K3 at {n} pairs differs from its plain version "
+              f"by {err}")
+        cells = int((la.astype(np.int64) * lb).sum())
+        record["levenshtein"][str(n)] = {
+            "length": SIM_LEN, "bit_identical": True,
+            "scalar_checked": len(scalar), "k3_launches": 1,
+            "distinct_values": int(len(np.unique(got))),
+            "max_abs_err": err,
+            "ms": wall_ms(lambda: sim.batch_levenshtein_ratio(pairs)),
+            "kernel_ms": time_ms(lambda: sim.levenshtein_rows(
+                Ad, Bd, lad, lbd), n=20, reps=5, warmup=3),
+            "plain_ms": time_ms(lambda: sim.levenshtein_rows_reference(
+                Ad, Bd, lad, lbd), n=5, reps=5, warmup=2),
+            **levenshtein_bound(n, SIM_LEN, cells)}
+    record["k3_launches"] = launches
+    emit(record)
+    return record
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -2248,10 +2825,14 @@ def main() -> int:
         triage = phase_triage_embed()
         timing_train = phase_timing_train(info["nvidia_smi"])
         mesh = phase_mesh(info["nvidia_smi"])
+        train_mesh = phase_train_mesh(info["nvidia_smi"])
+        long_moe = phase_long_moe(info["nvidia_smi"])
+        similarity = phase_similarity(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
     k1_long = timing_stats["k1_same_shape"]
+    k3 = similarity["levenshtein"][str(SIM_LEV_N[-1])]
     # K1's exponential floors at the ex2 rate timing_stats measured (the
     # long shape's is in that record); derived, so not on the kernels line
     ex2_per_s = timing_stats["sfu"]["ex2"]["steps_per_s"]
@@ -2280,7 +2861,8 @@ def main() -> int:
             "mesh_tp": mesh["tp"]["launches"],
             "mesh_pp": mesh["pp"]["launches"],
             "mesh_ep": mesh["ep"]["launches"],
-            "embed_mesh": mesh["embed"]["launches"]},
+            "embed_mesh": mesh["embed"]["launches"],
+            "train_mesh": train_mesh["k1_launches"]},
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
@@ -2290,7 +2872,16 @@ def main() -> int:
                 ("mesh_tp 2x2", mesh["timing"]["tp2_shard"],
                  mesh["tp"]["by_shape"]["2x2"]),
                 ("mesh_pp", mesh["timing"]["pp_microbatch"],
-                 mesh["pp"]["launches"]))],
+                 mesh["pp"]["launches"]),
+                ("train_mesh tiny_tp_2x2",
+                 train_mesh["timing"]["dp_tp_shard"],
+                 train_mesh["tiny_tp_2x2"]["float32"]["k1_launches_per_step"]
+                 + train_mesh["tiny_tp_2x2"]["bfloat16"][
+                     "k1_launches_per_step"]),
+                ("train_mesh moe_ep_2x2", train_mesh["timing"]["dp_ep_row"],
+                 train_mesh["moe_ep_2x2"]["float32"]["k1_launches_per_step"]
+                 + train_mesh["moe_ep_2x2"]["bfloat16"][
+                     "k1_launches_per_step"]))],
         "train_shape": {"shape": timing_train["shape"],
                         "launches": trained["k1_launches"],
                         "ms": timing_train["kernel_ms"],
@@ -2313,7 +2904,16 @@ def main() -> int:
          "plain_ms": timing_stats["plain_ms"],
          "bound_ms": timing_stats["bound_ms"],
          "bound_by": timing_stats["bound_by"], "library_ms": None,
-         "sdpa_normalized_ms": timing_stats["sdpa_normalized_ms"]}]})
+         "sdpa_normalized_ms": timing_stats["sdpa_normalized_ms"],
+         "launches_by_path": {"serve_long": served_long["launches"],
+                              "long_moe": long_moe["k2_launches"]}},
+        {"name": "levenshtein", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": similarity["k3_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            similarity["levenshtein"].values()),
+         "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None, "shape": [int(SIM_LEV_N[-1]), SIM_LEN]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -295,3 +295,84 @@ def test_triage_findings_split_the_keep_head_and_the_control_moves_it():
     finally:
         encoder.flash_attention = real
     assert float((control - host).abs().max()) > 10 * chip_smoke.TRIAGE_TOL
+
+
+# ── sharded training, the MoE long path and K3 ──────────────────────
+
+
+@pytest.mark.parametrize("axes,shape,per_forward,k1_shape", [
+    (("dp", "tp"), (2, 2), 2 * 2 * 2, (32, 2, 64, 16)),   # tiny 2x2
+    (("dp", "tp"), (1, 4), 2 * 1 * 4, (64, 1, 64, 16)),   # tiny 1x4
+    (("dp", "tp"), (1, 8), 2 * 1 * 4, (64, 1, 64, 16)),   # tp above heads
+    (("dp", "ep"), (2, 2), 2 * 2, (32, 4, 64, 16)),       # ep: whole rows
+])
+def test_mesh_k1_formula_and_shard_shape(axes, shape, per_forward,
+                                         k1_shape):
+    """At ``triage-tiny`` (4 heads of 16, 2 layers) and batch 64."""
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+
+    assert chip_smoke.mesh_k1_per_forward(TINY_CONFIG, axes,
+                                          shape) == per_forward
+    assert chip_smoke.mesh_k1_shape(TINY_CONFIG, 64, axes,
+                                    shape) == k1_shape
+
+
+def test_train_mesh_shard_shapes_are_kernel_cases():
+    """Every K1 shape train_mesh launches is a case the kernels phase holds
+    against the plain version, and the MoE long path's K2 block is a stats
+    case; the training shard shapes' bounds by hand."""
+    from vainplex_openclaw_tpu_torch.models.encoder import EncoderConfig
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+
+    k1 = {c[1:6] for c in chip_smoke.KERNEL_CASES}
+    moe = EncoderConfig(**chip_smoke.MOE_WIDTHS)
+    graft = EncoderConfig(**chip_smoke.GRAFT_DENSE)
+    for _, widths, _, axes, shape in chip_smoke.TRAIN_MESH_SETTINGS:
+        cfg = TINY_CONFIG if widths == "tiny" else moe
+        B, H, L, Dh = chip_smoke.mesh_k1_shape(
+            cfg, chip_smoke.TRAIN_MESH_BATCH, axes, shape)
+        assert (B, H, L, L, Dh) in k1
+    B, H, L, Dh = chip_smoke.mesh_k1_shape(graft, 4, ("dp", "tp"), (2, 2))
+    assert (B, H, L, L, Dh) == (2, 4, 64, 64, 16) and (B, H, L, L, Dh) in k1
+    sp = 4
+    assert (chip_smoke.LONG_MOE_BATCH, moe.n_heads, moe.seq_len // sp,
+            moe.seq_len // sp, 16) in {c[1:6] for c in chip_smoke.STATS_CASES}
+    tp = chip_smoke.attention_bound(32, 2, 64, 64, 16, 2, stats=False)
+    assert tp["bytes"] == 4 * 32 * 2 * 64 * 16 * 2 + 32 * 64 * 4 == 532_480
+    assert tp["bound_by"] == "bytes"
+    ep = chip_smoke.attention_bound(32, 4, 32, 32, 16, 2, stats=False)
+    assert ep["bytes"] == 4 * 32 * 4 * 32 * 16 * 2 + 32 * 32 * 4 == 528_384
+    assert ep["bound_ms"] == pytest.approx(528_384 / 3.35e12 * 1e3)
+
+
+def test_levenshtein_bound_hand_counts():
+    """K3 at 4096 pairs of 128 tokens whose lengths multiply to 10^7 DP
+    cells: 4 MB of rows, 5 operations a cell at the CUDA-core rate."""
+    b = chip_smoke.levenshtein_bound(4096, 128, 10_000_000)
+    assert b["bytes"] == 2 * 4096 * 128 * 4 + 3 * 4096 * 4 == 4_243_456
+    assert b["operations"] == 50_000_000
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(4_243_456 / 3.35e12 * 1e3)
+    dense = chip_smoke.levenshtein_bound(32, 128, 32 * 128 * 128)
+    assert dense["bound_by"] == "operations"
+    assert dense["bound_ms"] == pytest.approx(5 * 32 * 128 * 128 / 67e12 * 1e3)
+
+
+def test_similarity_inputs_reach_the_edges():
+    """The similarity phase's rows include an empty row and its pairs an
+    empty pair, an equal pair and strings past the 128-byte window; its
+    numpy references equal the JAX package's formulations."""
+    from vainplex_openclaw_tpu.ops import similarity as jax_sim
+
+    X = chip_smoke.seeded_multi_hot(64, seed=1)
+    assert X.shape == (64, chip_smoke.SIM_DIM) and not X[32].any()
+    assert np.array_equal(chip_smoke.jaccard_numpy(X, X).astype(np.float32),
+                          jax_sim.jaccard_from_rows(X, use_jax=False))
+    pairs = chip_smoke.seeded_pairs(64, seed=2)
+    assert pairs[0] == ("", "") and pairs[1][0] == pairs[1][1]
+    assert max(len(a) for a, _ in pairs) > 128
+    A = jax_sim._tokenize_fixed([a for a, _ in pairs], 128)
+    B = jax_sim._tokenize_fixed([b for _, b in pairs], 128)
+    la, lb = ((x > 0).sum(axis=1).astype(np.int32) for x in (A, B))
+    assert np.array_equal(chip_smoke.levenshtein_numpy(A, B, la, lb),
+                          jax_sim._batch_levenshtein_numpy(A, B, la, lb))

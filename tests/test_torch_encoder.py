@@ -35,6 +35,8 @@ from vainplex_openclaw_tpu.models import pretrained as jax_pretrained
 from vainplex_openclaw_tpu.models.checkpoint import restore_checkpoint
 from vainplex_openclaw_tpu.models.data import synthetic_split
 from vainplex_openclaw_tpu.models.encoder import _rmsnorm as jax_rmsnorm
+from vainplex_openclaw_tpu.models.encoder import (
+    stack_blocks as jax_stack_blocks)
 from vainplex_openclaw_tpu_torch.models import encoder as port_encoder
 from vainplex_openclaw_tpu_torch.models import pretrained as port_pretrained
 from vainplex_openclaw_tpu_torch.models.encoder import (
@@ -160,11 +162,39 @@ def test_unknown_impl_and_moe_raise():
 
 
 def test_scan_blocks_runs_the_same_loop():
-    cfg, params = port_pretrained.load_pretrained(device="cpu")
-    toks = torch.from_numpy(tokens_with_pad_row(4))
+    """``stack_blocks`` gives JAX's stacked tree bit for bit; ``forward``
+    under ``scan_blocks`` on it equals the per-layer loop bit for bit (and
+    JAX's scanned forward within 1e-5 in fp32); a per-layer list under
+    ``scan_blocks`` raises JAX's ``ValueError`` in both packages."""
+    jcfg = JaxConfig(vocab_size=512, seq_len=64, d_model=32, n_heads=2,
+                     n_layers=3, d_ff=64, dtype=jnp.float32)
+    jparams = init_params(jax.random.PRNGKey(5), jcfg)
+    cfg = port_cfg(jcfg)
+    params = params_from_numpy(to_numpy_tree(jparams), cfg, "cpu", cast=False)
+    stacked = port_encoder.stack_blocks(params)
+    jstacked = jax_stack_blocks(jparams)
+    got = port_encoder.flatten_tree(stacked["blocks"])
+    want = port_encoder.flatten_tree(to_numpy_tree(jstacked["blocks"]))
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        assert tuple(v.shape) == want[k].shape == (3,) + want[k].shape[1:]
+        assert np.array_equal(v.numpy(), want[k]), k
+    toks = torch.from_numpy(tokens_with_pad_row(4, vocab=512))
+    scan = dataclasses.replace(cfg, scan_blocks=True)
     a = forward(params, toks, cfg)
-    b = forward(params, toks, dataclasses.replace(cfg, scan_blocks=True))
-    assert torch.equal(a["severity"], b["severity"])
+    b = forward(stacked, toks, scan)
+    jout = jax_forward(jstacked, jnp.asarray(toks.numpy()),
+                       dataclasses.replace(jcfg, scan_blocks=True))
+    for h in HEADS + ("moe_aux",):
+        assert torch.equal(a[h], b[h]), h
+        np.testing.assert_allclose(b[h].numpy(), np.asarray(jout[h]),
+                                   atol=1e-5, rtol=0, err_msg=h)
+    for fwd, tree, c in ((forward, params, scan),
+                         (jax_forward, jparams,
+                          dataclasses.replace(jcfg, scan_blocks=True))):
+        with pytest.raises(ValueError, match="stack_blocks"):
+            fwd(tree, toks if fwd is forward else jnp.asarray(toks.numpy()),
+                c)
 
 
 def test_all_pad_row_pools_to_zero_logits():

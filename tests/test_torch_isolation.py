@@ -75,6 +75,8 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.models.data",
                 "vainplex_openclaw_tpu_torch.models.moe",
                 "vainplex_openclaw_tpu_torch.models.train",
+                "vainplex_openclaw_tpu_torch.parallel.sharded_train",
+                "vainplex_openclaw_tpu_torch.ops.similarity",
                 "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier",
                 "vainplex_openclaw_tpu_torch.knowledge.embeddings"):
         assert mod in loaded, mod

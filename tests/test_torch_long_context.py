@@ -169,12 +169,35 @@ def test_fully_padded_row_stays_finite():
         assert torch.isfinite(out[h].float()).all(), h
 
 
-def test_forward_long_refuses_moe_and_unsplittable_inputs():
-    _, _, cfg, params = weights("float32")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_long_refuses_moe_and_unsplittable_inputs(dtype):
+    """MoE blocks serve on the long path (they raised before): at (2, 4)
+    over (dp, sp), against the JAX ``forward_long`` on the same 4-expert
+    weights, fp32 logits and ``moe_aux`` (each layer's sums psummed over dp
+    and sp before the loss) within 1e-5; bf16 with the severity argmax
+    equal and logits within 1e-1 (near-tie routing, ROADMAP Queue 3). A
+    batch that does not split over dp still raises."""
+    jcfg = dataclasses.replace(small_cfg(dtype), n_experts=4)
+    jp = jax_init_params(jax.random.PRNGKey(4), jcfg)
+    cfg = port_cfg(jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg,
+                               "cpu", cast=True)
+    tok = tokens(8, 64, seed=6)
     mesh = make_mesh(axes=("dp", "sp"), shape=(2, 4), device="cpu")
-    with pytest.raises(NotImplementedError):
-        forward_long(params, tokens(4, 64), dataclasses.replace(
-            cfg, n_experts=2), mesh)
+    with torch.inference_mode():
+        out = forward_long(params, tok, cfg, mesh)
+    jout = jax_forward_long(jp, jnp.asarray(tok), jcfg,
+                            jax_make_mesh(8, axes=("dp", "sp"), shape=(2, 4)))
+    got, want = as_numpy(out), as_numpy(jout)
+    assert all(np.isfinite(got[h]).all() for h in HEADS)
+    aux_err = abs(float(out["moe_aux"]) - float(jout["moe_aux"]))
+    if dtype == "float32":
+        assert max_err(got, want) <= 1e-5
+        assert float(out["moe_aux"]) > 0 and aux_err <= 1e-5
+    else:
+        assert (got["severity"].argmax(-1)
+                == want["severity"].argmax(-1)).all()
+        assert max_err(got, want) <= 1e-1
     with pytest.raises(ValueError, match="does not split"):
         forward_long(params, tokens(3, 64), cfg, mesh)
 
@@ -254,6 +277,32 @@ def test_long_family_verdicts_equal_jax_oneshot(long_ckpt):
     snap = stats["stages"]
     for stage in ("queue", "batch", "shard", "prefill", "gather", "decode"):
         assert snap["counts"][stage] >= 1, stage
+
+
+def test_long_family_serves_moe_checkpoints_like_jax(tmp_path):
+    """An MoE checkpoint under the long family: long rows through the MoE
+    ring, short rows through the ``forward``-runner twin; verdicts equal the
+    JAX one-shot oracle's and the batcher reports the MoE aux."""
+    jcfg = dataclasses.replace(small_cfg("float32"), n_experts=4)
+    d = str(tmp_path / "moe")
+    bench.write_serving_checkpoint(d, jcfg, seed=3)
+    try:
+        oracle = jax_serve.make_local_call_llm(
+            checkpoint_dir=d, force=True,
+            serve_cfg={"continuousBatching": False})
+        call = serve.make_local_call_llm(d, device="cpu", serve_cfg={
+            "windowMs": 0.0, **LONG_SERVE})
+        texts = LONG_TEXTS + SHORT_TEXTS + seeded_texts(6, seed=8)
+        for text in texts:
+            prompt = build_prompt(text, [])
+            assert call(prompt) == oracle(prompt)
+        stats = call.batcher.stats()
+        assert len(LONG_TEXTS) <= stats["longRouted"] < len(texts)
+        assert stats["moe"]["batches"] == len(texts)
+        assert stats["moe"]["auxMean"] > 0
+    finally:
+        serve.close_batchers()
+        jax_serve.close_batchers()
 
 
 def test_long_family_mixed_batches_equal_jax_oneshot(long_ckpt):

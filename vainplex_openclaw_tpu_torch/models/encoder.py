@@ -57,8 +57,9 @@ class EncoderConfig:
     attn_impl: str = "auto"  # "auto" | "flash" | "dense"
     n_experts: int = 0       # 0 = dense MLP; > 0 = MoE FFN (models/moe.py)
     moe_aux_weight: float = 0.01
-    # Accepted for config parity: the JAX package scans stacked blocks to
-    # shorten its trace. PyTorch runs eagerly, so the same loop runs.
+    # The JAX package scans stacked blocks to shorten its trace; here
+    # ``forward`` then takes the stacked tree (:func:`stack_blocks`) and
+    # loops over its leading axis, and refuses a per-layer list as JAX does.
     scan_blocks: bool = False
 
     @property
@@ -144,6 +145,27 @@ def unflatten_tree(flat: dict) -> dict:
         # a per-layer list; a stacked stage tree keeps its dict
         tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
     return tree
+
+
+def stack_blocks(params: dict) -> dict:
+    """The per-layer ``blocks`` list stacked into one tree whose leaves
+    lead ``[n_layers]``: the layout ``forward`` takes under
+    ``cfg.scan_blocks``. Every block must have the same leaves and shapes."""
+    blocks = params["blocks"]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return {**params, "blocks": stack(list(blocks))}
+
+
+def _layer(stacked, i: int):
+    """Layer ``i`` of a stacked block tree."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]
 
 
 def _to_tensor(leaf) -> torch.Tensor:
@@ -311,11 +333,20 @@ def forward(params: dict, tokens: torch.Tensor, cfg: EncoderConfig) -> dict:
     """tokens ``[B, L]`` int on the parameters' device →
     ``{severity, keep, mood}`` fp32 logits, the unit-norm pooled
     ``embedding`` and ``moe_aux`` (the MoE load-balance loss summed over
-    layers; 0 for the dense MLP)."""
+    layers; 0 for the dense MLP). Under ``cfg.scan_blocks`` the blocks are
+    the stacked tree of :func:`stack_blocks`, run layer by layer."""
+    blocks = params["blocks"]
+    if cfg.scan_blocks:
+        if not isinstance(blocks, dict):
+            raise ValueError(
+                "cfg.scan_blocks=True requires stacked block params — pass "
+                "the tree through models.stack_blocks(params) first")
+        n = next(iter(flatten_tree(blocks).values())).shape[0]
+        blocks = [_layer(blocks, i) for i in range(n)]
     mask = tokens > 0
     x = embed(params, tokens, cfg)
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["blocks"]:
+    for p in blocks:
         x, aux = _block(x, p, cfg, mask)
         moe_aux = moe_aux + aux
     return pool_outputs(x, mask, params, moe_aux)

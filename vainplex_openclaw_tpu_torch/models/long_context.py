@@ -10,6 +10,12 @@ come from the positional table sliced per sp shard. The masked mean-pool is
 a sum over the sp shards of each row, gathered on the row's first device,
 where the heads run. Rows run one after another from this one process; on
 distinct cards their kernels overlap, since nothing here synchronises.
+
+An MoE block runs its FFN on each shard (``encoder.ffn_half``), and each
+layer's load-balance sums are added over every dp row and sp column before
+the loss, as the JAX forward psums them over (dp, sp): the loss is not
+linear in the sums, so ``moe_aux`` is the whole batch's
+(``sharded_forward.whole_batch_aux``).
 """
 
 from __future__ import annotations
@@ -20,8 +26,9 @@ from ..parallel.mesh import Mesh
 from ..parallel.plan import (PLAN_TABLE, Placement, gather_rows,
                              place_params, split_tokens)
 from ..parallel.ring_attention import ring_attention_local
-from .encoder import (EncoderConfig, _merge_heads, _mlp, _outputs, _rmsnorm,
-                      _split_heads, embed)
+from ..parallel.sharded_forward import whole_batch_aux
+from .encoder import (EncoderConfig, _merge_heads, _outputs, _rmsnorm,
+                      _split_heads, embed, ffn_half)
 
 
 def long_context_config(L: int) -> EncoderConfig:
@@ -35,11 +42,14 @@ def long_context_config(L: int) -> EncoderConfig:
 
 
 def _forward_row(ps: list, tokens: list, devices: list,
-                 cfg: EncoderConfig) -> dict:
+                 cfg: EncoderConfig) -> tuple:
     """One dp row: ``tokens[j]`` ``[B, L/sp]`` and the placed tree
-    ``ps[j]`` on ``devices[j]``."""
+    ``ps[j]`` on ``devices[j]`` → ``(outputs, parts)``: the row's outputs
+    on ``devices[0]`` and ``parts[j]``, sp column j's load-balance sums of
+    each MoE layer."""
     L_loc = tokens[0].shape[1]
     masks = [t > 0 for t in tokens]
+    parts: list = [[] for _ in ps]
     xs = [embed(p, t, cfg, offset=j * L_loc)
           for j, (p, t) in enumerate(zip(ps, tokens))]
     for layer in range(cfg.n_layers):
@@ -49,8 +59,12 @@ def _forward_row(ps: list, tokens: list, devices: list,
                 for h, b in zip(hs, blocks)] for n in ("q", "k", "v")]
         outs = ring_attention_local(*qkv, masks, devices,
                                     impl=cfg.attn_impl)
-        xs = [_mlp(x + _merge_heads(o, b["attn"]["o"]), b)
-              for x, o, b in zip(xs, outs, blocks)]
+        halves = [ffn_half(x + _merge_heads(o, b["attn"]["o"]), b, cfg, m)
+                  for x, o, b, m in zip(xs, outs, blocks, masks)]
+        xs = [x for x, _ in halves]
+        if cfg.n_experts > 0:
+            for col, (_, sums) in zip(parts, halves):
+                col.append(sums)
     head = devices[0]
     pooled = count = None
     for x, m, p in zip(xs, masks, ps):
@@ -60,7 +74,7 @@ def _forward_row(ps: list, tokens: list, devices: list,
         pooled = local if pooled is None else pooled + local
         count = n if count is None else count + n
     pooled = pooled / count.clamp_min(1)[:, None].float()
-    return _outputs(pooled, ps[0]["heads"])
+    return _outputs(pooled, ps[0]["heads"]), parts
 
 
 def forward_long_placed(params: Placement, shards: list,
@@ -70,14 +84,16 @@ def forward_long_placed(params: Placement, shards: list,
     the placement of the family's replicated rules
     (``parallel.plan.sharded_params``), ``shards[i][j]`` the token block of
     dp row i and sp column j on its grid device
-    (``parallel.plan.place_tokens``)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks in the long-context family are not ported yet")
+    (``parallel.plan.place_tokens``). ``moe_aux`` is the load-balance
+    loss of the whole batch, on the mesh's first device."""
     grid = mesh.grid(dp_axis, sp_axis)
-    outs = [_forward_row(trees, row, devs, cfg)
+    rows = [_forward_row(trees, row, devs, cfg)
             for trees, row, devs in zip(params.trees, shards, grid)]
-    return gather_rows(outs, mesh.devices[0])
+    home = mesh.devices[0]
+    out = gather_rows([o for o, _ in rows], home)
+    out["moe_aux"] = whole_batch_aux([col for _, cols in rows
+                                      for col in cols], cfg, home)
+    return out
 
 
 def forward_long(params: dict, tokens, cfg: EncoderConfig, mesh: Mesh, *,

@@ -26,6 +26,16 @@ On the card, attention runs kernel K1 forward and its dense-recompute
 backward (``ops/flash_attention.py``). The port's optimizer lives inside
 the state: ``TrainState.opt_state`` is the ``torch.optim.AdamW`` over the
 state's parameters, and a step updates both in place.
+
+The same names train on a mesh, as the JAX ``train_step`` does over
+GSPMD-placed params: give :func:`init_state` a ``parallel.plan.Placement``
+(``place_params`` or ``restore_checkpoint(..., mesh=, plan=)`` of a
+``forward``-runner family: ``encoder_validator`` for dp×tp,
+``encoder_validator_moe`` for dp×ep) and every position gets fp32 leaves of
+its own (``plan.trainable``). A step runs the sharded forward, sums the
+gradients across copies (``parallel/sharded_train.py``) and steps one AdamW
+over every copy. A checkpoint of such a state holds the gathered tree in
+the same keys, and :func:`restore_state` cuts it back onto the positions.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sharded_train
+from ..parallel.plan import Placement, trainable
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .encoder import EncoderConfig, flatten_tree, forward, unflatten_tree
 
@@ -44,52 +56,78 @@ HEADS = ("severity", "keep", "mood")
 
 
 class TrainState(NamedTuple):
-    """``params`` (fp32 leaf tensors that require grad), ``opt_state`` (the
-    AdamW over them) and ``step`` (steps taken)."""
+    """``params`` (fp32 leaf tensors that require grad, or a trainable
+    ``Placement`` of them), ``opt_state`` (the AdamW over them) and
+    ``step`` (steps taken)."""
 
-    params: dict
+    params: "dict | Placement"
     opt_state: torch.optim.Optimizer
     step: int
+
+    def _slot(self, name: str):
+        """``fn(p)``: AdamW's ``name`` moment of ``p``, zeros before the
+        optimizer's first step (as optax initializes them)."""
+        state = self.opt_state.state
+
+        def slot(p: torch.Tensor) -> torch.Tensor:
+            s = state.get(p)
+            return s[name] if s else torch.zeros_like(p)
+
+        return slot
 
     def to_tree(self) -> dict:
         """The JAX ``TrainState`` layout: ``params``, ``opt_state[0]`` with
         optax's ``count``, ``mu`` (AdamW's ``exp_avg``) and ``nu``
-        (``exp_avg_sq``), and ``step``. Moments the optimizer has not made
-        yet (before its first step) are zeros, as optax initializes them."""
-        flat = flatten_tree(self.params)
-        state = self.opt_state.state
-        count = 0
-        mu, nu = {}, {}
-        for key, p in flat.items():
-            s = state.get(p)
-            if s:
-                count = int(s["step"])
-            mu[key] = s["exp_avg"] if s else torch.zeros_like(p)
-            nu[key] = s["exp_avg_sq"] if s else torch.zeros_like(p)
-        return {"params": self.params,
-                "opt_state": [{"count": np.asarray(count, np.int32),
-                               "mu": unflatten_tree(mu),
-                               "nu": unflatten_tree(nu)}],
+        (``exp_avg_sq``), and ``step``. A placement's leaves and moments
+        are gathered whole onto the CPU."""
+        counts = [int(s["step"]) for s in self.opt_state.state.values()
+                  if s]
+        mu, nu = self._slot("exp_avg"), self._slot("exp_avg_sq")
+        if isinstance(self.params, Placement):
+            params = self.params.gather()
+            mu, nu = (self.params.map(f).gather() for f in (mu, nu))
+        else:
+            params = self.params
+            flat = flatten_tree(params)
+            mu, nu = (unflatten_tree({k: f(p) for k, p in flat.items()})
+                      for f in (mu, nu))
+        return {"params": params,
+                "opt_state": [{"count": np.asarray(counts[0] if counts else 0,
+                                                   np.int32),
+                               "mu": mu, "nu": nu}],
                 "step": np.asarray(self.step, np.int32)}
 
     def load_flat(self, flat: dict) -> "TrainState":
         """This state with its parameters and AdamW moments overwritten in
-        place from ``{path_key: leaf}`` in :meth:`to_tree`'s keys (leaves
-        already in the dtype and on the device of this state's), and its
-        step taken from ``flat``."""
+        place from ``{path_key: leaf}`` in :meth:`to_tree`'s keys (whole
+        leaves in this state's dtypes; a placement cuts each by its spec
+        for every position), and its step taken from ``flat``."""
         count = int(flat["opt_state/0/count"])
         state = self.opt_state.state
         with torch.no_grad():
-            for k, p in flatten_tree(self.params).items():
-                p.copy_(flat[f"params/{k}"])
+            for key, p, local in _slots(self.params):
+                p.copy_(local(flat[f"params/{key}"]))
                 state.pop(p, None)
                 if count:
                     state[p] = {
                         "step": torch.tensor(float(count),
                                              dtype=torch.float32),
-                        "exp_avg": flat[f"opt_state/0/mu/{k}"],
-                        "exp_avg_sq": flat[f"opt_state/0/nu/{k}"]}
+                        "exp_avg": local(flat[f"opt_state/0/mu/{key}"]),
+                        "exp_avg_sq": local(flat[f"opt_state/0/nu/{key}"])}
         return self._replace(step=int(flat["step"]))
+
+
+def _slots(params) -> list:
+    """``(path_key, leaf, local)`` for every leaf of the state, where
+    ``local(whole)`` is a fresh tensor with the part of the whole leaf that
+    this leaf holds, on its device."""
+    if isinstance(params, Placement):
+        return [(key, p, lambda w, key=key, i=i, j=j:
+                 params.cut(key, w, i, j).clone())
+                for i, j, tree in params.positions()
+                for key, p in flatten_tree(tree).items()]
+    return [(key, p, lambda w, p=p: w.to(p.device).clone())
+            for key, p in flatten_tree(params).items()]
 
 
 def make_optimizer(lr: float = 3e-4,
@@ -100,9 +138,14 @@ def make_optimizer(lr: float = 3e-4,
                              eps=1e-8, weight_decay=weight_decay)
 
 
-def init_state(params: dict, optimizer: Callable) -> TrainState:
+def init_state(params: "dict | Placement", optimizer: Callable) -> TrainState:
     """Step 0: fp32 copies of ``params`` (on their device) as leaves that
-    require grad, and a fresh optimizer over them."""
+    require grad, and a fresh optimizer over them. A placement gets such
+    copies at every grid position (``plan.trainable``), and one optimizer
+    over all of them."""
+    if isinstance(params, Placement):
+        placed = trainable(params)
+        return TrainState(placed, optimizer(sharded_train.leaves(placed)), 0)
     leaves = {k: v.detach().to(torch.float32).clone().requires_grad_()
               for k, v in flatten_tree(params).items()}
     return TrainState(unflatten_tree(leaves),
@@ -123,8 +166,19 @@ def restore_state(ckpt_dir: str, like: TrainState,
     return like.load_flat(flatten_tree(tree))
 
 
-def params_device(params: dict) -> torch.device:
+def params_device(params: "dict | Placement") -> torch.device:
+    """Where a batch goes and the outputs land: the parameters' device, or
+    a placement's first mesh device."""
+    if isinstance(params, Placement):
+        return params.mesh.devices[0]
     return next(iter(flatten_tree(params).values())).device
+
+
+def _forward(params: "dict | Placement", tokens: torch.Tensor,
+             cfg: EncoderConfig) -> dict:
+    if isinstance(params, Placement):
+        return sharded_train.forward_mesh(params, tokens, cfg)
+    return forward(params, tokens, cfg)
 
 
 def batch_to(batch: dict, device: torch.device) -> dict:
@@ -136,8 +190,9 @@ def batch_to(batch: dict, device: torch.device) -> dict:
 
 def loss_fn(params: dict, batch: dict, cfg: EncoderConfig) -> torch.Tensor:
     """Three fp32 cross-entropies plus ``moe_aux_weight · moe_aux``;
-    ``batch`` holds tensors on the parameters' device."""
-    out = forward(params, batch["tokens"], cfg)
+    ``batch`` holds tensors on :func:`params_device`. On a placement the
+    forward runs sharded over its grid."""
+    out = _forward(params, batch["tokens"], cfg)
     losses = [F.cross_entropy(out[h].float(), batch[h].long())
               for h in HEADS]
     return sum(losses) + cfg.moe_aux_weight * out["moe_aux"]
@@ -147,17 +202,21 @@ def train_step(state: TrainState, batch: dict,
                cfg: EncoderConfig) -> tuple:
     """One AdamW step on a numpy ``batch``; updates the state's parameters
     and optimizer in place and returns ``(state with step + 1, loss)``.
-    The loss stays a device tensor: reading it waits for the device."""
+    On a placement the copies' gradients are summed before the step. The
+    loss stays a device tensor: reading it waits for the device."""
     opt = state.opt_state
     opt.zero_grad(set_to_none=True)
     loss = loss_fn(state.params, batch_to(batch, params_device(state.params)),
                    cfg)
     loss.backward()
-    # A leaf the loss does not reach (heads/embed_proj) has no grad, and
-    # AdamW would skip it; optax gives it a zero grad and still decays it.
-    for p in flatten_tree(state.params).values():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    if isinstance(state.params, Placement):
+        sharded_train.all_reduce_grads(state.params)
+    else:
+        # A leaf the loss does not reach (heads/embed_proj) has no grad, and
+        # AdamW would skip it; optax gives it a zero grad and still decays it.
+        for p in flatten_tree(state.params).values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     opt.step()
     return state._replace(step=state.step + 1), loss.detach()
 
@@ -165,7 +224,7 @@ def train_step(state: TrainState, batch: dict,
 def _eval_step(params: dict, batch: dict, cfg: EncoderConfig) -> dict:
     """Per example: ``<head>_correct`` (int) and ``<head>_loss`` (fp32)."""
     with torch.no_grad():
-        out = forward(params, batch["tokens"], cfg)
+        out = _forward(params, batch["tokens"], cfg)
         metrics = {}
         for h in HEADS:
             logits, labels = out[h].float(), batch[h].long()

@@ -42,6 +42,10 @@ SIGNATURES = {
         "flash_attention_stats_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
         "kernel_error_string": ([_I], ctypes.c_char_p),
     },
+    "levenshtein": {
+        "levenshtein_fwd": ([_P] * 5 + [_I] * 2 + [_P], _I),
+        "levenshtein_error_string": ([_I], ctypes.c_char_p),
+    },
     # A throughput probe of the special function unit that chip_smoke.py
     # times; no path of the port calls it.
     "sfu_probe": {

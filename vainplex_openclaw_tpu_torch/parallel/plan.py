@@ -317,13 +317,32 @@ class Placement:
     grid position (row i, column j) on ``grid[i][j]``, each leaf cut by its
     spec in ``specs`` (``{path_key: spec}``). Two positions on one device
     hold their own shards; a replicated leaf already on its device is
-    shared, not copied."""
+    shared, not copied (:func:`trainable` copies it per position)."""
 
     plan: ShardingPlan
     mesh: Mesh
     grid: list
     trees: list
     specs: dict
+
+    def positions(self):
+        """``(i, j, tree)`` of every grid position, in grid order."""
+        for i, row in enumerate(self.trees):
+            for j, tree in enumerate(row):
+                yield i, j, tree
+
+    def map(self, fn) -> "Placement":
+        """The same placement with every leaf replaced by ``fn(leaf)``."""
+        return dataclasses.replace(self, trees=[
+            [map_tree(lambda _k, leaf: fn(leaf), t) for t in row]
+            for row in self.trees])
+
+    def cut(self, key: str, whole: torch.Tensor, i: int,
+            j: int) -> torch.Tensor:
+        """The block of the whole leaf ``whole`` (at ``key``) that grid
+        position (i, j) holds, on that position's device."""
+        return _shard(key, whole, self.specs[key],
+                      _index(self.plan, self.grid, i, j), self.grid[i][j])
 
     def gather(self, device: "str | torch.device" = "cpu"):
         """The whole (prepared) tree on ``device``: every leaf's shards
@@ -367,6 +386,13 @@ def _shard(key: str, leaf: torch.Tensor, spec: tuple, index: dict,
     return leaf.contiguous().to(device, non_blocking=True)
 
 
+def _index(plan: ShardingPlan, grid: list, i: int, j: int) -> dict:
+    """``{axis: (index, size)}`` of grid position (i, j) along the plan's
+    row and column axes."""
+    row_axis, col_axis = plan_axes(plan)
+    return {row_axis: (i, len(grid)), col_axis: (j, len(grid[i]))}
+
+
 def place_params(params, mesh: Mesh, family) -> Placement:
     """Place the host tree ``params`` on ``mesh`` per the plan of
     ``family`` (uncached; :func:`sharded_params` caches)."""
@@ -375,17 +401,27 @@ def place_params(params, mesh: Mesh, family) -> Placement:
     prepared = prepare_params(plan, params, mesh)
     spec_tree = plan_shardings(plan, prepared, mesh)
     specs = _flat(spec_tree)
-    row_axis, col_axis = plan_axes(plan)
     grid = plan_grid(plan, mesh)
     trees = []
     for i, row in enumerate(grid):
         trees.append([])
         for j, dev in enumerate(row):
-            index = {row_axis: (i, len(grid)), col_axis: (j, len(row))}
+            index = _index(plan, grid, i, j)
             trees[-1].append(map_tree(
                 lambda key, leaf: _shard(key, leaf, specs[key], index, dev),
                 prepared))
     return Placement(plan, mesh, grid, trees, specs)
+
+
+def trainable(placement: Placement) -> Placement:
+    """The placement to train: at every grid position, fp32 leaves of its
+    own that require grad, cloned even where two positions share a device
+    or a replicated leaf, so that each position's gradient lands on its own
+    copy and the cross-copy sum (``sharded_train.all_reduce_grads``) is
+    what adds them, on one card as on many."""
+    return placement.map(
+        lambda leaf: leaf.detach().to(torch.float32).clone()
+        .requires_grad_())
 
 
 _sharded_params: dict = {}
