@@ -16,9 +16,10 @@ non-zero before the last line is printed.
 1. device: the card's name and power limit (``nvidia-smi``), or exit 1
    without a CUDA device;
 2. build: ``nvcc`` builds every kernel library from the sources in
-   ``vainplex_openclaw_tpu_torch/ops/csrc``; each instantiation's registers
-   and spills from ``ptxas``, at most 32 instantiations, no spills in the
-   bf16 kernels at Dh <= 64;
+   ``vainplex_openclaw_tpu_torch/ops/csrc``; each instantiation's registers,
+   static shared memory and spills from ``ptxas`` (every kernel's, for a
+   library of at most 8), at most 32 instantiations, no spills in the bf16
+   kernels at Dh <= 64;
 3. kernels: each kernel against its plain version on the card, in bf16
    (tolerance 3e-2, the JAX suite's own bf16 bound, absolute and relative
    to each row's largest value) and fp32 (1e-4 absolute: the two sum in
@@ -154,16 +155,26 @@ the grids again repeating the one card:
     (dp, sp) against the single-device card forward: fp32 logits and
     ``moe_aux`` within 1e-5, the bf16 severity argmax equal, K2 launched
     n_layers × dp × sp² times;
-24. similarity: the Jaccard block at N = 64, 512 and 4096 (dim 1024) and the
-    Levenshtein ratios at 32, 256 and 4096 pairs (L = 128) on the card,
-    bit-identical to the numpy formulations (and the ratios to the scalar
-    DP over the 128-byte window); K3, the Levenshtein DP kernel
-    (``ops/csrc/levenshtein.cu``), launched once per batch and equal to its
-    plain version, timed beside it and its bound (``levenshtein_bound``).
+24. similarity: the Jaccard block at N = 64, 512 and 4096 (dim 1024)
+    bit-identical to numpy; then K3, the bit-parallel Levenshtein kernel
+    (``ops/csrc/levenshtein.cu``, one warp per pair), at every leg of
+    ``LEV_LEGS``: L = 128 at 32, 256 and 4096 pairs, the trace analyzer's
+    doom-loop detector at L = 512 (ASCII commands of 1 to 500 characters,
+    half near-duplicates, a's lengths on word edges) at 32, 256 and 4096,
+    and L = 2048 at 32 pairs of multibyte text (a up to 63 words). Each leg:
+    K3 launched once per ``batch_levenshtein_ratio`` call, the ratios
+    bit-identical to numpy (and to the scalar DP where characters are
+    bytes), the distances equal to the plain version's and numpy's, and
+    ``kernel_ms`` no faster than ``levenshtein_bound`` / 1.05; at L = 512
+    and 4096 pairs the call split into tokenize, copy in, K3 and copy out.
+    Last, K3 against the plain version and numpy on tokens the legs never
+    hold (``K3_TOKEN_CASES``): a outside the byte alphabet (its ballot
+    path), and a inside it with b outside it and on its top rows.
 
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
-K1, K2 and K3 (measured numbers and the bound only) and, last,
+K1, K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs, with its
+L=128 figures beside them; measured numbers and the bound only) and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -316,24 +327,29 @@ def attention_bound(B, H, Lq, Lk, Dh, elem_bytes, stats):
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 _KERNEL_ARGS = re.compile(r"(flash_fwd_\w+?)ILi(\d+)ELb([01])ELb([01])E")
 
 
 def ptxas_report(log: str) -> list:
     """One entry per kernel instantiation in ``nvcc -Xptxas=-v`` output:
-    its template (kernel, Dh, causal, stats), registers and spill bytes."""
+    its template (kernel, Dh, causal, stats), registers, static shared
+    memory (dynamic shared memory is set at launch and not reported) and
+    spill bytes."""
     chunks = _PTXAS_ENTRY.split(log)
     report = []
     for name, body in zip(chunks[1::2], chunks[2::2]):
         args = _KERNEL_ARGS.search(name)
         spill = _PTXAS_SPILL.search(body)
         regs = _PTXAS_REGS.search(body)
+        smem = _PTXAS_SMEM.search(body)
         report.append({
             "kernel": args.group(1) if args else name,
             "dh": int(args.group(2)) if args else None,
             "causal": args.group(3) == "1" if args else None,
             "stats": args.group(4) == "1" if args else None,
             "registers": int(regs.group(1)) if regs else None,
+            "smem_bytes": int(smem.group(1)) if smem else None,
             "spill_stores": int(spill.group(1)) if spill else None,
             "spill_loads": int(spill.group(2)) if spill else None})
     return report
@@ -464,6 +480,8 @@ def phase_build() -> None:
                           for k, d in registers.items()},
             "spilling": [e for e in report
                          if e["spill_stores"] or e["spill_loads"]]}
+        if len(report) <= 8:  # a small library: every kernel's resources
+            libraries[name]["kernels"] = report
         if r["cached"]:
             continue
         check(bool(report), f"{name}: no ptxas report in the build log")
@@ -2621,17 +2639,49 @@ def phase_long_moe(smi: str) -> dict:
 
 SIM_JACCARD_N = (64, 512, 4096)
 SIM_DIM = 1024
-SIM_LEV_N = (32, 256, 4096)
+# K3's legs, (L, pairs): batch_levenshtein_ratio's default length, the trace
+# analyzer's doom-loop detector (signals.py: length=LEVENSHTEIN_CAP + 12 over
+# at least BATCH_SIMILARITY_MIN = 32 pairs, bucketed to a power of two) and
+# a length past the 512 that K3 once refused, where the 500-character cap
+# in UTF-8 reaches 2000 bytes
 SIM_LEN = 128
-# K3's bound: per DP cell a compare, two adds and two mins, at the rate of
-# the CUDA cores outside the tensor cores (the data sheet's 67e12 fp32
-# operations a second; int32 runs at no higher rate), so the bound is
-# the least time, not more
+DETECTOR_LEN = 512
+LONG_LEV_LEN = 2048
+LEV_LEGS = ((SIM_LEN, 32), (SIM_LEN, 256), (SIM_LEN, 4096),
+            (DETECTOR_LEN, 32), (DETECTOR_LEN, 256), (DETECTOR_LEN, 4096),
+            (LONG_LEV_LEN, 32))
+DETECTOR_EDGES = (31, 32, 33, 63, 64, 65, 500)  # a's lengths at word edges
+# K3's bound counts the bit-parallel recurrence (Myers 1999, Hyyrö's form)
+# as the kernel's inner step runs it: one word step advances 32 DP cells
+# with Xv = Eq | VN (1), Xh = ((Eq & VP) + VP + carry-in) ^ VP | Eq (5),
+# HP = VN | ~(Xh | VP) (3), HN = VP & Xh (1), HP and HN shifted up by one
+# with the bit from the word below (2 each), VP = HN | ~(Xv | HP) (3) and
+# VN = HP & Xv (1): 18 operations; forming Eq and passing the carry and the
+# shifted bits between words are not counted. The rate is the data sheet's
+# 67e12 a second for the CUDA cores outside the tensor cores, deliberately
+# generous: the INT32 pipe is 64 lanes per SM and clock (132 SMs x ~1.98
+# GHz = 16.7e12), and a three-input LOP3 does two of the operations counted
+# here in one instruction, so the larger rate keeps the bound a least time
+# whatever the kernel issues.
+K3_OPS_PER_WORD_STEP = 18
+# The per-cell bound of the one-thread-per-pair DP kernel, kept as
+# dp_cell_bound_ms: per DP cell a compare, two adds and two mins at the
+# same rate
 K3_OPS_PER_CELL = 5
 CUDA_CORE_OPS_PER_S = 67e12
+BOUND_SLACK = 1.05  # a kernel_ms below bound_ms / BOUND_SLACK fails
 K3_SOURCE = "vainplex_openclaw_tpu_torch/ops/csrc/levenshtein.cu"
 # _batch_levenshtein_jax, the jitted DP K3 stands in for
 K3_REPLACES = "vainplex_openclaw_tpu/ops/similarity.py:273"
+_COMMAND_WORDS = ("git", "commit", "-m", "push", "--force", "origin", "main",
+                  "npm", "run", "test", "build", "pytest", "-q", "tests/",
+                  "docker", "compose", "up", "-d", "kubectl", "apply", "-f",
+                  "deploy.yaml", "cat", "/var/log/app.log", "|", "grep",
+                  "ERROR", "rm", "-rf", "/tmp/cache", "curl", "-sS",
+                  "http://localhost:8080/health", "python3", "-c",
+                  "'import sys; print(sys.path)'", "&&", "ls", "-la", "cd",
+                  "src/api", "sed", "-i", "'s/v1/v2/g'", "config.toml")
+_MULTIBYTE = "aé€𝄞"  # 1, 2, 3 and 4 bytes in UTF-8
 
 
 def seeded_multi_hot(n: int, seed: int):
@@ -2664,6 +2714,87 @@ def seeded_pairs(n: int, seed: int) -> list:
     pairs[0] = ("", "")
     pairs[1] = (pairs[2][0], pairs[2][0])
     return pairs
+
+
+def near_duplicate(s: str, rng, alphabet: str, keep_length: bool) -> str:
+    """``s`` after 1 to 5 random edits from ``alphabet``: substitutions
+    only when ``keep_length``, else substitutions, insertions and
+    deletions."""
+    out = list(s)
+    for _ in range(int(rng.integers(1, 6))):
+        kind = (0 if keep_length else 1 if not out
+                else int(rng.integers(0, 3)))
+        ch = alphabet[int(rng.integers(len(alphabet)))]
+        at = int(rng.integers(0, len(out) + (kind == 1)))
+        if kind == 0:
+            out[at] = ch
+        elif kind == 1:
+            out.insert(at, ch)
+        else:
+            del out[at]
+    return "".join(out)
+
+
+def detector_pairs(n: int, seed: int) -> list:
+    """``n`` pairs shaped like the doom-loop detector's: ASCII commands of
+    1 to 500 characters, the odd pairs near-duplicates of their partner a
+    few edits apart (the retries it looks for), the even ones independent;
+    an empty pair (the bucket's padding), an equal pair, and pairs whose
+    first string is ``DETECTOR_EDGES`` long, partnered with a substitution
+    of itself."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ascii_ = "".join(map(chr, range(32, 127)))
+
+    def command(length: int) -> str:
+        words = []
+        while len(" ".join(words)) < length:
+            words.append(_COMMAND_WORDS[int(rng.integers(len(_COMMAND_WORDS)))])
+        return " ".join(words)[:length]
+
+    pairs = []
+    for i in range(n):
+        a = command(int(rng.integers(1, 501)))
+        b = (near_duplicate(a, rng, ascii_, keep_length=False)[:500]
+             if i % 2 else command(int(rng.integers(1, 501))))
+        pairs.append((a, b or "x"))
+    pairs[0] = ("", "")
+    pairs[1] = (pairs[3][0], pairs[3][0])
+    for i, edge in enumerate(DETECTOR_EDGES):
+        a = command(edge)
+        pairs[2 + 2 * i] = (a, near_duplicate(a, rng, ascii_, keep_length=True))
+    return pairs
+
+
+def multibyte_pairs(n: int, seed: int) -> list:
+    """``n`` pairs of 480 to 500 characters of 1- to 4-byte UTF-8 (up to
+    2000 bytes, 63 words of 32 tokens), half near-duplicates; the first
+    pair is 500 four-byte characters against a near-duplicate."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def text() -> str:
+        return "".join(rng.choice(list(_MULTIBYTE), size=int(
+            rng.integers(480, 501)), p=(0.1, 0.2, 0.3, 0.4)))
+
+    pairs = []
+    for i in range(n):
+        a = text()
+        pairs.append((a, near_duplicate(a, rng, _MULTIBYTE, False)[:500]
+                      if i % 2 else text()))
+    pairs[0] = ("𝄞" * 500, near_duplicate("𝄞" * 500, rng, _MULTIBYTE, True))
+    return pairs
+
+
+def lev_leg_pairs(L: int, n: int) -> list:
+    """The seeded pairs of one K3 leg."""
+    if L == SIM_LEN:
+        return seeded_pairs(n, seed=80 + n)
+    if L == DETECTOR_LEN:
+        return detector_pairs(n, seed=90 + n)
+    return multibyte_pairs(n, seed=100 + n)
 
 
 def jaccard_numpy(Xa, Xb):
@@ -2710,26 +2841,189 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
-def levenshtein_bound(n: int, L: int, cells: int) -> dict:
-    """The least time the card could take for K3 on ``n`` pairs of ``L``
-    int32 tokens: bytes read once (both token rows and both lengths) and
-    written once (the distances), and ``K3_OPS_PER_CELL`` integer
-    operations for each DP cell these inputs need (``cells`` = the sum of
-    len_a · len_b) at the rate of the CUDA cores
-    (``CUDA_CORE_OPS_PER_S``)."""
-    n_bytes = 2 * n * L * 4 + 2 * n * 4 + n * 4
-    n_ops = K3_OPS_PER_CELL * cells
+def levenshtein_bound(L: int, len_a, len_b) -> dict:
+    """The least time the card could take for K3 on the pairs of ``L``
+    int32 tokens whose lengths are ``len_a`` and ``len_b``: bytes read
+    once and written once, and ``K3_OPS_PER_WORD_STEP`` integer operations
+    for each word step of the bit-parallel recurrence that these inputs
+    need (the sum of len_b · ⌈len_a / 32⌉) at ``CUDA_CORE_OPS_PER_S``.
+    The bytes are the tokens the distance depends on, a pair's first
+    len_a of a and first len_b of b (none where either length is 0: the
+    distance is then the other length), both lengths, and the distance.
+    ``dp_cell_bound_ms`` is the per-cell reading of the same bytes and
+    ``K3_OPS_PER_CELL`` operations for each DP cell (len_a · len_b)."""
+    import numpy as np
+
+    la = np.clip(np.asarray(len_a, np.int64), 0, L)
+    lb = np.clip(np.asarray(len_b, np.int64), 0, L)
+    n = len(la)
+    tokens = int(np.where((la > 0) & (lb > 0), la + lb, 0).sum())
+    n_bytes = tokens * 4 + 2 * n * 4 + n * 4
+    word_steps = int((lb * ((la + 31) // 32)).sum())
+    cells = int((la * lb).sum())
+    n_ops = K3_OPS_PER_WORD_STEP * word_steps
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
-    return {"bytes": n_bytes, "operations": n_ops, "cells": cells,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_cells = K3_OPS_PER_CELL * cells / CUDA_CORE_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "operations": n_ops, "word_steps": word_steps,
+            "cells": cells, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dp_cell_bound_ms": max(t_bytes, t_cells)}
+
+
+def check_bound(kernel_ms: float, bound_ms: float, what: str) -> None:
+    """A kernel read faster than its bound means the bound counts the
+    wrong work: fail."""
+    check(kernel_ms >= bound_ms / BOUND_SLACK,
+          f"{what}: kernel_ms {kernel_ms} is below bound_ms {bound_ms} / "
+          f"{BOUND_SLACK}: the bound's count is wrong")
+
+
+def detector_split(sim, pairs: list, L: int, reps: int = 5) -> dict:
+    """Where one ``batch_levenshtein_ratio`` call's time goes, by its
+    stages, each timed on the host clock up to ``torch.cuda.synchronize``
+    (medians of ``reps``): tokenizing both sides with their lengths, the
+    copy of the four bucketed arrays to the card, K3, and the distances'
+    copy back."""
+    import numpy as np
+    import torch
+
+    def tokenize():
+        A = sim.tokenize_fixed([a for a, _ in pairs], L)
+        B = sim.tokenize_fixed([b for _, b in pairs], L)
+        return (A, B, (A > 0).sum(axis=1).astype(np.int32),
+                (B > 0).sum(axis=1).astype(np.int32))
+
+    host = tokenize()
+    stages = {
+        "tokenize_ms": tokenize,
+        "copy_in_ms": lambda: [torch.from_numpy(x).cuda() for x in host],
+    }
+    dev = stages["copy_in_ms"]()
+    stages["kernel_ms"] = lambda: sim.levenshtein_rows(*dev)
+    out = stages["kernel_ms"]()
+    stages["copy_out_ms"] = lambda: out.cpu().numpy()
+    split = {name: wall_ms(fn, reps=reps) for name, fn in stages.items()}
+    split["sum_ms"] = sum(split.values())
+    return split
+
+
+def levenshtein_leg(sim, L: int, n: int) -> dict:
+    """One K3 leg: ``n`` seeded pairs at length ``L`` through
+    ``batch_levenshtein_ratio`` on the card with K3 counted from 0 (one
+    launch), the ratios bit-identical to numpy's, the distances equal to
+    the plain version's and numpy's (and the ratios of the first pairs to
+    the scalar DP where its characters are the batch's bytes), then the
+    call, K3 and the plain version timed beside the bound."""
+    import numpy as np
+    import torch
+
+    pairs = lev_leg_pairs(L, n)
+    torch.cuda.synchronize()
+    sim.launches = 0
+    got = sim.batch_levenshtein_ratio(pairs, length=L)
+    torch.cuda.synchronize()
+    launches = sim.launches
+    check(launches == 1, f"similarity: K3 launches {launches} != 1 "
+                         f"for {n} pairs at L={L}")
+    A = sim.tokenize_fixed([a for a, _ in pairs], L)
+    B = sim.tokenize_fixed([b for _, b in pairs], L)
+    la = (A > 0).sum(axis=1).astype(np.int32)
+    lb = (B > 0).sum(axis=1).astype(np.int32)
+    dist = levenshtein_numpy(A, B, la, lb)
+    max_len = np.maximum(la, lb)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.where(max_len > 0, 1.0 - dist / max_len,
+                        1.0).astype(np.float32)
+    check(got.dtype == np.float32 and np.array_equal(
+        got.view(np.int32), want.view(np.int32)),
+          f"similarity: Levenshtein at {n} pairs, L={L}, is not "
+          "bit-identical to numpy")
+    # the scalar DP counts characters: over L=128 bytes of the 4-letter
+    # pairs, and over the detector's ASCII, they are the batch's bytes
+    n_scalar = 0 if L == LONG_LEV_LEN else 256 if L == SIM_LEN else 16
+    scalar = np.array([sim.levenshtein_ratio(a[:L], b[:L])
+                       for a, b in pairs[:n_scalar]], np.float32)
+    check(np.array_equal(got[:n_scalar], scalar),
+          f"similarity: Levenshtein at {n} pairs, L={L}, differs from the "
+          "scalar DP")
+    Ad, Bd, lad, lbd = (torch.from_numpy(x).cuda() for x in (A, B, la, lb))
+    kernel = sim.levenshtein_rows(Ad, Bd, lad, lbd)
+    plain = sim.levenshtein_rows_reference(Ad, Bd, lad, lbd)
+    torch.cuda.synchronize()
+    err = int((kernel - plain).abs().max())
+    check(err == 0 and np.array_equal(kernel.cpu().numpy(), dist),
+          f"similarity: K3 at {n} pairs, L={L}, differs from its plain "
+          f"version by {err} or from numpy")
+    # the plain version runs ~11 launches a DP row: fewer repeats at 2048
+    plain_reps = (1, 3, 1) if L == LONG_LEV_LEN else (5, 5, 2)
+    leg = {
+        "length": L, "pairs": n, "bit_identical": True,
+        "scalar_checked": n_scalar, "k3_launches": launches,
+        "distinct_values": int(len(np.unique(got))), "max_abs_err": err,
+        "max_len_a": int(la.max()), "max_words": int((la.max() + 31) // 32),
+        "ms": wall_ms(lambda: sim.batch_levenshtein_ratio(pairs, length=L)),
+        "kernel_ms": time_ms(lambda: sim.levenshtein_rows(Ad, Bd, lad, lbd),
+                             n=20, reps=5, warmup=3),
+        "plain_ms": time_ms(lambda: sim.levenshtein_rows_reference(
+            Ad, Bd, lad, lbd), n=plain_reps[0], reps=plain_reps[1],
+            warmup=plain_reps[2]),
+        **levenshtein_bound(L, la, lb)}
+    check_bound(leg["kernel_ms"], leg["bound_ms"], f"K3 at L={L}, {n} pairs")
+    if (L, n) == (DETECTOR_LEN, 4096):
+        leg["split"] = detector_split(sim, pairs, L)
+    return leg
+
+
+# K3's Eq on tokens the legs' byte strings never hold, (L, a's tokens, b's
+# tokens): a band of a outside 0..256 takes the ballot path; a inside it
+# with b outside it reads the Peq table's zero row, and b's 251..256 its
+# last rows (at kWords 4 and 16, the words that end a warp's table)
+K3_OUTSIDE = (-7, 300, 2**31 - 1, -2**31, 65536)
+K3_TABLE = (0, 1, 97, 251, 252, 253, 254, 255, 256)
+K3_TOKEN_CASES = {
+    "ballot_L512": (DETECTOR_LEN, K3_OUTSIDE, K3_OUTSIDE),
+    "table_b_outside_L128": (SIM_LEN, K3_TABLE, K3_TABLE + K3_OUTSIDE),
+    "table_b_outside_L512": (DETECTOR_LEN, K3_TABLE, K3_TABLE + K3_OUTSIDE),
+}
+
+
+def k3_tokens(sim, L: int, a_tokens, b_tokens, n: int = 64,
+              seed: int = 174) -> dict:
+    """K3 on ``n`` rows of a drawn from ``a_tokens`` and b a copy of a with
+    a fifth of its tokens redrawn from ``b_tokens`` (small sets, so
+    distances stay short of the lengths), against the plain version and
+    numpy; random lengths, an empty a and an empty b among them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a_tokens = np.array(a_tokens, np.int64)
+    b_tokens = np.array(b_tokens, np.int64)
+    A = a_tokens[rng.integers(0, len(a_tokens), size=(n, L))].astype(np.int32)
+    B = A.copy()
+    flips = rng.random((n, L)) < 0.2
+    B[flips] = b_tokens[rng.integers(0, len(b_tokens), size=int(flips.sum()))]
+    la = rng.integers(0, L + 1, size=n).astype(np.int32)
+    lb = np.clip(la + rng.integers(-40, 41, size=n), 0, L).astype(np.int32)
+    la[0], lb[1] = 0, 0
+    dist = levenshtein_numpy(A, B, la, lb)
+    Ad, Bd, lad, lbd = (torch.from_numpy(x).cuda() for x in (A, B, la, lb))
+    kernel = sim.levenshtein_rows(Ad, Bd, lad, lbd)
+    plain = sim.levenshtein_rows_reference(Ad, Bd, lad, lbd)
+    err = int((kernel - plain).abs().max())
+    check(err == 0 and np.array_equal(kernel.cpu().numpy(), dist),
+          f"similarity: K3 on tokens {a_tokens.tolist()} / "
+          f"{b_tokens.tolist()} at L={L} differs from its plain version by "
+          f"{err} or from numpy")
+    return {"length": L, "pairs": n, "max_abs_err": err,
+            "distinct_values": int(len(np.unique(dist)))}
 
 
 def phase_similarity(smi: str) -> dict:
     """Both batched similarity twins on the card, bit-identical to the
-    numpy formulations (and the Levenshtein ratios to the scalar DP over
-    the 128-byte window), K3 against its plain version, and their times."""
+    numpy formulations, K3 against its plain version at every leg of
+    ``LEV_LEGS``, and their times."""
     import numpy as np
     import torch
 
@@ -2751,54 +3045,12 @@ def phase_similarity(smi: str) -> dict:
             "ms": wall_ms(lambda: sim.jaccard_from_rows(X)),
             "block_ms": time_ms(lambda: sim._jaccard_block(Xd, Xd), n=20,
                                 reps=5, warmup=3)}
-    launches = 0
-    for n in SIM_LEV_N:
-        pairs = seeded_pairs(n, seed=80 + n)
-        torch.cuda.synchronize()
-        sim.launches = 0
-        got = sim.batch_levenshtein_ratio(pairs)
-        torch.cuda.synchronize()
-        check(sim.launches == 1, f"similarity: K3 launches {sim.launches} "
-                                 f"!= 1 for {n} pairs")
-        launches += sim.launches
-        A = sim.tokenize_fixed([a for a, _ in pairs], SIM_LEN)
-        B = sim.tokenize_fixed([b for _, b in pairs], SIM_LEN)
-        la = (A > 0).sum(axis=1).astype(np.int32)
-        lb = (B > 0).sum(axis=1).astype(np.int32)
-        dist = levenshtein_numpy(A, B, la, lb)
-        max_len = np.maximum(la, lb)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            want = np.where(max_len > 0, 1.0 - dist / max_len,
-                            1.0).astype(np.float32)
-        check(np.array_equal(got.view(np.int32), want.view(np.int32)),
-              f"similarity: Levenshtein at {n} pairs is not bit-identical "
-              "to numpy")
-        scalar = np.array([sim.levenshtein_ratio(a[:SIM_LEN], b[:SIM_LEN])
-                           for a, b in pairs[:256]], np.float32)
-        check(np.array_equal(got[:256], scalar),
-              f"similarity: Levenshtein at {n} pairs differs from the "
-              "scalar DP over the 128-byte window")
-        Ad, Bd, lad, lbd = (torch.from_numpy(x).cuda() for x in (A, B, la, lb))
-        kernel = sim.levenshtein_rows(Ad, Bd, lad, lbd)
-        plain = sim.levenshtein_rows_reference(Ad, Bd, lad, lbd)
-        torch.cuda.synchronize()
-        err = int((kernel - plain).abs().max())
-        check(err == 0 and np.array_equal(kernel.cpu().numpy(), dist),
-              f"similarity: K3 at {n} pairs differs from its plain version "
-              f"by {err}")
-        cells = int((la.astype(np.int64) * lb).sum())
-        record["levenshtein"][str(n)] = {
-            "length": SIM_LEN, "bit_identical": True,
-            "scalar_checked": len(scalar), "k3_launches": 1,
-            "distinct_values": int(len(np.unique(got))),
-            "max_abs_err": err,
-            "ms": wall_ms(lambda: sim.batch_levenshtein_ratio(pairs)),
-            "kernel_ms": time_ms(lambda: sim.levenshtein_rows(
-                Ad, Bd, lad, lbd), n=20, reps=5, warmup=3),
-            "plain_ms": time_ms(lambda: sim.levenshtein_rows_reference(
-                Ad, Bd, lad, lbd), n=5, reps=5, warmup=2),
-            **levenshtein_bound(n, SIM_LEN, cells)}
-    record["k3_launches"] = launches
+    for L, n in LEV_LEGS:
+        record["levenshtein"][f"L{L}_n{n}"] = levenshtein_leg(sim, L, n)
+    record["k3_launches"] = sum(leg["k3_launches"] for leg in
+                                record["levenshtein"].values())
+    record["levenshtein_tokens"] = {
+        name: k3_tokens(sim, *case) for name, case in K3_TOKEN_CASES.items()}
     emit(record)
     return record
 
@@ -2832,7 +3084,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
     k1_long = timing_stats["k1_same_shape"]
-    k3 = similarity["levenshtein"][str(SIM_LEV_N[-1])]
+    k3 = similarity["levenshtein"][f"L{DETECTOR_LEN}_n4096"]
+    k3_l128 = similarity["levenshtein"][f"L{SIM_LEN}_n4096"]
     # K1's exponential floors at the ex2 rate timing_stats measured (the
     # long shape's is in that record); derived, so not on the kernels line
     ex2_per_s = timing_stats["sfu"]["ex2"]["steps_per_s"]
@@ -2913,7 +3166,16 @@ def main() -> int:
                             similarity["levenshtein"].values()),
          "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": None, "shape": [int(SIM_LEV_N[-1]), SIM_LEN]}]})
+         "library_ms": None, "shape": [4096, DETECTOR_LEN],
+         "dp_cell_bound_ms": k3["dp_cell_bound_ms"],
+         "l128_shape": {"shape": [4096, SIM_LEN], "ms": k3_l128["kernel_ms"],
+                        "plain_ms": k3_l128["plain_ms"],
+                        "bound_ms": k3_l128["bound_ms"],
+                        "bound_by": k3_l128["bound_by"],
+                        "dp_cell_bound_ms": k3_l128["dp_cell_bound_ms"]},
+         "legs": {name: {"launches": leg["k3_launches"],
+                         "ms": leg["kernel_ms"], "bound_ms": leg["bound_ms"]}
+                  for name, leg in similarity["levenshtein"].items()}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -3,10 +3,12 @@
 ``attention_bound`` gives the least time the card could take for one
 attention launch (the guide's bound) and the floor that its exponentials
 set; it is pinned here against hand counts at the two serve shapes.
-``ptxas_report`` reads the compiler's register and spill lines,
-``make_qkv`` makes the masks of the kernel cases, and ``k1_errors`` is the
-check K1 is held to, which must fail a plain version that dropped a key
-tile at the long shape. chip_smoke's top level
+``ptxas_report`` reads the compiler's register, shared memory and spill
+lines, ``make_qkv`` makes the masks of the kernel cases, and ``k1_errors``
+is the check K1 is held to, which must fail a plain version that dropped a
+key tile at the long shape. ``levenshtein_bound`` counts K3's word steps
+and ``check_bound`` fails a reading faster than it; the similarity legs'
+pairs reach the word edges. chip_smoke's top level
 imports only the standard library, so importing it here runs nothing.
 """
 
@@ -85,7 +87,7 @@ ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389793mma13flash_fwd_mmaILi32ELb0ELb1EEEvPK13__nv_bfloat16S4_S4_PKfPvPfS8_iiiif' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389793mma13flash_fwd_mmaILi32ELb0ELb1EEEvPK13__nv_bfloat16S4_S4_PKfPvPfS8_iiiif
     8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
-ptxas info    : Used 96 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Used 96 registers, used 1 barriers, 24576 bytes smem, 8 bytes cumulative stack size
 ptxas info    : Compile time = 60.425 ms
 ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389796scalar14flash_fwd_fp32ILi128ELb1ELb0EEEvPKfS3_S3_S3_PfS4_S4_iiiif' for 'sm_90a'
 ptxas info    : Function properties for _ZN51_GLOBAL__N__86df54c7_18_flash_attention_cu_2c1389796scalar14flash_fwd_fp32ILi128ELb1ELb0EEEvPKfS3_S3_S3_PfS4_S4_iiiif
@@ -98,10 +100,11 @@ def test_ptxas_report_reads_each_instantiation():
     report = chip_smoke.ptxas_report(PTXAS_LOG)
     assert report == [
         {"kernel": "flash_fwd_mma", "dh": 32, "causal": False, "stats": True,
-         "registers": 96, "spill_stores": 8, "spill_loads": 16},
+         "registers": 96, "smem_bytes": 24576, "spill_stores": 8,
+         "spill_loads": 16},
         {"kernel": "flash_fwd_fp32", "dh": 128, "causal": True,
-         "stats": False, "registers": 255, "spill_stores": 0,
-         "spill_loads": 0}]
+         "stats": False, "registers": 255, "smem_bytes": None,
+         "spill_stores": 0, "spill_loads": 0}]
 
 
 def test_ptxas_report_of_an_empty_log_is_empty():
@@ -346,16 +349,49 @@ def test_train_mesh_shard_shapes_are_kernel_cases():
 
 
 def test_levenshtein_bound_hand_counts():
-    """K3 at 4096 pairs of 128 tokens whose lengths multiply to 10^7 DP
-    cells: 4 MB of rows, 5 operations a cell at the CUDA-core rate."""
-    b = chip_smoke.levenshtein_bound(4096, 128, 10_000_000)
-    assert b["bytes"] == 2 * 4096 * 128 * 4 + 3 * 4096 * 4 == 4_243_456
-    assert b["operations"] == 50_000_000
+    """K3's bound by hand. The bytes are the tokens the distances depend
+    on (each pair's len_a + len_b, none where a length is 0), two lengths
+    and one distance a pair. L=128: 4096 pairs of 100 x 100 tokens, 4
+    words of a, 100 word steps each: 3.3 MB, bytes bound. L=512: 32 pairs
+    of 500 x 500 tokens, 16 words, 500 word steps each; and one pair whose
+    a is empty (no tokens, no word steps). L=64: lengths clamped to L, and
+    an empty b reads no token of a. ``dp_cell_bound_ms`` is the per-cell
+    formula: 5 operations a DP cell at the CUDA-core rate."""
+    la = np.full(4096, 100)
+    b = chip_smoke.levenshtein_bound(128, la, la)
+    assert b["bytes"] == 4096 * 200 * 4 + 3 * 4096 * 4 == 3_325_952
+    assert b["word_steps"] == 4096 * 100 * 4
+    assert b["operations"] == 18 * 1_638_400 == 29_491_200
+    assert b["cells"] == 40_960_000
     assert b["bound_by"] == "bytes"
-    assert b["bound_ms"] == pytest.approx(4_243_456 / 3.35e12 * 1e3)
-    dense = chip_smoke.levenshtein_bound(32, 128, 32 * 128 * 128)
-    assert dense["bound_by"] == "operations"
-    assert dense["bound_ms"] == pytest.approx(5 * 32 * 128 * 128 / 67e12 * 1e3)
+    assert b["bound_ms"] == pytest.approx(3_325_952 / 3.35e12 * 1e3)
+    assert b["dp_cell_bound_ms"] == pytest.approx(
+        5 * 40_960_000 / 67e12 * 1e3)
+    la = np.full(33, 500)
+    lb = la.copy()
+    la[0] = 0
+    d = chip_smoke.levenshtein_bound(512, la, lb)
+    assert d["bytes"] == 32 * 1000 * 4 + 3 * 33 * 4 == 128_396
+    assert d["word_steps"] == 32 * 500 * 16 == 256_000
+    assert d["operations"] == 18 * 256_000
+    assert d["cells"] == 32 * 500 * 500
+    assert d["bound_by"] == "operations"
+    assert d["bound_ms"] == pytest.approx(18 * 256_000 / 67e12 * 1e3)
+    assert d["dp_cell_bound_ms"] == pytest.approx(
+        5 * 8_000_000 / 67e12 * 1e3)
+    # a bit-parallel word step covers 32 cells: the new count is below
+    # the per-cell one, so a DP-cell kernel respects it too
+    assert d["bound_ms"] < d["dp_cell_bound_ms"]
+    e = chip_smoke.levenshtein_bound(64, [70, 10, 0], [0, 64, 5])
+    assert e["bytes"] == (10 + 64) * 4 + 3 * 3 * 4 == 332
+    assert e["word_steps"] == 64 and e["cells"] == 640
+
+
+def test_a_reading_faster_than_the_bound_fails():
+    chip_smoke.check_bound(0.0050, 0.005, "K3")
+    chip_smoke.check_bound(0.005 / 1.05, 0.005, "K3")
+    with pytest.raises(chip_smoke.SmokeFailure, match="below bound_ms"):
+        chip_smoke.check_bound(0.0047, 0.005, "K3")
 
 
 def test_similarity_inputs_reach_the_edges():
@@ -376,3 +412,41 @@ def test_similarity_inputs_reach_the_edges():
     la, lb = ((x > 0).sum(axis=1).astype(np.int32) for x in (A, B))
     assert np.array_equal(chip_smoke.levenshtein_numpy(A, B, la, lb),
                           jax_sim._batch_levenshtein_numpy(A, B, la, lb))
+
+
+@pytest.mark.parametrize("n", [32, 256, 4096])
+def test_detector_legs_are_the_detectors_pairs(n):
+    """The L=512 legs: ASCII commands of 1 to 500 characters, an empty
+    pair (the bucket's padding), an equal pair, a's lengths on the word
+    edges, and the odd pairs a few edits apart."""
+    pairs = chip_smoke.lev_leg_pairs(chip_smoke.DETECTOR_LEN, n)
+    assert len(pairs) == n and pairs[0] == ("", "")
+    assert pairs[1][0] == pairs[1][1] != ""
+    assert all(a.isascii() and b.isascii() for a, b in pairs)
+    lengths = [len(s) for p in pairs[1:] for s in p]
+    assert min(lengths) >= 1 and max(lengths) <= 500
+    assert set(chip_smoke.DETECTOR_EDGES) <= {len(a) for a, _ in pairs}
+    if n == 32:
+        assert chip_smoke.detector_pairs(n, seed=90 + n) == pairs
+        from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+        ta = sim.tokenize_fixed([a for a, _ in pairs], 512)
+        tb = sim.tokenize_fixed([b for _, b in pairs], 512)
+        la, lb = ((x > 0).sum(axis=1).astype(np.int32) for x in (ta, tb))
+        dist = chip_smoke.levenshtein_numpy(ta, tb, la, lb)
+        assert dist[0] == dist[1] == 0
+        assert all(1 <= d <= 5 for d in dist[3::2])  # near-duplicates
+        assert (dist[4::2] > 5).sum() > 5  # independent commands
+
+
+def test_long_leg_reaches_63_words():
+    """The L=2048 leg: multibyte text near the 500-character cap, a up to
+    2000 bytes, 63 words of 32 tokens: two bands of the kernel."""
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    pairs = chip_smoke.lev_leg_pairs(chip_smoke.LONG_LEV_LEN, 32)
+    assert all(480 <= len(a) <= 500 for a, _ in pairs)
+    A = sim.tokenize_fixed([a for a, _ in pairs], chip_smoke.LONG_LEV_LEN)
+    la = (A > 0).sum(axis=1)
+    assert la.max() == 2000 and (la.max() + 31) // 32 == 63
+    assert (la > 1024).sum() > 16

@@ -14,16 +14,31 @@ bucketing. Both are integer-exact, so every comparison here is bit for bit
   batched paths of both packages see the first 128 bytes only), routing and
   padded shapes equal;
 - edge inputs: no rows, one row, N off a power of two, empty strings and
-  strings past 128 bytes.
+  strings past 128 bytes;
+- lengths 512 (the trace analyzer's doom-loop detector) and 2048 (500
+  characters of 4-byte UTF-8) against the JAX numpy DP;
+- K3's bit-parallel recurrence (``csrc/levenshtein.cu``), which cannot run
+  here, as a word-level model on 32-bit Python ints in the kernel's order
+  (bands, carry-lookahead, shifted bits), held against the plain version
+  and JAX's scalar DP at lengths on and around the word edges.
 """
 
 from __future__ import annotations
+
+import os
+import sys
 
 import numpy as np
 import pytest
 
 from vainplex_openclaw_tpu.ops import similarity as jax_sim
 from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402  (its top level imports only the standard library)
 
 
 def bits(a) -> np.ndarray:
@@ -200,6 +215,29 @@ def test_pow2_bucket_and_pad_rows_equal_jax():
     assert np.array_equal(sim.pad_rows(X, 8), jax_sim.pad_rows(X, 8))
 
 
+@pytest.mark.parametrize("length,n", [(512, 32), (512, 45), (2048, 32)])
+def test_levenshtein_past_512_is_bit_identical(length, n):
+    """At the detector's length (512) and past it (2048: 500 characters of
+    4-byte UTF-8 are 2000 bytes), on the pairs of chip_smoke's legs there,
+    the port's batched path equals the JAX package's numpy DP bit for bit. At 512 the commands are ASCII, so the
+    JAX package's ``use_jax=False`` path (the scalar DP over characters)
+    gives the same ratios; over multibyte text it counts characters, not
+    the batch's bytes, so at 2048 the numpy DP is the reference."""
+    pairs = (chip_smoke.detector_pairs(n, seed=n) if length == 512
+             else chip_smoke.multibyte_pairs(n, seed=n))
+    got = sim.batch_levenshtein_ratio(pairs, length=length, device="cpu")
+    assert got.shape == (n,)
+    assert np.array_equal(bits(got), bits(numpy_ratio(pairs, length)))
+    if length == 512:
+        assert all(a.isascii() and b.isascii() for a, b in pairs)
+        assert np.array_equal(bits(got), bits(jax_sim.batch_levenshtein_ratio(
+            pairs, length=length, use_jax=False)))
+    else:
+        A = sim.tokenize_fixed([a for a, _ in pairs], length)
+        assert (A > 0).sum(axis=1).max() == 2000  # 63 words of 32 tokens
+    assert len(np.unique(got)) > n // 2
+
+
 # ── K3's plain version and wrapper on the CPU ───────────────────────
 
 
@@ -259,3 +297,150 @@ def test_levenshtein_rows_checks_its_inputs():
         sim.levenshtein_rows(A, A[:, :4], n, n)
     with pytest.raises(ValueError, match=r"\[N\]"):
         sim.levenshtein_rows(A, A, n[:3], n)
+
+
+# ── K3's bit-parallel recurrence, word by word ──────────────────────
+
+M32 = 0xFFFFFFFF
+K3_LENGTHS = (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 500, 511, 512)
+
+
+def k3_band_words(L: int) -> int:
+    """``band_words`` in ``csrc/levenshtein.cu``."""
+    words = (L + 31) // 32
+    return 4 if words <= 4 else 16 if words <= 16 else 32
+
+
+def k3_model(a_row, b_row, la: int, lb: int, L: int) -> int:
+    """K3's arithmetic on 32-bit words, in the kernel's order: bands of
+    ``k3_band_words(L)`` words taken one after the other over all of b,
+    each column's Eq from a's first ``la`` tokens (the kernel reads 0 past
+    them), the add's carries into the words from the ballots of generate
+    (g) and propagate (p) as ``((G | P) + G + carry_in) ^ P`` (held
+    against the carry rippled word by word), the shifts' top bits from the
+    word below, and 3 bits a column (carry, HP and HN shifted in) from the
+    band below. The distance is len_b plus the last column's vertical
+    deltas (VP's bits less VN's below len_a), held against the score kept
+    along a's last row."""
+    la, lb = min(max(la, 0), L), min(max(lb, 0), L)
+    if la == 0 or lb == 0:
+        return la + lb
+    kw = k3_band_words(L)
+    words = (la + 31) // 32
+    a = [int(t) if i < la else 0 for i, t in enumerate(a_row[:words * 32])]
+    a += [0] * (words * 32 - len(a))
+    edge = [(0, 1, 0)] * lb  # the first band: carry 0, HP 1, HN 0
+    score = la  # along a's last row, column by column
+    column = lb  # down the last column: the kernel's count
+    for w0 in range(0, words, kw):
+        wb = min(kw, words - w0)
+        final = w0 + wb == words
+        peq: dict = {}
+        for k in range(wb):
+            for i in range(32):
+                t = a[(w0 + k) * 32 + i]
+                peq.setdefault(t, [0] * wb)[k] |= 1 << i
+        vp, vn = [M32] * wb, [0] * wb
+        out_edge = []
+        for j in range(lb):
+            eq = peq.get(int(b_row[j]), [0] * wb)
+            cin, hp_in, hn_in = edge[j]
+            s = [(eq[k] & vp[k]) + vp[k] for k in range(wb)]
+            G = sum((s[k] >> 32) << k for k in range(wb))
+            P = sum(((s[k] & M32) == M32) << k for k in range(wb))
+            carries = ((G | P) + G + cin) ^ P
+            ripple = cin
+            hp, hn = [0] * wb, [0] * wb
+            for k in range(wb):
+                ck = (carries >> k) & 1
+                assert ck == ripple  # the lookahead is the rippled carry
+                total = s[k] + ck
+                ripple = total >> 32
+                xh = ((total & M32) ^ vp[k]) | eq[k]
+                hp[k] = (vn[k] | ~(xh | vp[k])) & M32
+                hn[k] = vp[k] & xh
+            if final:
+                word, bit = divmod(la - 1 - w0 * 32, 32)
+                score += ((hp[word] >> bit) & 1) - ((hn[word] >> bit) & 1)
+            out_edge.append(((carries >> kw) & 1, hp[wb - 1] >> 31,
+                             hn[wb - 1] >> 31))
+            for k in range(wb):
+                hp_low = hp[k - 1] >> 31 if k else hp_in
+                hn_low = hn[k - 1] >> 31 if k else hn_in
+                xv = eq[k] | vn[k]
+                hps = ((hp[k] << 1) | hp_low) & M32
+                hns = ((hn[k] << 1) | hn_low) & M32
+                vp[k] = (hns | ~(xv | hps)) & M32
+                vn[k] = hps & xv
+        edge = out_edge
+        for k in range(wb):
+            valid = (1 << min(max(la - (w0 + k) * 32, 0), 32)) - 1
+            column += (bin(vp[k] & valid).count("1")
+                       - bin(vn[k] & valid).count("1"))
+    assert column == score
+    return column
+
+
+def k3_case(la: int, lb: int, L: int, seed: int, alphabet: int = 4):
+    """Rows ``[1, L]`` of width L: a is ``la`` tokens of a small alphabet
+    (0 among them), b a near-duplicate of a's prefix (or a and a tail) with
+    a few substitutions; arbitrary int32 noise past both lengths."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, alphabet, size=la)
+    b = np.concatenate([a[:lb], rng.integers(0, alphabet, size=max(
+        lb - la, 0))])
+    flips = rng.random(lb) < 0.1
+    b[flips] = rng.integers(0, alphabet, size=int(flips.sum()))
+    A = rng.integers(-2**31, 2**31, size=(1, L), dtype=np.int64)
+    B = rng.integers(-2**31, 2**31, size=(1, L), dtype=np.int64)
+    A[0, :la], B[0, :lb] = a, b
+    return A.astype(np.int32), B.astype(np.int32)
+
+
+def k3_check(A, B, la: int, lb: int) -> int:
+    """The model against the plain version, the JAX package's numpy DP
+    (any length) and JAX's scalar DP where it is not capped; returns the
+    distance."""
+    import torch
+
+    L = A.shape[1]
+    got = k3_model(A[0].tolist(), B[0].tolist(), la, lb, L)
+    want = sim.levenshtein_rows_reference(
+        torch.from_numpy(A), torch.from_numpy(B),
+        torch.tensor([la], dtype=torch.int32),
+        torch.tensor([lb], dtype=torch.int32))
+    assert got == int(want[0])
+    assert got == int(jax_sim._batch_levenshtein_numpy(
+        A, B, np.array([la], np.int32), np.array([lb], np.int32))[0])
+    if max(la, lb) <= jax_sim.LEVENSHTEIN_CAP:
+        text = lambda row, n: "".join(chr(0x100 + int(t)) for t in row[:n])
+        assert got == jax_sim.levenshtein_distance(text(A[0], la),
+                                                   text(B[0], lb))
+    return got
+
+
+@pytest.mark.parametrize("la", K3_LENGTHS)
+@pytest.mark.parametrize("lb", K3_LENGTHS)
+def test_k3_recurrence_equals_the_dp(la, lb):
+    """K3's word-level recurrence at lengths on and around its word edges,
+    with noise past both lengths, equals the plain version and JAX's
+    scalar DP."""
+    A, B = k3_case(la, lb, 512, seed=1000 * la + lb)
+    k3_check(A, B, la, lb)
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 500, 512])
+def test_k3_recurrence_of_equal_and_empty_strings(n):
+    A, B = k3_case(n, n, 512, seed=n, alphabet=256)
+    B[0, :n] = A[0, :n]
+    assert k3_check(A, B, n, n) == 0
+    assert k3_check(A, B, n, 0) == n and k3_check(A, B, 0, n) == n
+
+
+@pytest.mark.parametrize("la,lb", [(1025, 700), (1100, 1024), (2000, 1990)])
+def test_k3_recurrence_across_bands(la, lb):
+    """Past 1024 tokens of a the kernel takes a in bands of 32 words and
+    passes each column's carry and shifted bits between them."""
+    A, B = k3_case(la, lb, 2048, seed=la + lb)
+    assert k3_band_words(2048) == 32 and la > 32 * 32
+    k3_check(A, B, la, lb)

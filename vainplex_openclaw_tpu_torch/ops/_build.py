@@ -43,7 +43,8 @@ SIGNATURES = {
         "kernel_error_string": ([_I], ctypes.c_char_p),
     },
     "levenshtein": {
-        "levenshtein_fwd": ([_P] * 5 + [_I] * 2 + [_P], _I),
+        "levenshtein_fwd": ([_P] * 6 + [_I] * 2 + [_P], _I),
+        "levenshtein_edge_words": ([_I] * 2, ctypes.c_longlong),
         "levenshtein_error_string": ([_I], ctypes.c_char_p),
     },
     # A throughput probe of the special function unit that chip_smoke.py

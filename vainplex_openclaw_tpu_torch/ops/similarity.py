@@ -10,11 +10,12 @@ Counterpart of ``vainplex_openclaw_tpu/ops/similarity.py``:
   multi-hot rows, unions from the row counts. A plain matrix product, which
   the JAX package leaves to XLA, and so does the port;
 - :func:`batch_levenshtein_ratio`, the twin of the batched Levenshtein DP
-  (``_batch_levenshtein_jax``). Its DP runs in :func:`levenshtein_rows`:
-  on a CUDA tensor the hand-written kernel K3 (``csrc/levenshtein.cu``, one
-  launch, counted in :data:`launches`), on a CPU tensor the plain version
-  :func:`levenshtein_rows_reference`, the vectorized row DP of
-  ``_batch_levenshtein_numpy`` with ``torch.cummin`` for the prefix
+  (``_batch_levenshtein_jax``), at any ``length`` as JAX takes it. Its DP
+  runs in :func:`levenshtein_rows`: on a CUDA tensor the hand-written
+  kernel K3 (``csrc/levenshtein.cu``, the bit-parallel distance with one
+  warp per pair, one launch, counted in :data:`launches`), on a CPU tensor
+  the plain version :func:`levenshtein_rows_reference`, the vectorized row
+  DP of ``_batch_levenshtein_numpy`` with ``torch.cummin`` for the prefix
   minimum that carries the in-row dependency. The plain version runs a
   few tensor operations per DP row, ~1400 launches at L=128, and on the
   card it was bound by those launches at every batch size measured, which
@@ -48,7 +49,6 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 LEVENSHTEIN_CAP = 500
-LEVENSHTEIN_MAX_LENGTH = 512  # K3's kMaxL
 
 # K3 launches since the last reset; only the CUDA branch of
 # ``levenshtein_rows`` adds to it.
@@ -184,16 +184,17 @@ def _launch(A, B, len_a, len_b) -> torch.Tensor:
     from ._build import load_library
 
     n, L = A.shape
-    if L > LEVENSHTEIN_MAX_LENGTH:
-        raise ValueError(f"K3 takes rows of at most {LEVENSHTEIN_MAX_LENGTH} "
-                         f"tokens, got {L}")
     A, B, len_a, len_b = (t.contiguous() for t in (A, B, len_a, len_b))
     out = torch.empty((n,), dtype=torch.int32, device=A.device)
     lib = load_library("levenshtein")
+    # rows past one band of 1024 tokens pass 3 bits a column between bands
+    words = lib.levenshtein_edge_words(n, L)
+    edge = (torch.empty((words,), dtype=torch.int32, device=A.device)
+            if words else None)
     with torch.cuda.device(A.device):
         err = lib.levenshtein_fwd(
             A.data_ptr(), B.data_ptr(), len_a.data_ptr(), len_b.data_ptr(),
-            out.data_ptr(), n, L,
+            out.data_ptr(), None if edge is None else edge.data_ptr(), n, L,
             torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
