@@ -171,10 +171,37 @@ the grids again repeating the one card:
     hold (``K3_TOKEN_CASES``): a outside the byte alphabet (its ballot
     path), and a inside it with b outside it and on its top rows.
 
+Versioned serving and the trace analyzer's classification come last:
+
+25. lifecycle: the shipped checkpoint as ``v1`` and its twin with the
+    severity head negated as ``v2`` (every verdict changes), in a
+    ``ModelRegistry`` on the card. 256 seeded texts from 8 threads
+    through a collector-driven ``ContinuousBatcher(registry=...)``, once
+    as they are and once with ``swap_to("v2")`` after ~96 stamps and
+    ``swap_to(rollback_target())`` after ~192: every ticket served with
+    the verdict its stamped version gives (one card forward per version),
+    K1 launched n_layers × batches, no kernel built (``_build.builds``);
+    the swap stages and requests/s with and without the swaps. The
+    promotion gate over the stream's shadow ring: a twin from the shipped
+    directory promotes with 0 regressions, the negated head is refused.
+    Paging with one resident version: 8 alternating checkouts, each
+    eviction freeing at least its tree's bytes
+    (``torch.cuda.memory_allocated``), woken verdicts unchanged, and the
+    wake p99 below the median of 5 cold restores (checkpoint read, cast,
+    copy to the card). Last, the stepped swap and rollback on a (1, 2)
+    dp×tp grid over the card: the single-device swap's verdicts, K1
+    n_layers × dp × tp per batch, and no placement left for the evicted
+    version;
+26. classify: ``classify_findings(..., use_local_triage=True)`` on 64
+    seeded findings on the card: K1 launched n_layers times, the ``kept``
+    flags equal to ``local_triage`` on the card and on the CPU.
+
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
-K1, K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs, with its
-L=128 figures beside them; measured numbers and the bound only) and, last,
+K1 (with its launches on every path, the lifecycle and classify phases
+included), K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
+with its L=128 figures beside them; measured numbers and the bound only)
+and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3055,6 +3082,467 @@ def phase_similarity(smi: str) -> dict:
     return record
 
 
+# ── versioned serving and the trace analyzer's classification ─────────
+
+LIFECYCLE_PROMPTS = 256
+LIFECYCLE_THREADS = 8
+# (stamps landed, target) for each swap of the stream under load: the
+# negated twin after ~96 stamps, the rollback target after ~192
+SWAP_SCHEDULE = ((96, "v2"), (192, None))
+PAGING_HOPS = 8
+COLD_RESTORES = 5
+MESH_SWAP_TEXTS = 48
+# Two extra rounds and a factor of 2 for the promotion's pinned-bench leg:
+# the twin does the incumbent's exact work, and single p50s of a host-bound
+# millisecond call move by more than the default 1.25 between rounds.
+PROMOTION_SETTINGS = {"benchRounds": 5, "benchFactor": 2.0}
+CLASSIFY_FINDINGS = 64
+
+
+def negated_twin(out_dir: str) -> None:
+    """The shipped checkpoint with its severity head negated (argmax →
+    argmin on every input, so every verdict changes), written by the
+    port's checkpoint writer."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.checkpoint import read_checkpoint
+    from vainplex_openclaw_tpu_torch.models.encoder import unflatten_tree
+    from vainplex_openclaw_tpu_torch.models.pretrained import (
+        DEFAULT_DIR, TINY_CONFIG, write_pretrained)
+
+    flat = {k: torch.as_tensor(v).float()
+            for k, v in read_checkpoint(DEFAULT_DIR).items()}
+    flat["heads/severity"] = -flat["heads/severity"]
+    write_pretrained(out_dir, TINY_CONFIG, unflatten_tree(flat))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes held by the tensors of a parameter tree."""
+    from vainplex_openclaw_tpu_torch.models.encoder import flatten_tree
+
+    return sum(t.numel() * t.element_size()
+               for t in flatten_tree(tree).values())
+
+
+def version_audit(tickets: list, oracle: dict) -> dict:
+    """Over ``tickets`` (index i → ticket of text i): ``dropped``, those not
+    done or failed, and ``mis_versioned``, those whose verdict is not the
+    oracle verdict of text i under the ticket's stamped version."""
+    dropped = mis = 0
+    for i, tk in enumerate(tickets):
+        if tk is None or not tk.done.is_set() or tk.error is not None:
+            dropped += 1
+        elif tk.result != oracle[tk.version][i]:
+            mis += 1
+    return {"dropped": dropped, "mis_versioned": mis}
+
+
+def quantiles_ms(samples: list) -> dict:
+    s = sorted(samples)
+    return {"p50": s[len(s) // 2],
+            "p99": s[min(len(s) - 1, int(0.99 * len(s)))], "n": len(s)}
+
+
+def swap_stream(batcher, registry, texts: list, schedule: tuple) -> dict:
+    """Every text from ``LIFECYCLE_THREADS`` threads through ``batcher``
+    (enqueue, then wait for the ticket), while a controller thread calls
+    ``swap_to`` once each ``schedule`` entry's count of stamps has landed
+    (a target of None: ``registry.rollback_target()``)."""
+    n = len(texts)
+    tickets: list = [None] * n
+    latency: list = [0.0] * n
+    lock = threading.Lock()
+    stamped = [0]
+    errors: list = []
+    swaps: list = []
+
+    def worker(w: int) -> None:
+        try:
+            for i in range(w, n, LIFECYCLE_THREADS):
+                t = time.perf_counter()
+                tk = batcher.enqueue(texts[i])
+                with lock:
+                    stamped[0] += 1
+                tickets[i] = tk
+                if not tk.done.wait(120.0):
+                    raise TimeoutError(f"ticket {i} not served in 120 s")
+                latency[i] = (time.perf_counter() - t) * 1e3
+        except Exception as exc:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(exc))
+
+    def controller() -> None:
+        try:
+            for at, target in schedule:
+                deadline = time.perf_counter() + 120.0
+                while True:
+                    with lock:
+                        if stamped[0] >= at:
+                            seen = stamped[0]
+                            break
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError(f"{at} stamps never landed")
+                    time.sleep(0.0002)
+                res = batcher.swap_to(target or registry.rollback_target())
+                swaps.append({"after_stamps": seen, **res})
+        except Exception as exc:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(LIFECYCLE_THREADS)]
+    threads.append(threading.Thread(target=controller))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "lifecycle threads hung")
+    check(not errors, f"lifecycle stream errors: {errors[:3]}")
+    return {"tickets": tickets, "swaps": swaps, "wall_s": wall,
+            "requests_per_s": n / wall, "latency_ms": quantiles_ms(latency)}
+
+
+def fresh_thread_ms(fn) -> list:
+    """Host ms of two back-to-back calls of ``fn`` (each up to a
+    synchronize) on a thread of their own: what a thread's first forward
+    costs beyond its second."""
+    import torch
+
+    out: list = []
+
+    def run() -> None:
+        for _ in range(2):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(60.0)
+    check(len(out) == 2, "fresh-thread probe did not finish")
+    return out
+
+
+def swap_protocol(batcher, texts: list) -> list:
+    """The deterministic swap and rollback (the batcher stepped by hand):
+    half the texts stamped v1, one batch served, swap to v2 (its drain
+    serves the rest of v1), the other half stamped v2, then the rollback.
+    Returns [(stamp, verdict)] in text order."""
+    half = len(texts) // 2
+    tickets = [batcher.enqueue(t) for t in texts[:half]]
+    batcher.step()
+    batcher.swap_to("v2")
+    tickets += [batcher.enqueue(t) for t in texts[half:]]
+    batcher.drain()
+    batcher.swap_to(batcher.registry.rollback_target())
+    check(all(tk.done.is_set() and tk.error is None for tk in tickets),
+          "lifecycle: the stepped swap dropped a request")
+    return [(tk.version, tk.result) for tk in tickets]
+
+
+def phase_lifecycle(smi: str) -> dict:
+    """Versioned serving of the shipped checkpoint (v1) and its negated
+    twin (v2) on the card: a hot swap and rollback under load, LRU paging
+    against cold restores, the promotion gate, and the swap on a (1, 2)
+    grid that repeats the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.batching import ContinuousBatcher
+    from vainplex_openclaw_tpu_torch.models.checkpoint import (
+        restore_checkpoint)
+    from vainplex_openclaw_tpu_torch.models.pretrained import DEFAULT_DIR
+    from vainplex_openclaw_tpu_torch.models.registry import (
+        ModelRegistry, clear_registries)
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.parallel import plan
+
+    t_phase = time.perf_counter()
+    record = {"phase": "lifecycle", "nvidia_smi": smi}
+    texts = seeded_texts(LIFECYCLE_PROMPTS, seed=81)
+    tmp = tempfile.TemporaryDirectory()
+    neg_dir = os.path.join(tmp.name, "negated")
+    negated_twin(neg_dir)
+    try:
+        # ── hot swap and rollback under load ──────────────────────────
+        reg = ModelRegistry({"enabled": True, **PROMOTION_SETTINGS},
+                            name="chip:lifecycle")
+        reg.register("v1")
+        reg.register("v2", neg_dir)
+        cfg = reg.checkout("v1")[0]
+        # one card forward per version over every text
+        oracle = {v: reg._score(v, texts) for v in ("v1", "v2")}
+        check(all(a != b for a, b in zip(oracle["v1"], oracle["v2"])),
+              "lifecycle: the negated head left a verdict unchanged")
+        # A swap's drain serves on its caller's thread. Before any thread
+        # but this one has served in this phase: the first and second
+        # replay of 8 texts on a new thread, for a one-time cost per thread.
+        record["fresh_thread_score_ms"] = fresh_thread_ms(
+            lambda: reg._score("v1", texts[:8]))
+
+        def stream(schedule):
+            batcher = ContinuousBatcher(registry=reg, max_batch=32,
+                                        window_ms=2.0)
+            batcher.submit("warm-up request")  # outside the counted run
+            torch.cuda.synchronize()
+            builds0, batches0 = _build.builds, batcher.batches
+            fa.launches = 0
+            run = swap_stream(batcher, reg, texts, schedule)
+            batcher.close()  # joins the collector: the counters are final
+            torch.cuda.synchronize()
+            run.update(launches=fa.launches,
+                       batches=batcher.batches - batches0,
+                       builds=_build.builds - builds0,
+                       audit=version_audit(run["tickets"], oracle))
+            return run
+
+        plain = stream(())
+        swapped = stream(SWAP_SCHEDULE)
+        for name, run in (("without a swap", plain), ("through the swaps",
+                                                      swapped)):
+            check(run["audit"] == {"dropped": 0, "mis_versioned": 0},
+                  f"lifecycle {name}: {run['audit']}")
+            check(run["builds"] == 0, f"lifecycle {name}: {run['builds']} "
+                                      "kernel builds")
+            check(run["launches"] == cfg.n_layers * run["batches"],
+                  f"lifecycle {name}: K1 launches {run['launches']} != "
+                  f"{cfg.n_layers} layers x {run['batches']} batches")
+        stamps = [tk.version for tk in swapped["tickets"]]
+        check(len(swapped["swaps"]) == 2 and reg.active() == "v1"
+              and reg.stats()["rollbacks"] == 1
+              and 0 < stamps.count("v2") < len(stamps),
+              f"lifecycle: swaps {len(swapped['swaps'])}, active "
+              f"{reg.active()}, v2 stamps {stamps.count('v2')}")
+        record["swap"] = {
+            "requests": len(texts), "threads": LIFECYCLE_THREADS,
+            "stamps": {v: stamps.count(v) for v in ("v1", "v2")},
+            **swapped["audit"], "kernel_builds": swapped["builds"],
+            "batches": swapped["batches"],
+            "k1_launches": swapped["launches"],
+            "swaps": [{k: s[k] for k in ("version", "after_stamps",
+                                         "drained", "stages", "totalMs")}
+                      for s in swapped["swaps"]],
+            "requests_per_s": swapped["requests_per_s"],
+            "latency_ms": swapped["latency_ms"],
+            "no_swap": {"requests_per_s": plain["requests_per_s"],
+                        "latency_ms": plain["latency_ms"],
+                        "batches": plain["batches"],
+                        "k1_launches": plain["launches"]}}
+
+        # ── the promotion gate over the stream's shadow ring ──────────
+        reg.register("v1b")  # the shipped directory again: a twin
+        torch.cuda.synchronize()
+        fa.launches = 0
+        twin = reg.promotion_report("v1b")
+        negated = reg.promotion_report("v2")
+        torch.cuda.synchronize()
+        promo_launches = fa.launches
+        check(twin["verdictRegressions"] == 0 and twin["promote"],
+              f"lifecycle: the twin was refused: {twin}")
+        reg.promote("v1b", report=twin)
+        check(negated["verdictRegressions"] >= 1 and not negated["promote"],
+              f"lifecycle: the negated head passed the gate: {negated}")
+        try:
+            reg.promote("v2", report=negated)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, "lifecycle: promote() did not refuse the negated head")
+        scores = 2 * 2 * (1 + PROMOTION_SETTINGS["benchRounds"])
+        check(promo_launches == cfg.n_layers * scores,
+              f"lifecycle: promotion K1 launches {promo_launches} != "
+              f"{cfg.n_layers} layers x {scores} replays")
+        record["promotion"] = {
+            **PROMOTION_SETTINGS, "k1_launches": promo_launches,
+            **{name: {k: rep[k] for k in (
+                "replayed", "verdictRegressions", "candidateP50Ms",
+                "incumbentP50Ms", "benchOk", "promote")}
+               for name, rep in (("twin", twin), ("negated", negated))}}
+
+        # ── LRU paging: one resident version ──────────────────────────
+        preg = ModelRegistry({"enabled": True, "maxResidentVersions": 1},
+                             name="chip:paging")
+        preg.register("v1")
+        preg.register("v2", neg_dir)
+        pager = preg._pager
+        evictions, wakes = [], []
+        real_hibernate, real_note_wake = pager.hibernate, pager.note_wake
+
+        def measured_hibernate(version):
+            torch.cuda.synchronize()
+            placed = version in preg._placed
+            before = torch.cuda.memory_allocated()
+            ok = real_hibernate(version)
+            freed = before - torch.cuda.memory_allocated()
+            evictions.append({
+                "version": version, "placed": placed, "freed_bytes": freed,
+                "tree_bytes": tree_bytes(preg._versions[version].params)})
+            return ok
+
+        def measured_note_wake(version, ms):
+            wakes.append(ms)
+            real_note_wake(version, ms)
+
+        pager.hibernate, pager.note_wake = measured_hibernate, \
+            measured_note_wake
+        probe = texts[:32]
+        torch.cuda.synchronize()
+        fa.launches = 0
+        first = {v: preg._score(v, probe) for v in ("v1", "v2")}
+        for hop in range(PAGING_HOPS):
+            v = ("v1", "v2")[hop % 2]
+            check(preg._score(v, probe) == first[v],
+                  f"lifecycle: woken {v} changed its verdicts (hop {hop})")
+        torch.cuda.synchronize()
+        paging_launches = fa.launches
+        check(paging_launches == cfg.n_layers * (2 + PAGING_HOPS),
+              f"lifecycle: paging K1 launches {paging_launches}")
+        paging = preg.stats()["paging"]
+        # Both versions start resident in the pager, so the first checkout
+        # evicts v2 before it was ever placed (nothing to free) and v2's
+        # first placement counts as a wake, as in the JAX registry; every
+        # later checkout wakes one version and evicts the other's tree.
+        placed_evictions = [e for e in evictions if e["placed"]]
+        check(len(evictions) == paging["evictions"] == PAGING_HOPS + 2
+              and len(placed_evictions) == PAGING_HOPS + 1
+              and paging["wakes"] == len(wakes) == PAGING_HOPS + 1,
+              f"lifecycle: {len(evictions)} evictions, paging {paging}")
+        short = [e for e in placed_evictions
+                 if e["freed_bytes"] < e["tree_bytes"]]
+        check(not short, f"lifecycle: evictions freed less than the tree: "
+                         f"{short}")
+        host = preg._versions["v1"].params
+        like = plan.map_tree(
+            lambda _k, t: torch.empty((), dtype=t.dtype, device=preg.device),
+            host)
+        cold = []
+        for _ in range(COLD_RESTORES):
+            t = time.perf_counter()
+            tree = restore_checkpoint(DEFAULT_DIR, like=like)
+            torch.cuda.synchronize()
+            cold.append((time.perf_counter() - t) * 1e3)
+            del tree
+        cold_median = statistics.median(cold)
+        # Gated on the wakes this phase timed; the registry's bucketed
+        # histogram can read below them, so it is kept as information.
+        wake_q = quantiles_ms(wakes)
+        check(wake_q["p99"] < cold_median,
+              f"lifecycle: wake p99 {wake_q['p99']} ms not below the "
+              f"cold restore median {cold_median} ms")
+        record["paging"] = {
+            "maxResidentVersions": 1, "hops": PAGING_HOPS,
+            "evictions": evictions, "wakes": paging["wakes"],
+            "wake_p50_ms": wake_q["p50"], "wake_p99_ms": wake_q["p99"],
+            "wake_ms": wakes,
+            "registry_hist_wake_p50_ms": paging["wakeP50Ms"],
+            "registry_hist_wake_p99_ms": paging["wakeP99Ms"],
+            "cold_restore_ms": cold, "cold_restore_median_ms": cold_median,
+            "k1_launches": paging_launches}
+
+        # ── the swap on a (1, 2) dp x tp grid over the card ───────────
+        swap_texts = texts[:MESH_SWAP_TEXTS]
+        runs = {}
+        for name, mesh in (("single", None),
+                           ("mesh", card_grid(("dp", "tp"), (1, 2)))):
+            mreg = ModelRegistry({"enabled": True,
+                                  "maxResidentVersions": 1},
+                                 name=f"chip:swap-{name}")
+            mreg.register("v1")
+            mreg.register("v2", neg_dir)
+            batcher = ContinuousBatcher(registry=mreg, max_batch=8,
+                                        window_ms=0.0, autostart=False,
+                                        mesh=mesh)
+            torch.cuda.synchronize()
+            fa.launches = 0
+            got = swap_protocol(batcher, swap_texts)
+            torch.cuda.synchronize()
+            runs[name] = {"verdicts": got, "launches": fa.launches,
+                          "batches": batcher.batches, "registry": mreg}
+            batcher.close()
+        check(runs["mesh"]["verdicts"] == runs["single"]["verdicts"],
+              "lifecycle: the mesh swap's verdicts differ from the single "
+              "device swap's")
+        want = [oracle[v][i] for i, (v, _) in
+                enumerate(runs["single"]["verdicts"])]
+        check([r for _, r in runs["single"]["verdicts"]] == want,
+              "lifecycle: the stepped swap is mis-versioned")
+        per_batch = mesh_k1_per_forward(cfg, ("dp", "tp"), (1, 2))
+        check(runs["mesh"]["launches"] == per_batch * runs["mesh"]["batches"],
+              f"lifecycle: mesh K1 launches {runs['mesh']['launches']} != "
+              f"{per_batch} x {runs['mesh']['batches']} batches")
+        mreg = runs["mesh"]["registry"]
+        with plan._sharded_lock:
+            keys = {ck[0] for ck in plan._sharded_params}
+        paged = [v for v in ("v1", "v2") if mreg.is_paged(v)]
+        stale = [v for v in paged if mreg.placement_key(v) in keys]
+        check(paged == ["v2"] and not stale,
+              f"lifecycle: paged {paged}, placements left for {stale}")
+        record["mesh_swap"] = {
+            "grid": "1x2 (dp, tp) over cuda:0", "texts": len(swap_texts),
+            "verdicts_equal_single_device": True,
+            "k1_launches": runs["mesh"]["launches"],
+            "k1_per_batch": per_batch, "batches": runs["mesh"]["batches"],
+            "paged": paged, "stale_placements": stale}
+        for v in ("v1", "v2"):
+            plan.drop_sharded_params(mreg.placement_key(v))
+    finally:
+        clear_registries()
+        tmp.cleanup()
+    record["k1_launches"] = (record["swap"]["k1_launches"]
+                             + record["swap"]["no_swap"]["k1_launches"]
+                             + record["promotion"]["k1_launches"]
+                             + record["paging"]["k1_launches"]
+                             + record["mesh_swap"]["k1_launches"])
+    record["seconds"] = time.perf_counter() - t_phase
+    emit(record)
+    return record
+
+
+def phase_classify(smi: str) -> dict:
+    """``classify_findings`` with the local triage head on the card: its
+    ``kept`` flags against ``local_triage`` on the card and on the CPU."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier import (
+        classify_findings, local_triage)
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, _ = load_pretrained()
+    findings = triage_findings(CLASSIFY_FINDINGS, seed=41)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t = time.perf_counter()
+    out = classify_findings(findings, {}, use_local_triage=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = fa.launches
+    kept = [c.kept for c in out]
+    check(launches == cfg.n_layers,
+          f"classify: K1 launches {launches} != {cfg.n_layers} layers x 1 "
+          "forward")
+    card, host = local_triage(findings), local_triage(findings, device="cpu")
+    check(kept == card == host,
+          f"classify: kept differs from local_triage (card "
+          f"{sum(a != b for a, b in zip(kept, card))}, CPU "
+          f"{sum(a != b for a, b in zip(kept, host))})")
+    check(0 < sum(kept) < len(kept), f"classify: kept {sum(kept)} of "
+                                     f"{len(kept)}; the findings do not split")
+    check(all(c.severity == f.severity and c.action_type == "manual_review"
+              for c, f in zip(out, findings)),
+          "classify: a finding left rule severity without an LLM")
+    record = {"phase": "classify", "nvidia_smi": smi,
+              "findings": len(findings), "kept": sum(kept),
+              "k1_launches": launches, "ms": ms}
+    emit(record)
+    return record
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -3080,6 +3568,8 @@ def main() -> int:
         train_mesh = phase_train_mesh(info["nvidia_smi"])
         long_moe = phase_long_moe(info["nvidia_smi"])
         similarity = phase_similarity(info["nvidia_smi"])
+        lifecycle = phase_lifecycle(info["nvidia_smi"])
+        classified = phase_classify(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -3115,7 +3605,9 @@ def main() -> int:
             "mesh_pp": mesh["pp"]["launches"],
             "mesh_ep": mesh["ep"]["launches"],
             "embed_mesh": mesh["embed"]["launches"],
-            "train_mesh": train_mesh["k1_launches"]},
+            "train_mesh": train_mesh["k1_launches"],
+            "lifecycle": lifecycle["k1_launches"],
+            "classify": classified["k1_launches"]},
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],

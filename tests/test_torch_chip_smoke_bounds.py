@@ -8,7 +8,11 @@ lines, ``make_qkv`` makes the masks of the kernel cases, and ``k1_errors``
 is the check K1 is held to, which must fail a plain version that dropped a
 key tile at the long shape. ``levenshtein_bound`` counts K3's word steps
 and ``check_bound`` fails a reading faster than it; the similarity legs'
-pairs reach the word edges. chip_smoke's top level
+pairs reach the word edges. The lifecycle phase's ``version_audit``
+counts dropped and mis-versioned tickets against each stamp's oracle,
+``swap_protocol`` stamps and serves as the phase expects, the negated twin
+flips every verdict, and the K1 count it expects per mesh batch is the
+runner's formula. chip_smoke's top level
 imports only the standard library, so importing it here runs nothing.
 """
 
@@ -450,3 +454,101 @@ def test_long_leg_reaches_63_words():
     la = (A > 0).sum(axis=1)
     assert la.max() == 2000 and (la.max() + 31) // 32 == 63
     assert (la > 1024).sum() > 16
+
+
+# ── the lifecycle phase ─────────────────────────────────────────────
+
+
+def ticket(version, result, done=True, error=None):
+    import threading
+    import types
+
+    ev = threading.Event()
+    if done:
+        ev.set()
+    return types.SimpleNamespace(version=version, result=result, done=ev,
+                                 error=error)
+
+
+def test_version_audit_hand_counts():
+    oracle = {"v1": ["a", "b", "c", "d"], "v2": ["A", "B", "C", "D"]}
+    assert chip_smoke.version_audit(
+        [ticket("v1", "a"), ticket("v2", "B"), ticket("v1", "c"),
+         ticket("v2", "D")], oracle) == {"dropped": 0, "mis_versioned": 0}
+    # served by the other version's tree: mis-versioned, whatever it says
+    assert chip_smoke.version_audit(
+        [ticket("v1", "A"), ticket("v2", "b"), ticket("v1", "c"),
+         ticket("v2", "D")], oracle) == {"dropped": 0, "mis_versioned": 2}
+    # never enqueued, never served, or failed: dropped
+    assert chip_smoke.version_audit(
+        [None, ticket("v2", None, done=False),
+         ticket("v1", None, error=RuntimeError("x")), ticket("v2", "d")],
+        oracle) == {"dropped": 3, "mis_versioned": 1}
+
+
+def test_tree_bytes_hand_counts():
+    tree = {"a": torch.zeros(3, dtype=torch.bfloat16),
+            "blocks": [{"w": torch.zeros(2, 2)}, {"w": torch.zeros(5)}]}
+    assert chip_smoke.tree_bytes(tree) == 3 * 2 + 4 * 4 + 5 * 4
+
+
+def test_quantiles_hand_counts():
+    q = chip_smoke.quantiles_ms([5.0, 1.0, 3.0, 2.0, 4.0])
+    assert q == {"p50": 3.0, "p99": 5.0, "n": 5}
+    q = chip_smoke.quantiles_ms([float(i) for i in range(200)])
+    assert (q["p50"], q["p99"]) == (100.0, 198.0)
+
+
+def test_swap_protocol_stamps_and_serves_as_expected():
+    """On a stub registry behind the port's batcher (the CPU), the stepped
+    swap stamps the first half v1 and the rest v2, serves each by its
+    stamp, and ends rolled back to v1."""
+    from vainplex_openclaw_tpu_torch.models.batching import (
+        ContinuousBatcher, render_verdict)
+    from vainplex_openclaw_tpu_torch.models.registry import (
+        ModelRegistry, clear_registries)
+
+    reg = ModelRegistry({"enabled": True}, name="chip-protocol",
+                        device="cpu")
+    reg.register_stub("v1")
+    reg.register_stub("v2")
+    batcher = ContinuousBatcher(
+        registry=reg, max_batch=8, window_ms=0.0, autostart=False,
+        device="cpu",
+        model_fn=lambda texts, v: [int(v == "v2") * 3] * len(texts))
+    try:
+        got = chip_smoke.swap_protocol(batcher, [f"t{i}" for i in range(48)])
+    finally:
+        batcher.close()
+        clear_registries()
+    assert [v for v, _ in got] == ["v1"] * 24 + ["v2"] * 24
+    assert [r for _, r in got] == [render_verdict(0)] * 24 + \
+        [render_verdict(3)] * 24
+    assert batcher.batches == 6           # 8 + 16 drained, then 24 in 3
+    assert reg.active() == "v1" and reg.stats()["rollbacks"] == 1
+
+
+def test_negated_twin_flips_every_verdict(tmp_path):
+    from vainplex_openclaw_tpu_torch.models.registry import (
+        ModelRegistry, clear_registries)
+
+    d = str(tmp_path / "negated")
+    chip_smoke.negated_twin(d)
+    reg = ModelRegistry({"enabled": True}, name="chip-twin", device="cpu")
+    try:
+        reg.register("v1")
+        reg.register("v2", d)
+        texts = chip_smoke.seeded_texts(64, seed=81)
+        a, b = reg._score("v1", texts), reg._score("v2", texts)
+    finally:
+        clear_registries()
+    assert all(x != y for x, y in zip(a, b))
+
+
+def test_mesh_swap_expects_the_runners_k1_count():
+    """The (1, 2) dp x tp grid: each batch's forward launches K1 on both
+    tp columns of the one dp row, in each of triage-tiny's 2 layers."""
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+
+    assert chip_smoke.mesh_k1_per_forward(TINY_CONFIG, ("dp", "tp"),
+                                          (1, 2)) == 4

@@ -78,7 +78,11 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.parallel.sharded_train",
                 "vainplex_openclaw_tpu_torch.ops.similarity",
                 "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.classifier",
-                "vainplex_openclaw_tpu_torch.knowledge.embeddings"):
+                "vainplex_openclaw_tpu_torch.knowledge.embeddings",
+                "vainplex_openclaw_tpu_torch.storage.lifecycle",
+                "vainplex_openclaw_tpu_torch.models.registry",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.redactor",
+                "vainplex_openclaw_tpu_torch.utils.llm_json"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

@@ -369,13 +369,10 @@ class TestDeviceAndUnportedOptions:
         {"meshServing": True}, {"planFamily": "encoder_validator_pp"},
         {"modelRegistry": True}, {"modelRegistry": {"benchRounds": 1}}])
     def test_unported_serve_options_raise(self, scfg):
-        """The model registry still raises; mesh serving (the default
-        dp×tp family over the auto grid) and a plan family without
-        meshServing (one device) serve the JAX oracle's verdicts."""
-        if "modelRegistry" in scfg:
-            with pytest.raises(NotImplementedError):
-                serve.make_local_call_llm(serve_cfg=scfg, device="cpu")
-            return
+        """Every one of these options now serves the JAX oracle's
+        verdicts: the model registry (the checkpoint as the incumbent
+        "v0"), mesh serving (the default dp×tp family over the auto grid)
+        and a plan family without meshServing (one device)."""
         try:
             call = serve.make_local_call_llm(
                 serve_cfg=dict(scfg, windowMs=0.0), device="cpu")
@@ -384,6 +381,11 @@ class TestDeviceAndUnportedOptions:
                 jax_oracle(texts)
             assert call.batcher.stats()["mesh"] == \
                 ("2x4" if scfg.get("meshServing") else None)
+            if "modelRegistry" in scfg:
+                assert call.batcher.registry.active() == "v0"
+                assert call.batcher.stats()["activeVersion"] == "v0"
+            else:
+                assert call.batcher.registry is None
         finally:
             serve.close_batchers()
 
@@ -393,17 +395,23 @@ class TestDeviceAndUnportedOptions:
                        "continuousBatching": False}, device="cpu")
         assert json.loads(call("ok"))["verdict"] in ("pass", "flag", "block")
 
-    @pytest.mark.parametrize("kw", [{"mesh": (2, 2)},
-                                    {"registry": object()}])
+    @pytest.mark.parametrize("kw", [{"mesh": (2, 2)}, {"registry": "v0"}])
     def test_batcher_mesh_and_registry_raise(self, kw):
-        """A registry still raises; a dp×tp mesh serves the verdicts of the
-        meshless batcher."""
+        """Neither raises any more: a dp×tp mesh, and a registry serving
+        the shipped checkpoint as its one version, serve the verdicts of
+        the plain batcher."""
+        from vainplex_openclaw_tpu_torch.models.registry import (
+            ModelRegistry, clear_registries)
+
         if "registry" in kw:
-            with pytest.raises(NotImplementedError):
-                make_batcher(**kw)
-            return
-        meshy = make_batcher(mesh=cached_mesh(kw["mesh"], ("dp", "tp"),
-                                              "cpu"))
+            reg = ModelRegistry({"enabled": True}, name="batcher-kw",
+                                device="cpu")
+            reg.register(kw["registry"])
+            meshy = make_batcher(registry=reg)
+            clear_registries()
+        else:
+            meshy = make_batcher(mesh=cached_mesh(kw["mesh"], ("dp", "tp"),
+                                                  "cpu"))
         plain = make_batcher()
         texts = mixed_texts(7, seed=3)
         try:
@@ -414,12 +422,17 @@ class TestDeviceAndUnportedOptions:
             meshy.close()
             plain.close()
         assert [t.result for t in got] == [t.result for t in want]
-        assert meshy.stats()["mesh"] == "2x2"
+        if "registry" in kw:
+            assert [t.version for t in got] == ["v0"] * len(texts)
+            assert meshy.stats()["activeVersion"] == "v0"
+        else:
+            assert meshy.stats()["mesh"] == "2x2"
 
     def test_swap_to_raises(self):
+        """Without a registry, swap_to raises JAX's RuntimeError."""
         batcher = make_batcher()
         try:
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(RuntimeError, match="model registry"):
                 batcher.swap_to("v1")
         finally:
             batcher.close()

@@ -1,1 +1,2 @@
-"""Stage-2 triage of trace-analyzer findings on the port's encoder."""
+"""Stage-2 triage and classification of trace-analyzer findings on the
+port's encoder."""

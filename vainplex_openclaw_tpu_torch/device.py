@@ -1,8 +1,8 @@
 """Device resolution for the port's entry points.
 
 Every entry point (``load_pretrained``, ``ContinuousBatcher``,
-``make_local_call_llm``, ``shared_batcher``) takes ``device=None`` and
-resolves it here. ``None`` means the card. There is no fallback: a process
+``make_local_call_llm``, ``shared_batcher``, ``ModelRegistry``,
+``classify_findings``) takes ``device=None`` and resolves it here. ``None`` means the card. There is no fallback: a process
 without a CUDA device must ask for the CPU by name, or the entry point
 raises.
 """

@@ -1,7 +1,7 @@
 """Continuous batching for the local serve seam, on one device or a mesh.
 
-Counterpart of ``vainplex_openclaw_tpu/models/batching.py`` with
-``registry=None``. Concurrent requests queue; a collector
+Counterpart of ``vainplex_openclaw_tpu/models/batching.py``. Concurrent
+requests queue; a collector
 drains up to ``max_batch`` of them inside a ``window_ms`` batching window;
 the batch dim is zero-row padded to a power of two; one ``forward`` serves
 them all. Verdict rendering is per request and string-identical to the
@@ -31,8 +31,15 @@ to the host); a pipeline plan also charges each of its microbatches
 ``prefill / M`` under ``microbatch`` (a mean, not a measured hop). An MoE
 model on a mesh reports its load-balance aux under ``stats()["moe"]``.
 Without a mesh ``plan_family`` is not read: every family serves
-single-device. The model registry and hot swap are not ported yet:
-passing ``registry`` raises.
+single-device.
+
+Versioned serving: with a :class:`~.registry.ModelRegistry` attached,
+tickets are version-stamped at enqueue (pin > canary > active), batches
+form version-homogeneous, params come from ``registry.checkout`` (the
+registry's LRU-paged device trees) and :meth:`ContinuousBatcher.swap_to`
+hot-swaps the active version: drain, place, resume, with nothing torn
+down and no kernel rebuilt. The registry must place on the batcher's
+device. ``registry=None`` keeps the single-version path as it was.
 """
 
 from __future__ import annotations
@@ -88,6 +95,18 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[str] = None
     error: Optional[BaseException] = None
+    # Version stamped at enqueue: the ticket is served by exactly this
+    # version whatever swaps land later ("mis-versioned" means the serving
+    # version disagreed with this stamp).
+    version: Optional[str] = None
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` name one card (the first, which is where an
+    index-less CUDA tensor lands)."""
+    if a.type != b.type:
+        return False
+    return a.type != "cuda" or (a.index or 0) == (b.index or 0)
 
 
 class ContinuousBatcher:
@@ -98,7 +117,8 @@ class ContinuousBatcher:
     batches. Tests drive deterministically with ``autostart=False`` +
     :meth:`step`. ``model_fn(texts) -> [severity]`` replaces the checkpoint
     forward (the simulation seam); the queue, window and verdict plumbing
-    run unchanged around it.
+    run unchanged around it. With a ``registry`` the sim contract is
+    ``model_fn(texts, version)``, so a mis-versioned verdict shows.
     """
 
     def __init__(self, checkpoint_dir: Optional[str] = None,
@@ -111,8 +131,6 @@ class ContinuousBatcher:
                  plan_family: str = "encoder_validator",
                  searched_plans: bool = True, long_threshold: int = 1024,
                  registry=None):
-        if registry is not None:
-            raise NotImplementedError("the model registry is not ported yet")
         self.device = resolve_device(device)
         # Mesh serving: the plan resolves here, so an unknown family fails
         # at construction, not on the first request. ``searched_plans`` is
@@ -136,8 +154,14 @@ class ContinuousBatcher:
                 raise ValueError(f"mesh devices {mesh.distinct_devices()} "
                                  f"are not on {self.device.type}")
             self.device = mesh.devices[0]
+        if registry is not None and not _same_device(registry.device,
+                                                     self.device):
+            raise ValueError(f"model registry places on {registry.device}, "
+                             f"the batcher serves on {self.device}")
         self.model_fn = model_fn
-        if model_fn is None and not available(checkpoint_dir):
+        self.registry = registry
+        if model_fn is None and registry is None and \
+                not available(checkpoint_dir):
             # A silent per-call "pass" would override fail_mode='closed'.
             raise RuntimeError(
                 "continuous batching serve path refused: no trained "
@@ -163,8 +187,13 @@ class ContinuousBatcher:
 
     # ── request surface ──────────────────────────────────────────────
 
-    def enqueue(self, text: str, tenant: str = "serve") -> _Pending:
-        """Queue one request WITHOUT waiting; returns the ticket."""
+    def enqueue(self, text: str, tenant: str = "serve",
+                at: Optional[float] = None,
+                version: Optional[str] = None) -> _Pending:
+        """Queue one request WITHOUT waiting; returns the ticket. ``at``
+        overrides the enqueue timestamp (virtual-time drivers such as the
+        fleet router); ``version`` pre-stamps the serving version, else an
+        attached registry resolves it here (pin > canary > active)."""
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher closed")
@@ -176,18 +205,25 @@ class ContinuousBatcher:
                     self.shed += 1
                 raise ServeSheddedError(
                     f"serve admission shed (queue depth {depth})")
-        req = _Pending(text=text, tenant=tenant, enqueued_at=self._clock())
+        if self.registry is not None:
+            if version is None:
+                version = self.registry.resolve(tenant)
+            self.registry.shadow_note(text)
+        req = _Pending(text=text, tenant=tenant,
+                       enqueued_at=self._clock() if at is None else at,
+                       version=version)
         with self._nonempty:
             self._queue.append(req)
             self._nonempty.notify()
         return req
 
     def submit(self, text: str, tenant: str = "serve",
-               timeout_s: float = 60.0) -> str:
+               timeout_s: float = 60.0,
+               version: Optional[str] = None) -> str:
         """Serve one extracted message text; blocks until its batch ran.
         Raises :class:`ServeSheddedError` when admission sheds, whatever
         the batch worker raised when serving failed."""
-        req = self.enqueue(text, tenant)
+        req = self.enqueue(text, tenant, version=version)
         if not req.done.wait(timeout_s):
             raise TimeoutError(f"serve request not batched in {timeout_s}s")
         if req.error is not None:
@@ -198,8 +234,21 @@ class ContinuousBatcher:
 
     def _drain(self) -> list:
         with self._lock:
-            batch, self._queue = (self._queue[:self.max_batch],
-                                  self._queue[self.max_batch:])
+            if self.registry is None:
+                batch, self._queue = (self._queue[:self.max_batch],
+                                      self._queue[self.max_batch:])
+            else:
+                # One batch = one placed tree: the head's version leads,
+                # same-version followers join up to max_batch, the rest
+                # keep their order for the next drain.
+                head_v = self._queue[0].version if self._queue else None
+                batch, rest = [], []
+                for req in self._queue:
+                    if len(batch) < self.max_batch and req.version == head_v:
+                        batch.append(req)
+                    else:
+                        rest.append(req)
+                self._queue = rest
             depth = len(self._queue)
         if self.admission is not None:
             self.admission.note_queue_depth(depth)
@@ -208,14 +257,18 @@ class ContinuousBatcher:
     def step(self, wait_s: float = 0.0) -> int:
         """Serve ONE batch synchronously (the deterministic twin of the
         collector loop). Returns the number of requests served (0 when the
-        queue stayed empty for wait_s)."""
+        queue stayed empty for wait_s, or a running collector drained it
+        first). A failing batch answers its tickets with the error, then
+        raises it."""
         with self._nonempty:
             if not self._queue and wait_s:
                 self._nonempty.wait(wait_s)
             if not self._queue:
                 return 0
         batch = self._drain()
-        self._run_batch(batch)
+        if not batch:
+            return 0
+        self._serve(batch)
         return len(batch)
 
     def drain(self) -> int:
@@ -255,40 +308,58 @@ class ContinuousBatcher:
             batch = self._drain()
             if batch:
                 try:
-                    self._run_batch(batch)
-                except BaseException as exc:  # noqa: BLE001 — per-request fan-out
-                    # Even SystemExit or KeyboardInterrupt reaches the
-                    # batch's submitters rather than leaving them to time
-                    # out. Not re-raised, as in the JAX batcher: in this
-                    # thread it would only end the collector and strand
-                    # every later request.
-                    for req in batch:
-                        if not req.done.is_set():
-                            req.error = exc
-                            req.done.set()
+                    self._serve(batch)
+                except BaseException:  # noqa: BLE001 — answered per ticket
+                    # Not re-raised, as in the JAX batcher: in this thread
+                    # it would only end the collector and strand every
+                    # later request.
+                    pass
 
     # ── the batched serve step ───────────────────────────────────────
+
+    def _serve(self, batch: list) -> None:
+        """Run one batch. On any failure, even SystemExit or
+        KeyboardInterrupt, every ticket not yet answered gets the error
+        rather than waiting out its timeout; then the error is raised."""
+        try:
+            self._run_batch(batch)
+        except BaseException as exc:
+            for req in batch:
+                if not req.done.is_set():
+                    req.error = exc
+                    req.done.set()
+            raise
 
     def _run_batch(self, batch: list) -> None:
         t0 = self._clock()
         for req in batch:
             self.timer.add("queue", (t0 - req.enqueued_at) * 1e3)
+        batch_version = batch[0].version
         if self.model_fn is not None:
             t1 = self._clock()
             self.timer.add("batch", (t1 - t0) * 1e3)
-            classes = self.model_fn([r.text for r in batch])
+            texts = [r.text for r in batch]
+            classes = self.model_fn(texts) if self.registry is None \
+                else self.model_fn(texts, batch_version)
             t2 = self._clock()
             self.timer.add("prefill", (t2 - t1) * 1e3)
         else:
-            loaded = load_pretrained(self.checkpoint_dir, device=self.device)
-            if loaded is None:
-                raise RuntimeError(
-                    "continuous serve: checkpoint no longer loadable")
-            cfg, params = loaded
+            if self.registry is not None:
+                # The stamped version decides the tree; a checkout that
+                # raises fails this batch, never falls back.
+                cfg, params, key = self.registry.checkout(batch_version)
+            else:
+                loaded = load_pretrained(self.checkpoint_dir,
+                                         device=self.device)
+                if loaded is None:
+                    raise RuntimeError(
+                        "continuous serve: checkpoint no longer loadable")
+                cfg, params = loaded
+                key = os.path.abspath(self.checkpoint_dir or DEFAULT_DIR)
             tokens = encode_texts([r.text for r in batch], cfg.seq_len,
                                   cfg.vocab_size)
             if self.mesh is not None:
-                severity, t2 = self._run_mesh(tokens, cfg, params, t0)
+                severity, t2 = self._run_mesh(tokens, cfg, params, key, t0)
             else:
                 padded = pad_rows(tokens, pow2_bucket(len(batch)))
                 t1 = self._clock()
@@ -307,9 +378,12 @@ class ContinuousBatcher:
         with self._lock:
             self.served += len(batch)
             self.batches += 1
+        if self.registry is not None:
+            self.registry.note_served(batch_version, len(batch))
         self.timer.add("decode", (self._clock() - t2) * 1e3)
 
-    def _run_mesh(self, tokens: np.ndarray, cfg, params, t0: float):
+    def _run_mesh(self, tokens: np.ndarray, cfg, params, key: str,
+                  t0: float):
         """The mesh-served step: route rows by real-token occupancy (with a
         ``"long"`` plan), bucket each sub-batch, place (``shard``), run,
         and bring severity back (``gather``). Returns (severity [n, C] on
@@ -338,7 +412,6 @@ class ContinuousBatcher:
                 self.mesh_runs[sub_plan.runner] += 1
         t1 = self._clock()
         self.timer.add("batch", (t1 - t0) * 1e3)
-        key = os.path.abspath(self.checkpoint_dir or DEFAULT_DIR)
         placed = [(idx, sub_plan,
                    sharding_plan.sharded_params(key, params, self.mesh,
                                                 sub_plan),
@@ -350,9 +423,7 @@ class ContinuousBatcher:
             outs = [(idx, sharding_plan.serve_forward(
                 sub_params, shards, cfg, self.mesh, sub_plan))
                 for idx, sub_plan, sub_params, shards in placed]
-            for d in self.mesh.distinct_devices():
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
+            self._sync()
         t2 = self._clock()
         self.timer.add("prefill", (t2 - t_sh) * 1e3)
         if plan.runner == "pipeline" and plan.microbatches:
@@ -375,8 +446,73 @@ class ContinuousBatcher:
         self.timer.add("gather", (t_g - t2) * 1e3)
         return severity, t_g
 
+    def _sync(self) -> None:
+        """Wait for every card this batcher serves on."""
+        devices = self.mesh.distinct_devices() if self.mesh is not None \
+            else [self.device]
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # ── hot weight swap ──────────────────────────────────────────────
+
     def swap_to(self, version: str) -> dict:
-        raise NotImplementedError("hot weight swap is not ported yet")
+        """Swap to ``version`` under load: **drain** (serve every request
+        queued before the swap started), **place** (check the version out
+        and, on a mesh, push it through the placement cache, then wait for
+        the card), **resume** (flip the registry's active pointer, so new
+        enqueues stamp the new version). Place-before-drain would serve
+        old stamps beside a half-placed tree; resume-before-place would
+        stall the first new batch on placement. The stage walls go into
+        the StageTimer (``swap_drain``/``swap_place``/``swap_resume``) and
+        into the result. Rollback is this method with
+        ``registry.rollback_target()``."""
+        if self.registry is None:
+            raise RuntimeError(
+                "swap_to requires a model registry "
+                "(serve.modelRegistry is off)")
+        t0 = self._clock()
+        drained = self._swap_drain(t0)
+        t1 = self._clock()
+        self.timer.add("swap_drain", (t1 - t0) * 1e3)
+        self._swap_place(version)
+        t2 = self._clock()
+        self.timer.add("swap_place", (t2 - t1) * 1e3)
+        self._swap_resume(version)
+        t3 = self._clock()
+        self.timer.add("swap_resume", (t3 - t2) * 1e3)
+        return {"version": str(version), "drained": drained,
+                "stages": {"drain": (t1 - t0) * 1e3,
+                           "place": (t2 - t1) * 1e3,
+                           "resume": (t3 - t2) * 1e3},
+                "totalMs": (t3 - t0) * 1e3}
+
+    def _swap_drain(self, cutoff: float) -> int:
+        """Serve until no queued request predates ``cutoff``. Requests
+        enqueued during the swap are already stamped and do not extend
+        it."""
+        served = 0
+        while True:
+            with self._lock:
+                pending = any(r.enqueued_at <= cutoff for r in self._queue)
+            if not pending:
+                return served
+            served += self.step()
+
+    def _swap_place(self, version: str) -> None:
+        """Pre-place the new version, so the first batch after resume
+        finds it resident. A stub version has nothing to place."""
+        if self.registry.is_stub(version):
+            return
+        _cfg, params, key = self.registry.checkout(version)
+        if self.mesh is not None:
+            plan = sharding_plan.resolve_plan(self.plan_family, self.mesh,
+                                              searched=self.searched_plans)
+            sharding_plan.sharded_params(key, params, self.mesh, plan)
+        self._sync()
+
+    def _swap_resume(self, version: str) -> None:
+        self.registry.activate(version)
 
     # ── lifecycle / observability ────────────────────────────────────
 
@@ -407,6 +543,9 @@ class ContinuousBatcher:
                 "auxMean": round(self._moe_aux_sum / self._moe_batches, 6),
                 "batches": self._moe_batches,
             }
+        if self.registry is not None:
+            # the pointer only; the version book is registry.stats()
+            base["activeVersion"] = self.registry.active()
         if self.admission is not None:
             base["admission"] = self.admission.stats()
         base["stages"] = self.timer.snapshot()

@@ -18,8 +18,13 @@ equivalence oracle.
 grid's devices follow ``device``: visible cards for CUDA, repeated ``cpu``
 for the CPU. Without ``meshServing`` the plan family is not read and every
 checkpoint serves single-device, as in the JAX package; an unknown family
-under ``meshServing`` raises ``KeyError`` when the batcher is built. The
-model registry raises ``NotImplementedError`` rather than being ignored.
+under ``meshServing`` raises ``KeyError`` when the batcher is built.
+
+``modelRegistry: true`` (or a dict of ``registry.REGISTRY_DEFAULTS`` keys)
+serves from a :class:`~.registry.ModelRegistry` on the batcher's device,
+with the construction checkpoint registered as the incumbent ``"v0"``:
+``call.batcher.registry`` takes more versions, canaries and promotions,
+and ``call.batcher.swap_to`` hot-swaps between them.
 """
 
 from __future__ import annotations
@@ -37,11 +42,11 @@ from ..resilience.admission import AdmissionController
 from .batching import ContinuousBatcher, render_verdict
 from .encoder import forward
 from .pretrained import available, load_pretrained
+from .registry import ModelRegistry, registry_settings
 from .tokenizer import encode_texts
 
 # The JAX package's serve defaults, key for key, so one ``serve`` config
-# section reads the same on both (see _check_supported for what the port
-# serves).
+# section reads the same on both.
 SERVE_DEFAULTS = {
     "continuousBatching": True,
     "maxBatch": 32,
@@ -75,16 +80,11 @@ def _extract_message(prompt: str) -> str:
     return body.strip()
 
 
-def _check_supported(scfg: dict) -> None:
-    reg = scfg.get("modelRegistry", False)
-    if (isinstance(reg, dict) and reg.get("enabled", True)) or reg is True:
-        raise NotImplementedError("serve.modelRegistry is not ported yet")
-
-
 # One batcher per (checkpoint dir, device, knob tuple): every
 # call_llm closure a process builds for the same serving config shares one
 # queue — that IS the continuous-batching win — and the collector-thread
-# count stays bounded.
+# count stays bounded. The JAX package also keys on an owner scope, which
+# only its cluster workers pass; nothing passes one to the port's.
 _batchers: dict = {}
 _batchers_lock = threading.Lock()
 
@@ -119,28 +119,51 @@ def _resolve_mesh(serve_cfg: dict, device: torch.device):
     return cached_mesh(tuple(int(s) for s in shape), axes, device.type)
 
 
+def _registry_key(serve_cfg: dict):
+    """Hashable registry identity: a versioned batcher never shares a
+    queue with an unversioned one. Scalar knobs only (the section is
+    flat)."""
+    raw = serve_cfg.get("modelRegistry", False)
+    if isinstance(raw, dict):
+        return tuple(sorted((k, v) for k, v in raw.items()
+                            if not isinstance(v, dict)))
+    return bool(raw)
+
+
 def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
                    device: DeviceLike = None) -> ContinuousBatcher:
+    """The process-shared batcher for ``serve_cfg``, built on first use.
+    With ``modelRegistry`` enabled it serves from a registry named
+    ``serve:global`` (the JAX package's name for it) on the batcher's
+    device, with the checkpoint registered as ``"v0"``."""
     dev = resolve_device(device)
     scfg = deep_merge(SERVE_DEFAULTS, serve_cfg or {})
-    _check_supported(scfg)
     key = (checkpoint_dir, str(dev), scfg["maxBatch"],
            scfg["windowMs"],
            tuple(sorted((scfg.get("admission") or {}).items())),
-           _mesh_key(scfg))
+           _mesh_key(scfg), _registry_key(scfg))
     with _batchers_lock:
         batcher = _batchers.get(key)
         if batcher is None:
+            mesh = _resolve_mesh(scfg, dev)
+            registry = None
+            rcfg = registry_settings(scfg.get("modelRegistry", False))
+            if rcfg["enabled"]:
+                registry = ModelRegistry(
+                    rcfg, name="serve:global",
+                    device=mesh.devices[0] if mesh is not None else dev)
+                registry.register("v0", checkpoint_dir)
             batcher = ContinuousBatcher(
                 checkpoint_dir, max_batch=scfg["maxBatch"],
                 window_ms=scfg["windowMs"],
                 admission=AdmissionController.from_config(
                     scfg.get("admission")),
-                device=dev, mesh=_resolve_mesh(scfg, dev),
+                device=dev, mesh=mesh,
                 plan_family=scfg.get("planFamily", "encoder_validator"),
                 searched_plans=scfg.get("searchedPlans", True),
                 long_threshold=(scfg.get("longContext") or {})
-                .get("thresholdTokens", 1024))
+                .get("thresholdTokens", 1024),
+                registry=registry)
             _batchers[key] = batcher
         return batcher
 
@@ -179,7 +202,6 @@ def make_local_call_llm(checkpoint_dir: Optional[str] = None,
             f"{checkpoint_dir or 'the shipped default'} — point call_llm "
             "at a real LLM or ship a checkpoint")
     scfg = deep_merge(SERVE_DEFAULTS, serve_cfg or {})
-    _check_supported(scfg)
     if scfg.get("continuousBatching"):
         batcher = shared_batcher(checkpoint_dir, scfg, device=dev)
 

@@ -57,6 +57,12 @@ SIGNATURES = {
 _libs: dict = {}
 _lock = threading.Lock()
 
+# ``nvcc`` processes started by :func:`build` since the last reset. Serving
+# never builds per version or per batch: a hot swap between two versions of
+# one architecture runs the kernels already built, so this count does not
+# move through one (the witness tests and chip_smoke.py read).
+builds = 0
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -86,6 +92,7 @@ def build(names: Optional[list] = None) -> dict:
     one ``nvcc`` each, all started together. Returns ``{name: {"path",
     "seconds", "cached", "ptxas"}}``; raises ``RuntimeError`` with the
     compiler's output when a build fails."""
+    global builds
     names = list(names or SIGNATURES)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
@@ -102,6 +109,7 @@ def build(names: Optional[list] = None) -> dict:
                os.path.join(CSRC_DIR, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        builds += 1
         jobs[name] = (proc, out, tmp, time.perf_counter())
     results = {}
     failures = []
