@@ -16,7 +16,9 @@ non-zero before the last line is printed.
 1. device: the card's name and power limit (``nvidia-smi``), or exit 1
    without a CUDA device;
 2. build: ``nvcc`` builds every kernel library from the sources in
-   ``vainplex_openclaw_tpu_torch/ops/csrc``; each instantiation's registers,
+   ``vainplex_openclaw_tpu_torch/ops/csrc``, and the K1/K2 library of every
+   tile the committed block table (``ops/flash_block_table.json``) names,
+   so that serving builds nothing; each instantiation's registers,
    static shared memory and spills from ``ptxas`` (every kernel's, for a
    library of at most 8), at most 32 instantiations, no spills in the bf16
    kernels at Dh <= 64;
@@ -29,7 +31,9 @@ non-zero before the last line is printed.
    valid only in the last key tile and masks with holes, L=16384, and the
    shard shapes the mesh phases launch (16-21); at 2048 keys or more the
    plain version without its first key tile must fail the same check
-   (``CONTROL_MIN_LK``);
+   (``CONTROL_MIN_LK``); each bf16 case runs the tile the committed block
+   table gives its shape, and every row of that table must serve at least
+   one case;
 4. forward: the port's forward on the card against the same forward on the
    CPU (the plain attention), on the shipped weights over 512 seeded texts
    and on random weights at ``EncoderConfig()`` width;
@@ -196,10 +200,41 @@ Versioned serving and the trace analyzer's classification come last:
     seeded findings on the card: K1 launched n_layers times, the ``kept``
     flags equal to ``local_triage`` on the card and on the CPU.
 
+The offline search loops end the run:
+
+27. kernel_search: every candidate tile of K1/K2 (block_q, block_k in
+    32/64/128) built in one parallel ``nvcc`` call, then
+    ``kernel_search.search((64, 16384))`` from the compiled default (the
+    64x64 incumbent; a winner must beat it by 5% and by each record's
+    spread): one line per point (ms, spread, K1/K2 parity error at the
+    point shape B=4 H=8 Dh=64 within 3e-2 per row, and at 16384 keys a
+    control, the plain version without its first key tile, that the
+    same check must fail; builds while timed = 0, launches = steps x
+    rounds), the winner per bucket; every tile held the same way at each
+    bf16 shape of phase 3 a row of the searched buckets would serve and
+    at the long serve shape (``served_cases``); the table
+    ``validate_table`` passes written to ``$CHIP_SMOKE_OUT``
+    (``build/chip_smoke/`` by default); then K1 and K2 timed at the long
+    serve shape (B=8 H=2 L=16384 Dh=16) at every tile, 64x64 first and
+    last, beside the exponential floor at the measured ex2 rate;
+28. plan_search: ``plan_search.search`` for ``encoder_validator`` and
+    ``embeddings_forward`` with 256 requests and 256 queries a candidate
+    (``PLAN_SEARCH_CARD``), each candidate in the incumbent's gather mode:
+    at (1, 1) three times, whose rows may be written only where every run
+    passed the same candidate (``agreed_sweeps``), and once at (2, 1) over
+    the repeated card, a check of the harness whose rows are never
+    written (``card_rows``): every candidate's results equal the one-shot
+    oracle's, no build while timed, K1/K2 launches equal to the runner's
+    formula; the table ``validate_plan_table`` passes written beside the
+    block table; then ``serve.meshShape: null`` with the committed table
+    resolves the plan ``plan_provenance`` reports and serves the one-shot
+    path's verdicts.
+
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle and classify phases
-included), K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
+included, and the tiles the block table gives the serve and long
+shapes), K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
 with its L=128 figures beside them; measured numbers and the bound only)
 and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -209,6 +244,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -491,7 +527,8 @@ def phase_build() -> None:
     from vainplex_openclaw_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    results = _build.build()
+    results = _build.build(list(_build.SIGNATURES) + [
+        ("flash_attention", _build.tile_defines(t)) for t in table_tiles()])
     libraries = {}
     for name, r in results.items():
         print(f"[ptxas {name}]\n{r['ptxas']}", file=sys.stderr, flush=True)
@@ -514,11 +551,28 @@ def phase_build() -> None:
         check(bool(report), f"{name}: no ptxas report in the build log")
         check(len(report) <= 32, f"{name}: {len(report)} kernel "
                                  "instantiations > 32")
-        spills = [e for e in report if e["kernel"] == "flash_fwd_mma"
-                  and e["dh"] <= 64 and (e["spill_stores"] or e["spill_loads"])]
-        check(not spills, f"{name}: bf16 kernels at Dh <= 64 spill: {spills}")
+        check_spills(name, report)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "table_tiles": [list(t) for t in table_tiles()],
           "libraries": libraries})
+
+
+def check_spills(name: str, report: list) -> None:
+    spills = [e for e in report if e["kernel"] == "flash_fwd_mma"
+              and e["dh"] <= 64 and (e["spill_stores"] or e["spill_loads"])]
+    check(not spills, f"{name}: bf16 kernels at Dh <= 64 spill: {spills}")
+
+
+def table_tiles() -> list:
+    """Every (block_q, block_k) a ``cuda:`` row of the committed block
+    table names, other than the compiled default: each is a library that
+    serving loads, so the build phase builds it."""
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    rows = fa.load_block_table(fa.TABLE_PATH).get("entries", {})
+    return sorted({(e["block_q"], e["block_k"]) for k, e in rows.items()
+                   if k.startswith("cuda:")} - {_build.DEFAULT_TILES})
 
 
 def phase_kernels() -> float:
@@ -526,7 +580,7 @@ def phase_kernels() -> float:
     import torch
 
     from vainplex_openclaw_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_reference, launch_tiles)
 
     rng = np.random.default_rng(0)
     cases = []
@@ -536,7 +590,11 @@ def phase_kernels() -> float:
                                ("float32", torch.float32)):
             q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
-            out = flash_attention(q, k, v, mask, causal=causal)
+            # the block table's tile for this shape, as a launch reads it
+            # (the fp32 scalar walk keeps its own tiles)
+            tile = launch_tiles(Lq, Lk, dt_name)
+            out = flash_attention(q, k, v, mask, causal=causal,
+                                  block_q=tile[0], block_k=tile[1])
             ref = flash_attention_reference(q, k, v, mask, causal=causal)
             torch.cuda.synchronize()
             check(out.dtype == q.dtype and out.shape == q.shape,
@@ -563,6 +621,8 @@ def phase_kernels() -> float:
             worst = max(worst, err)
             cases.append({"case": name, "dtype": dt_name,
                           "shape": [B, H, Lq, Lk, Dh], "causal": causal,
+                          "tile": list(tile) if dt_name == "bfloat16"
+                          else None,
                           "mask": mask_kind, "max_abs_err": err,
                           "row_rel_err": rel, "held": held,
                           "control_without_first_tile": control,
@@ -571,9 +631,27 @@ def phase_kernels() -> float:
                           "tol": TOL[dt_name]})
             del q, k, v, mask, out, ref
             torch.cuda.empty_cache()
+    unserved = table_rows_unserved(KERNEL_CASES)
+    check(not unserved, f"kernels: no case serves the block table's rows "
+                        f"{unserved}")
     emit({"phase": "kernels", "kernels": [
         {"name": "flash_attention", "max_abs_err": worst, "cases": cases}]})
     return worst
+
+
+def table_rows_unserved(cases) -> list:
+    """The committed block table's ``cuda:bfloat16`` rows that no case of
+    ``cases`` launches with (a row serves a case when the pow2 bucket of
+    its Lq or Lk is the row's): each row's tile must be held against the
+    plain version at a shape it serves."""
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    rows = fa.load_block_table(fa.TABLE_PATH).get("entries", {})
+    served = {b for c in cases for b in (pow2_bucket(c[3]),
+                                         pow2_bucket(c[4]))}
+    return sorted(k for k in rows if k.startswith("cuda:bfloat16:")
+                  and int(k.split(":")[2]) not in served)
 
 
 def random_tree(cfg, seed: int) -> dict:
@@ -793,6 +871,17 @@ def time_ms(fn, n: int = 200, reps: int = 15, warmup: int = 20) -> float:
     return statistics.median(samples)
 
 
+def served_library(L: int):
+    """The bf16 K1/K2 library a launch at length L loads: the tile the
+    block table names for L's bucket (``launch_tiles``), the compiled
+    default without a row."""
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    return _build.load_library("flash_attention",
+                               tiles=fa.launch_tiles(L, L, "bfloat16"))
+
+
 def device_kernel_ms(fn, n: int = 50) -> dict:
     """Device time of the CUDA kernels that ``n`` calls of ``fn`` launch,
     from the profiler: per call, and per kernel record it kept. ``fn``
@@ -823,7 +912,6 @@ def phase_timing() -> dict:
 
     from vainplex_openclaw_tpu_torch.models import encode_texts, forward
     from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
-    from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
     B, H, L, Dh = 32, 4, 64, 16
@@ -831,7 +919,7 @@ def phase_timing() -> dict:
                              torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
     out = torch.empty_like(q)
-    lib = _build.load_library("flash_attention")
+    lib = served_library(L)
 
     def kernel():
         err = lib.flash_attention_fwd(
@@ -1170,7 +1258,6 @@ def phase_timing_stats() -> dict:
     import torch
     import torch.nn.functional as F
 
-    from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
     B, H, L, Dh = 8, 2, LONG_L, 16
@@ -1182,7 +1269,7 @@ def phase_timing_stats() -> dict:
     m = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
     l = torch.empty_like(m)
     out = torch.empty_like(q)
-    lib = _build.load_library("flash_attention")
+    lib = served_library(L)
     code = fa._DTYPE_CODES[q.dtype]
 
     def kernel():
@@ -1649,7 +1736,6 @@ def phase_timing_train(smi: str) -> dict:
     from vainplex_openclaw_tpu_torch.models.encoder import (
         init_params, params_from_numpy)
     from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
-    from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
     B, H, L, Dh = 64, 4, 64, 16
@@ -1657,7 +1743,7 @@ def phase_timing_train(smi: str) -> dict:
                              torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
     out = torch.empty_like(q)
-    lib = _build.load_library("flash_attention")
+    lib = served_library(L)
 
     def kernel():
         err = lib.flash_attention_fwd(
@@ -2222,14 +2308,13 @@ def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
     q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, L, L, Dh,
                              torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
     out = torch.empty_like(q)
-    lib = _build.load_library("flash_attention")
+    lib = served_library(L)
 
     def kernel():
         err = lib.flash_attention_fwd(
@@ -3543,6 +3628,346 @@ def phase_classify(smi: str) -> dict:
     return record
 
 
+# ── the offline search loops ─────────────────────────────────────────
+
+SEARCH_LENGTHS = (64, LONG_L)  # the serve bucket and the long family's
+SEARCH_STEPS = 4  # serially dependent K1 calls per timed round (JAX's)
+SEARCH_ROUNDS = 3
+# every candidate tile against the plain versions at the point shape and
+# at the served shapes: the kernels phase's bf16 bound, per row
+POINT_TOL = TOL["bfloat16"]
+# the long serve shape (B, H, L, Dh): serve_long's long sub-batch
+LONG_SERVE = (8, 2, LONG_L, 16)
+# plan_search on the card: JAX's defaults time 12 queries (~40 ms), which
+# host noise decides; each (1, 1) sweep times this many requests and
+# queries, and runs PLAN_RUNS times: a row is written only where every
+# run's gate passed the same candidate
+PLAN_SEARCH_CARD = {"requests": 256, "queries": 256}
+PLAN_RUNS = 3
+OUT_DIR = os.environ.get("CHIP_SMOKE_OUT",
+                         os.path.join("build", "chip_smoke"))
+
+
+def search_launches(steps: int, rounds: int) -> int:
+    """K1 launches a candidate's timed rounds make: one per step."""
+    return steps * rounds
+
+
+def served_cases(lengths) -> list:
+    """The bf16 ``KERNEL_CASES`` a block-table row of a bucket in
+    ``lengths`` would serve (the pow2 bucket of Lq or Lk is one of
+    them), plus the long serve shape: where a searched tile is held
+    against the plain version before its row may be written."""
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    buckets = {pow2_bucket(L) for L in lengths}
+    cases = [c for c in KERNEL_CASES
+             if {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
+    B, H, L, Dh = LONG_SERVE
+    if pow2_bucket(L) in buckets:
+        cases.append(("long_serve", B, H, L, L, Dh, False, False))
+    return cases
+
+
+def card_rows(table: dict) -> dict:
+    """``table`` with only the rows one card may write: every row of
+    another device family as it is, and ``cuda:`` rows of a 1x1 grid or
+    one device. A grid that repeats the one card checks the search, but
+    its rows are not rows of a grid of distinct cards."""
+    keep = {k: e for k, e in table["entries"].items()
+            if k.split(":")[0] != "cuda" or k.split(":")[1] in ("1x1", "1")}
+    return {**table, "entries": keep}
+
+
+def agreed_sweeps(runs: list) -> dict:
+    """The last of ``runs`` (``plan_search.search`` results over the same
+    grids) with a sweep left improved only where every run's gate passed
+    the same candidate: a winner of one run can be that run's noise."""
+    last = runs[-1]
+    sweeps = {}
+    for key, sweep in last["sweeps"].items():
+        won = {r["sweeps"][key]["best"].get("candidate")
+               if r["sweeps"][key]["improved"] else None for r in runs}
+        if sweep["improved"] and len(won) == 1:
+            sweeps[key] = sweep
+        else:
+            sweeps[key] = {k: v for k, v in sweep.items() if k != "entry"}
+            sweeps[key]["improved"] = False
+    return {**last, "sweeps": sweeps}
+
+
+def write_out(name: str, table: dict) -> str:
+    path = os.path.join(OUT_DIR, name)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(table, f, indent=1)
+        f.write("\n")
+    return path
+
+
+def hold_tile(tile: tuple, cases: list, rng) -> list:
+    """K1 and K2 at ``tile`` against their plain versions at each case
+    (bf16, ``kernel_search.parity_errors``: per row, the control from
+    ``CONTROL_MIN_LK`` keys); fails the run on a miss, or on a control
+    the check passes."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import kernel_search as ks
+
+    rows = []
+    for name, B, H, Lq, Lk, Dh, causal, mask_kind in cases:
+        q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, torch.bfloat16,
+                                 mask_kind, "cuda")
+        control = Lk >= CONTROL_MIN_LK and not causal
+        e = ks.parity_errors(q, k, v, tile, mask, causal=causal,
+                             control=control)
+        what = f"kernel_search {tile[0]}x{tile[1]} at {name}"
+        check(e["k1"] <= POINT_TOL and e["k2"] <= POINT_TOL,
+              f"{what}: K1 {e['k1']}, K2 {e['k2']} > {POINT_TOL}")
+        if control:
+            check(e["k1_control"] > POINT_TOL and e["k2_control"] > POINT_TOL,
+                  f"{what}: the check passes the plain version without its "
+                  f"first key tile ({e['k1_control']}, {e['k2_control']})")
+        rows.append({"case": name, "k1": e["k1"], "k2": e["k2"],
+                     "k1_control": e.get("k1_control"),
+                     "k2_control": e.get("k2_control")})
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel_search(smi: str, ex2_per_s: float) -> dict:
+    """The tile search on the card: every candidate library built in one
+    parallel call, then ``kernel_search.search`` from the compiled default
+    (no table, so 64x64 is the incumbent at each length); then every tile
+    held against the plain versions at each shape a row of the searched
+    buckets would serve, and K1 and K2 timed at the long serve shape at
+    every tile."""
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops import kernel_search as ks
+
+    committed = fa.load_block_table(fa.TABLE_PATH)
+    prev = os.environ.get(fa.TABLE_ENV)
+    os.environ[fa.TABLE_ENV] = os.devnull  # no table: 64x64 incumbents
+    fa.clear_table_cache()
+    try:
+        tiles = sorted({t for L in SEARCH_LENGTHS
+                        for t in ks.candidate_pairs(L, family="cuda")})
+        t0 = time.perf_counter()
+        built = _build.build([("flash_attention", _build.tile_defines(t))
+                              for t in tiles])
+        build_s = time.perf_counter() - t0
+        for name, r in built.items():
+            check_spills(name, ptxas_report(r["ptxas"]))
+        builds0 = _build.builds
+        results = ks.search(SEARCH_LENGTHS, dtype="bfloat16",
+                            steps=SEARCH_STEPS, rounds=SEARCH_ROUNDS,
+                            device="cuda")
+        check(_build.builds == builds0,
+              "kernel_search built a library after the parallel build")
+    finally:
+        if prev is None:
+            os.environ.pop(fa.TABLE_ENV, None)
+        else:
+            os.environ[fa.TABLE_ENV] = prev
+        fa.clear_table_cache()
+    want = search_launches(SEARCH_STEPS, SEARCH_ROUNDS)
+    for key, res in results.items():
+        for c in res["candidates"]:
+            tile = f"{c['block_q']}x{c['block_k']}"
+            check("error" not in c, f"kernel_search {key} {tile}: "
+                                    f"{c.get('error')}")
+            check(c["k1_err"] <= POINT_TOL and c["k2_err"] <= POINT_TOL,
+                  f"kernel_search {key} {tile}: K1 {c['k1_err']}, K2 "
+                  f"{c['k2_err']} > {POINT_TOL}")
+            if c["seq_len"] >= ks.CONTROL_MIN_L:
+                check(c["k1_control"] > POINT_TOL and
+                      c["k2_control"] > POINT_TOL,
+                      f"kernel_search {key} {tile}: the check passes the "
+                      f"plain version without its first key tile")
+            check(c["retraces"] == 0, f"kernel_search {key} {tile}: "
+                                      f"{c['retraces']} builds while timed")
+            check(c["launches"] == want, f"kernel_search {key} {tile}: "
+                                         f"{c['launches']} launches != {want}")
+            emit({"phase": "kernel_search_point", "bucket": key,
+                  "point": [*ks.POINT_SHAPE[:2], c["seq_len"],
+                            ks.POINT_SHAPE[2]],
+                  "tile": [c["block_q"], c["block_k"]], "ms": c["ms"],
+                  "spread": c["spread"], "k1_err": c["k1_err"],
+                  "k2_err": c["k2_err"], "max_abs_err": c["max_abs_err"],
+                  "k1_control": c.get("k1_control"),
+                  "k2_control": c.get("k2_control"), "tol": POINT_TOL,
+                  "builds_timed": c["retraces"], "launches": c["launches"],
+                  "expected_launches": want})
+    winners = {key: [res["best"]["block_q"], res["best"]["block_k"]]
+               for key, res in results.items()}
+
+    # every tile at every shape a row of the searched buckets would serve
+    cases = served_cases(SEARCH_LENGTHS)
+    held = {f"{t[0]}x{t[1]}": hold_tile(t, cases, np.random.default_rng(17))
+            for t in tiles}
+    emit({"phase": "kernel_search_held", "cases": [c[0] for c in cases],
+          "tol": POINT_TOL,
+          "worst": {t: {"k1": max(r["k1"] for r in rows),
+                        "k2": max(r["k2"] for r in rows),
+                        "control_min": min(
+                            min(r["k1_control"], r["k2_control"])
+                            for r in rows if r["k1_control"] is not None)}
+                    for t, rows in held.items()}})
+
+    table = ks.to_table(results, base_table=committed, provenance={
+        "card": smi, "run": "chip_smoke.py phase kernel_search",
+        "point": f"B={ks.POINT_SHAPE[0]} H={ks.POINT_SHAPE[1]} "
+                 f"Dh={ks.POINT_SHAPE[2]} bf16, {SEARCH_STEPS} steps x "
+                 f"{SEARCH_ROUNDS} rounds, incumbent 64x64, margin "
+                 f"{ks.MIN_GAIN} and each record's spread"})
+    findings = ks.validate_table(table)
+    check(findings == [], f"searched block table: {findings}")
+    written = write_out("flash_block_table.json", table)
+
+    # the long serve shape (every key valid), each tile in turns with 64x64
+    B, H, L, Dh = LONG_SERVE
+    q, k, v, _ = make_qkv(np.random.default_rng(13), B, H, L, L, Dh,
+                          torch.bfloat16, False, "cuda")
+    mask = torch.ones((B, L), dtype=torch.bool, device=q.device)
+
+    def at(tile, stats):
+        return lambda: fa.flash_attention(q, k, v, mask, return_stats=stats,
+                                          block_q=tile[0], block_k=tile[1])
+
+    order = [fa.DEFAULT_TILES] + [t for t in tiles
+                                  if t != fa.DEFAULT_TILES] + \
+        [fa.DEFAULT_TILES]
+    served: dict = {}
+    for t in order:
+        row = served.setdefault(f"{t[0]}x{t[1]}", {"k1_ms": [], "k2_ms": []})
+        row["k1_ms"].append(time_ms(at(t, False), n=5, reps=3, warmup=1))
+        row["k2_ms"].append(time_ms(at(t, True), n=5, reps=3, warmup=1))
+    family = next(iter(results.values()))["family"]
+    long_tile = tuple(winners[ks.bucket_key(LONG_L, family=family)])
+    base = served["64x64"]
+    record = {"phase": "kernel_search", "nvidia_smi": smi,
+              "build_seconds": build_s, "libraries_built": len(built),
+              "lengths": list(SEARCH_LENGTHS), "winners": winners,
+              "improved": {k: r["improved"] for k, r in results.items()},
+              "table_findings": findings, "table_written": written,
+              "served_long": {
+                  "shape": [B, H, L, L, Dh], "tile": list(long_tile),
+                  "held": {t: next(r for r in rows
+                                   if r["case"] == "long_serve")
+                           for t, rows in held.items()},
+                  "ms": {t: {m: statistics.median(v) for m, v in r.items()}
+                         for t, r in served.items()},
+                  "ms_64x64_runs": base,
+                  "exp_floor_measured_ms": B * H * L * L / ex2_per_s * 1e3}}
+    emit(record)
+    return record
+
+
+def phase_plan_search(smi: str) -> dict:
+    """The placement search on the card: both families at (1, 1), whose
+    rows may be written, ``PLAN_RUNS`` times, a row kept only where every
+    run passed the same candidate (``agreed_sweeps``); and once at (2, 1)
+    over the repeated card as a check of the harness only; then
+    ``meshShape: null`` served with the committed table resolves the plan
+    ``plan_provenance`` reports."""
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.parallel import plan
+    from vainplex_openclaw_tpu_torch.parallel import plan_search as ps
+
+    t0 = time.perf_counter()
+    card = {"device": "cuda", **PLAN_SEARCH_CARD}
+    ones = [ps.search({**card, "shapes": ((1, 1),)})
+            for _ in range(PLAN_RUNS)]
+    two = ps.search({**card, "shapes": ((2, 1),), "repeatDevice": True})
+    runs = [(f"1x1 run {i + 1}", r) for i, r in enumerate(ones)]
+    for grid, res in runs + [("2x1 over one card", two)]:
+        for key, sweep in res["sweeps"].items():
+            for c in sweep["candidates"]:
+                what = f"plan_search {key} {c.get('candidate', 'incumbent')}"
+                check("error" not in c, f"{what}: {c.get('error')}")
+                check(c["mismatches"] == 0, f"{what}: {c['mismatches']} "
+                                            "results differ from the oracle")
+                check(c["retraces"] == 0, f"{what}: {c['retraces']} builds "
+                                          "while timed")
+                check((c["k1_launches"], c["k2_launches"]) ==
+                      (c["k1_expected"], c["k2_expected"]),
+                      f"{what}: launches {c['k1_launches']}, "
+                      f"{c['k2_launches']} != {c['k1_expected']}, "
+                      f"{c['k2_expected']}")
+            best = sweep["best"]
+            emit({"phase": "plan_search_point", "grid": grid, "key": key,
+                  "improved": sweep["improved"],
+                  "sketch_rejected": sweep["sketch_rejected"],
+                  "baseline_rps": sweep["baseline"]["rps"],
+                  "best": best.get("candidate", "incumbent"),
+                  "best_rps": best["rps"],
+                  "candidates": [[c.get("candidate", "incumbent"), c["rps"],
+                                  c["k1_launches"]]
+                                 for c in sweep["candidates"]]})
+    agreed = agreed_sweeps(ones)
+    # the search decides its own keys afresh: a committed row of a key it
+    # swept survives only if this run's sweeps agree on it again
+    committed = {k: v for k, v in plan.load_plan_table(
+        plan.PLAN_TABLE_PATH).items() if not k.startswith("_")}
+    committed["entries"] = {k: e for k, e in committed["entries"].items()
+                            if k not in agreed["sweeps"]}
+    table = card_rows(ps.to_table(agreed, base_table=committed))
+    won = sorted(k for k, sweep in agreed["sweeps"].items()
+                 if sweep["improved"])
+    table["provenance"]["cuda_rows"] = (
+        f"chip_smoke.py phase plan_search at (1, 1) on {smi}, "
+        f"{PLAN_SEARCH_CARD['requests']} requests and "
+        f"{PLAN_SEARCH_CARD['queries']} queries a candidate, {PLAN_RUNS} "
+        f"runs: " + (", ".join(won) if won else
+                     "no candidate cleared the gate in every run"))
+    findings = ps.validate_plan_table(table)
+    check(findings == [], f"searched plan table: {findings}")
+    harness = ps.validate_plan_table(ps.to_table(two, base_table=table))
+    check(harness == [], f"the repeated-card table: {harness}")
+    written = write_out("plan_table.json", table)
+    search_s = time.perf_counter() - t0
+
+    # the committed table on the card: meshShape null
+    prompts = [as_prompt(t) for t in seeded_texts(16, seed=61)]
+    oneshot = serve.make_local_call_llm(
+        serve_cfg={"continuousBatching": False})
+    call = serve.make_local_call_llm(serve_cfg={
+        "meshServing": True, "meshShape": None, "windowMs": 0.0})
+    batcher = call.batcher
+    resolved = plan.resolve_plan(batcher.plan_family, batcher.mesh,
+                                 searched=batcher.searched_plans)
+    prov = plan.plan_provenance(batcher.plan_family, batcher.mesh)
+    check(resolved.source == prov["plan_source"] and
+          resolved.table_key in ("", prov["plan_table_key"]),
+          f"meshShape null serves {resolved.source} {resolved.table_key}, "
+          f"plan_provenance reports {prov}")
+    got = [call(p) for p in prompts]
+    check(got == [oneshot(p) for p in prompts],
+          "meshShape null: verdicts differ from the one-shot path")
+    mesh = "x".join(str(d) for d in batcher.mesh.dims)
+    serve.close_batchers()
+    record = {"phase": "plan_search", "nvidia_smi": smi,
+              "search_seconds": search_s,
+              "improved": {name: {k: s["improved"]
+                                  for k, s in res["sweeps"].items()}
+                           for name, res in runs + [("2x1", two)]},
+              "agreed": won,
+              "rows_written": sorted(k for k in table["entries"]
+                                     if k.startswith("cuda:")),
+              "table_findings": findings, "table_written": written,
+              "auto_mesh": {"mesh": mesh, **prov,
+                            "bucket_min": resolved.bucket_min,
+                            "gather": resolved.gather,
+                            "verdicts": len(got)}}
+    emit(record)
+    return record
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -3570,6 +3995,9 @@ def main() -> int:
         similarity = phase_similarity(info["nvidia_smi"])
         lifecycle = phase_lifecycle(info["nvidia_smi"])
         classified = phase_classify(info["nvidia_smi"])
+        searched = phase_kernel_search(
+            info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
+        phase_plan_search(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -3584,9 +4012,14 @@ def main() -> int:
           "serve_ms": timing["exponentials"] / ex2_per_s * 1e3,
           "train_shape": timing_train["shape"],
           "train_ms": timing_train["exponentials"] / ex2_per_s * 1e3})
+    from vainplex_openclaw_tpu_torch.ops.flash_attention import launch_tiles
+
+    tiles = {"serve": list(launch_tiles(64, 64, "bfloat16")),
+             "long": list(launch_tiles(LONG_L, LONG_L, "bfloat16"))}
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": served["launches"],
+        "tiles": tiles, "search_winners": searched["winners"],
         "max_abs_err": worst, "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
@@ -3645,6 +4078,7 @@ def main() -> int:
                        "library_ms": k1_long["library_ms"]}},
         {"name": "flash_attention_stats", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES_STATS, "launches": served_long["launches"],
+         "tiles": {"long": tiles["long"]},
          "max_abs_err": worst_stats, "ms": timing_stats["kernel_ms"],
          "plain_ms": timing_stats["plain_ms"],
          "bound_ms": timing_stats["bound_ms"],

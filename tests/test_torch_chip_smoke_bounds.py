@@ -12,7 +12,10 @@ pairs reach the word edges. The lifecycle phase's ``version_audit``
 counts dropped and mis-versioned tickets against each stamp's oracle,
 ``swap_protocol`` stamps and serves as the phase expects, the negated twin
 flips every verdict, and the K1 count it expects per mesh batch is the
-runner's formula. chip_smoke's top level
+runner's formula. The search phases' helpers: the point's parity bound
+and measure, the launch count, the shapes each searched tile is held at,
+the rows one card may write, and the rows every run agreed on.
+chip_smoke's top level
 imports only the standard library, so importing it here runs nothing.
 """
 
@@ -552,3 +555,134 @@ def test_mesh_swap_expects_the_runners_k1_count():
 
     assert chip_smoke.mesh_k1_per_forward(TINY_CONFIG, ("dp", "tp"),
                                           (1, 2)) == 4
+
+
+# ── the search phases ─────────────────────────────────────────────────
+
+def test_point_parity_bound_is_the_kernels_phase_bf16_bound():
+    """Every candidate tile is held to the plain versions at the point
+    shape with the bound the kernels phase holds bf16 K1 to, measured as
+    it measures it (per row, relative to each row's largest value), and
+    with the control from the same key count."""
+    from vainplex_openclaw_tpu_torch.ops import kernel_search as ks
+
+    assert chip_smoke.POINT_TOL == chip_smoke.TOL["bfloat16"] == 3e-2
+    assert ks.PARITY_TOL["bfloat16"] == chip_smoke.POINT_TOL
+    assert ks.POINT_SHAPE == (4, 8, 64)
+    assert ks.CONTROL_MIN_L == chip_smoke.CONTROL_MIN_LK
+    rng = np.random.default_rng(2)
+    ref = torch.from_numpy(rng.standard_normal((3, 5, 16)) * 0.01)
+    out = ref + torch.from_numpy(rng.standard_normal((3, 5, 16)) * 1e-3)
+    assert ks.held_error(out, ref, per_row=True) == \
+        chip_smoke.k1_errors(out, ref, "bfloat16")[2]
+    assert ks.held_error(out, ref, per_row=False) == \
+        chip_smoke.k1_errors(out, ref, "float32")[2]
+
+
+def test_served_cases_are_the_searched_buckets_shapes():
+    """Every bf16 kernel case whose Lq or Lk falls in a searched bucket,
+    and the long serve shape, hold each candidate tile."""
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    cases = chip_smoke.served_cases(chip_smoke.SEARCH_LENGTHS)
+    names = [c[0] for c in cases]
+    assert {"serve_path", "keys_63", "keys_64", "rows_not_tile_multiple",
+            "long_16384", "long_16384_masked", "mesh_tp2_shard",
+            "train_tp4_shard", "long_serve"} <= set(names)
+    assert not {"keys_65", "mfu_shape", "head_dim_128"} & set(names)
+    for c in cases:
+        assert {pow2_bucket(c[3]), pow2_bucket(c[4])} & {64, 16384}
+        assert c[5] in SUPPORTED_HEAD_DIMS
+    assert cases[-1] == ("long_serve", *chip_smoke.LONG_SERVE[:3],
+                         chip_smoke.LONG_L, 16, False, False)
+    assert [c[0] for c in chip_smoke.served_cases((64,))] == \
+        [n for n in names if n not in ("long_16384", "long_16384_masked",
+                                       "long_serve")]
+
+
+def test_every_committed_block_row_serves_a_kernel_case():
+    assert chip_smoke.table_rows_unserved(chip_smoke.KERNEL_CASES) == []
+    serve_only = [c for c in chip_smoke.KERNEL_CASES if c[4] <= 64]
+    assert chip_smoke.table_rows_unserved(serve_only) == \
+        ["cuda:bfloat16:16384"]
+
+
+def _sweeps(*improved):
+    return {"sweeps": {
+        f"cuda:1x1:k{i}": {"improved": bool(w), "best": {"candidate": w}
+                           if w else {"candidate": None},
+                           **({"entry": {"candidate": w}} if w else {})}
+        for i, w in enumerate(improved)}, "factorizations": {}}
+
+
+@pytest.mark.parametrize("runs,kept", [
+    ([("a", None), ("a", None), ("a", None)], ["k0"]),
+    ([("a", None), ("a", None), (None, None)], []),
+    ([("a", "b"), ("c", "b"), ("a", "b")], ["k1"]),
+    ([(None, "b")], ["k1"]),
+])
+def test_agreed_sweeps_keep_a_winner_every_run_passed(runs, kept):
+    got = chip_smoke.agreed_sweeps([_sweeps(*r) for r in runs])
+    assert sorted(k.split(":")[-1] for k, s in got["sweeps"].items()
+                  if s["improved"]) == kept
+    for key, sweep in got["sweeps"].items():
+        assert ("entry" in sweep) == sweep["improved"]
+
+
+def test_card_plan_search_times_more_than_jax_defaults():
+    """12 queries (~40 ms on the card) let host noise choose a row."""
+    from vainplex_openclaw_tpu_torch.parallel import plan_search as ps
+
+    for k in ("requests", "queries"):
+        assert chip_smoke.PLAN_SEARCH_CARD[k] >= \
+            8 * ps.PLAN_SEARCH_DEFAULTS[k]
+    assert chip_smoke.PLAN_RUNS >= 3
+
+
+@pytest.mark.parametrize("steps,rounds,want", [(4, 3, 12), (1, 1, 1),
+                                               (8, 2, 16)])
+def test_search_launch_count_is_one_per_timed_step(steps, rounds, want):
+    assert chip_smoke.search_launches(steps, rounds) == want
+    assert chip_smoke.search_launches(chip_smoke.SEARCH_STEPS,
+                                      chip_smoke.SEARCH_ROUNDS) == 12
+
+
+def test_searched_lengths_are_the_served_buckets():
+    assert chip_smoke.SEARCH_LENGTHS == (64, chip_smoke.LONG_L) == \
+        (64, 16384)
+
+
+def test_card_rows_keep_only_one_card_grids():
+    table = {"schema": "plan-table-v1", "provenance": {"x": 1}, "entries": {
+        "cpu:2x4:encoder_validator": {"a": 1},
+        "cpu:n8:encoder_validator": {"mesh_shape": [8, 1]},
+        "cuda:1x1:encoder_validator": {"b": 1},
+        "cuda:1:embeddings_forward": {"c": 1},
+        "cuda:2x1:encoder_validator": {"d": 1},
+        "cuda:2:embeddings_forward": {"e": 1},
+        "cuda:n2:encoder_validator": {"mesh_shape": [2, 1]},
+        "tpu:4x4:encoder_validator": {"f": 1}}}
+    kept = chip_smoke.card_rows(table)
+    assert sorted(kept["entries"]) == [
+        "cpu:2x4:encoder_validator", "cpu:n8:encoder_validator",
+        "cuda:1:embeddings_forward", "cuda:1x1:encoder_validator",
+        "tpu:4x4:encoder_validator"]
+    assert kept["provenance"] == table["provenance"]
+    assert len(table["entries"]) == 8  # the input is left as it was
+
+
+def test_table_tiles_are_the_committed_rows_libraries():
+    """The build phase builds each tile a cuda row names (the default
+    library is built anyway)."""
+    import json
+
+    from vainplex_openclaw_tpu_torch.ops import _build
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    with open(fa.TABLE_PATH, encoding="utf-8") as f:
+        rows = json.load(f)["entries"]
+    want = {(e["block_q"], e["block_k"]) for k, e in rows.items()
+            if k.startswith("cuda:")} - {_build.DEFAULT_TILES}
+    assert set(chip_smoke.table_tiles()) == want
+    for t in chip_smoke.table_tiles():
+        assert _build.tile_defines(t)

@@ -356,8 +356,12 @@ def test_batchers_keyed_on_plan_family_and_threshold(long_ckpt):
 def test_auto_mesh_shape_takes_every_cpu_entry(long_ckpt):
     call = serve.make_local_call_llm(long_ckpt, device="cpu", serve_cfg=dict(
         LONG_SERVE, meshShape=None, windowMs=0.0))
-    # _factor(8); the port has no searched table to prefer another shape
-    assert call.batcher.mesh.shape == {"dp": 2, "sp": 4}
+    # JAX's shape: the searched cpu:n8 factorization of the default family
+    # (asked whatever planFamily is), not _factor(8) = (2, 4)
+    assert call.batcher.mesh.shape == {"dp": 8, "sp": 1}
+    jax_mesh = jax_serve._resolve_mesh(
+        {**jax_serve.SERVE_DEFAULTS, **LONG_SERVE, "meshShape": None})
+    assert dict(jax_mesh.shape) == call.batcher.mesh.shape
     assert call(build_prompt(LONG_TEXTS[0], []))
 
 

@@ -170,7 +170,12 @@ def test_pp_moe_aux_is_zero_and_attention_runs_per_microbatch(monkeypatch):
     monkeypatch.setattr(encoder, "attend", spy)
     out = port_mesh_forward(params, tokens(8, 32), cfg,
                             "encoder_validator_pp", ("pp",), (2,))
-    M = plan.PLAN_TABLE["encoder_validator_pp"].microbatches
+    # the plan that served: the searched cpu:2 row (2 microbatches), as
+    # JAX resolves it
+    M = plan.serving_plan("encoder_validator_pp",
+                          cached_mesh((2,), ("pp",), "cpu")).microbatches
+    assert M == jax_plan.serving_plan(
+        "encoder_validator_pp", jax_cached_mesh((2,), ("pp",))).microbatches
     assert len(calls) == cfg.n_layers * M and set(calls) == {8 // M}
     assert float(out["moe_aux"]) == 0.0
 
@@ -178,13 +183,19 @@ def test_pp_moe_aux_is_zero_and_attention_runs_per_microbatch(monkeypatch):
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 9])
 @pytest.mark.parametrize("pp", [1, 2, 4])
 def test_serve_bucket_floors_at_microbatches_as_jax(n, pp):
-    got = plan.serve_bucket(n, cached_mesh((pp,), ("pp",), "cpu"),
-                            plan="encoder_validator_pp")
-    # the hand-written plan: the JAX table's searched cpu rows differ
-    want = jax_plan.serve_bucket(n, jax_cached_mesh((pp,), ("pp",)),
-                                 plan=jax_plan.PLAN_TABLE[
-                                     "encoder_validator_pp"])
-    assert got == want and got % 4 == 0
+    mesh, jmesh = cached_mesh((pp,), ("pp",), "cpu"), \
+        jax_cached_mesh((pp,), ("pp",))
+    # the family resolves the searched cpu rows (pp = 2 floors at its 2
+    # microbatches, pp = 4 at 4), as in JAX
+    got = plan.serve_bucket(n, mesh, plan="encoder_validator_pp")
+    assert got == jax_plan.serve_bucket(n, jmesh,
+                                        plan="encoder_validator_pp")
+    # the hand-written plan floors at its 4 microbatches
+    hand = plan.serve_bucket(n, mesh,
+                             plan=plan.PLAN_TABLE["encoder_validator_pp"])
+    want = jax_plan.serve_bucket(n, jmesh, plan=jax_plan.PLAN_TABLE[
+        "encoder_validator_pp"])
+    assert hand == want and hand % 4 == 0
 
 
 def test_pp_refuses_layers_that_do_not_divide():

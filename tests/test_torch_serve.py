@@ -379,8 +379,9 @@ class TestDeviceAndUnportedOptions:
             texts = mixed_texts(6, seed=2)
             assert [call(build_prompt(t, [])) for t in texts] == \
                 jax_oracle(texts)
+            # the auto grid: the searched cpu:n8 factorization, as in JAX
             assert call.batcher.stats()["mesh"] == \
-                ("2x4" if scfg.get("meshServing") else None)
+                ("8x1" if scfg.get("meshServing") else None)
             if "modelRegistry" in scfg:
                 assert call.batcher.registry.active() == "v0"
                 assert call.batcher.stats()["activeVersion"] == "v0"

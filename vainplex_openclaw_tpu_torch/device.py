@@ -32,3 +32,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def backend_family(device: DeviceLike = None) -> str:
+    """The device-family axis of the block and plan tables: ``"cuda"`` for
+    a CUDA device, else the device's type; with no device, ``"cuda"`` when
+    a card is visible and ``"cpu"`` otherwise. Tiles and plans searched on
+    one family never drive another."""
+    if device is None:
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device).type

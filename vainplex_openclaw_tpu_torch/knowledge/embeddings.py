@@ -13,7 +13,9 @@ backends:
 forward runs through the plan of ``planFamily`` (``embeddings_forward``:
 weights replicated, batch over dp; ``embeddings_forward_moe``: expert
 matrices over ep as well) and search scores the arena with its rows split
-over dp (``parallel.plan.arena_scores``).
+over dp (``parallel.plan.arena_scores``). The plan resolves through the
+searched plan table as every mesh family's does, so its ``bucket_min``
+floors the query and arena buckets.
 """
 
 from __future__ import annotations

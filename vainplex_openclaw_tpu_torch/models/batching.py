@@ -133,8 +133,10 @@ class ContinuousBatcher:
                  registry=None):
         self.device = resolve_device(device)
         # Mesh serving: the plan resolves here, so an unknown family fails
-        # at construction, not on the first request. ``searched_plans`` is
-        # the JAX knob; no searched row exists for a CUDA grid.
+        # at construction, not on the first request, and again once per
+        # batch (override > searched table > hand-written), so bucket,
+        # placement and runner agree. ``searched_plans=False``
+        # (serve.searchedPlans) pins the hand-written rules.
         self.mesh = mesh
         self.plan_family = plan_family
         self.searched_plans = bool(searched_plans)

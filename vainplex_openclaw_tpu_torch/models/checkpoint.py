@@ -162,7 +162,9 @@ def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
     Resharding on load: with ``mesh`` (a ``parallel.mesh.Mesh``) and
     ``plan`` (a ``ShardingPlan`` or a family name) the restored tree is
     placed per the plan's rules and a ``parallel.plan.Placement`` comes
-    back; a pipeline plan's tree is stacked into stages on the host first
+    back (a family name goes through ``serving_plan`` without the mesh, as
+    in JAX: an active ``plan_override``, else the hand-written plan); a
+    pipeline plan's tree is stacked into stages on the host first
     (``prepare_params``). The rule-table check is armed, and a mesh without
     a plan raises. ``Placement.gather()`` gives back the meshless restore
     (stacked, for a pipeline plan) bit for bit."""
@@ -182,6 +184,10 @@ def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None,
                            for k in template})
     if mesh is None:
         return tree
-    from ..parallel.plan import place_params
+    from ..parallel.plan import place_params, serving_plan
 
+    if isinstance(plan, str):
+        # as JAX's restore: resolved without the mesh, so an active
+        # plan_override or the hand-written plan places the tree
+        plan = serving_plan(plan)
     return place_params(tree, mesh, plan)

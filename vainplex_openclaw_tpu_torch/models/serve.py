@@ -9,12 +9,16 @@ or the one-shot path behind ``continuousBatching: false``, kept as the
 equivalence oracle.
 
 ``meshServing: true`` serves through the plan of ``planFamily`` over a
-``meshAxes`` grid of ``meshShape`` (``null``: every device of the type, so
-``(1, 1)`` over ``("dp", "tp")`` on one card): the default Megatron
+``meshAxes`` grid of ``meshShape``: the default Megatron
 ``encoder_validator`` over (dp, tp), ``encoder_validator_pp`` over
 ``["pp"]``, ``encoder_validator_moe`` over ``["dp", "ep"]`` and
 ``encoder_validator_long`` over ``["dp", "sp"]`` (rows at or above
-``longContext.thresholdTokens`` real tokens routed to ring attention). The
+``longContext.thresholdTokens`` real tokens routed to ring attention).
+``meshShape: null`` takes every device of the type, cut as the searched
+plan table's factorization row says, else by ``_factor`` (so ``(1, 1)``
+over ``("dp", "tp")`` on one card). With ``searchedPlans`` (default true)
+the plan resolves through the searched table (``parallel/plan.py``);
+``false`` serves the hand-written rules. The
 grid's devices follow ``device``: visible cards for CUDA, repeated ``cpu``
 for the CPU. Without ``meshServing`` the plan family is not read and every
 checkpoint serves single-device, as in the JAX package; an unknown family
@@ -38,6 +42,7 @@ import torch
 from ..config.loader import deep_merge
 from ..device import DeviceLike, resolve_device
 from ..parallel.mesh import _factor, available_devices, cached_mesh
+from ..parallel.plan import preferred_mesh_shape, searched_plans_enabled
 from ..resilience.admission import AdmissionController
 from .batching import ContinuousBatcher, render_verdict
 from .encoder import forward
@@ -107,15 +112,24 @@ def _mesh_key(serve_cfg: dict):
 def _resolve_mesh(serve_cfg: dict, device: torch.device):
     """The Mesh for the serving config on ``device``'s type, or None when
     mesh serving is off. ``meshShape: null`` takes every device of the
-    type: one axis whole, two split by ``_factor``."""
+    type: one axis whole; more axes take the searched factorization for
+    that count (``plan.preferred_mesh_shape``, the ``nN`` row of the
+    default family, whatever ``planFamily`` is, as in JAX) when searched
+    plans are on and it has as many axes, else ``_factor``."""
     if not serve_cfg.get("meshServing"):
         return None
     axes = tuple(serve_cfg.get("meshAxes") or ("dp", "tp"))
     shape = serve_cfg.get("meshShape")
     if shape is None:
         n = len(available_devices(device))
-        shape = (n,) if len(axes) == 1 else \
-            _factor(n) + (1,) * (len(axes) - 2)
+        if len(axes) == 1:
+            shape = (n,)
+        else:
+            pref = preferred_mesh_shape(n, device=device) \
+                if serve_cfg.get("searchedPlans", True) \
+                and searched_plans_enabled() else None
+            shape = pref if pref is not None and len(pref) == len(axes) \
+                else _factor(n) + (1,) * (len(axes) - 2)
     return cached_mesh(tuple(int(s) for s in shape), axes, device.type)
 
 

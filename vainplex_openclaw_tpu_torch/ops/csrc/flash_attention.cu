@@ -38,13 +38,15 @@
 //   ldmatrix, k fragments with ldmatrix and v fragments with ldmatrix.trans.
 //   The fp32 score fragment is rounded to bf16 in registers and is the A
 //   fragment of the PV product: scores never touch shared memory. At
-//   Dh=16 a 64-key tile's q . k^T is one k-step, so mma.sync is enough to
+//   Dh=16 a key tile's q . k^T is one k-step, so mma.sync is enough to
 //   keep the products under the exponential floor; wgmma is not needed.
 // - Bytes: K, V and the tile's bias row move by cp.async (16-byte copies,
 //   zero-filled past Lk) into a ring of 3 shared-memory stages (2 at
 //   Dh=128), so the next tiles load while this one computes; rows are
 //   padded by 16 bytes so that ldmatrix has no bank conflicts. Each input
-//   byte is read once per 64-row query tile and each output written once.
+//   byte is read once per query tile and each output written once.
+//   The tiles (64 query rows, 64 keys) are -D defines; the block table
+//   (ops/flash_block_table.json) may name others per length bucket.
 // - Exponentials: one fused multiply-add and one ex2.approx per score,
 //   p = 2^(s * log2 e - m * log2 e), and one ex2 per row and tile for the
 //   correction. The row max is taken over s in natural units across the

@@ -36,13 +36,27 @@ __device__ __forceinline__ int causal_kv_end(const float* __restrict__ bp, int L
   return Lk;
 }
 
+// The tiles are compile-time constants, set by -D flags (ops/_build.py
+// tile_defines): FLASH_WARPS warps of 16 query rows each and FLASH_BN keys
+// per tile. Without them, 4 warps (64 rows) and 64 keys. Every tile
+// computes the same function; the kernel search (ops/kernel_search.py)
+// times each candidate and the block table names the one a length runs.
+#ifndef FLASH_WARPS
+#define FLASH_WARPS 4
+#endif
+#ifndef FLASH_BN
+#define FLASH_BN 64
+#endif
+
 namespace mma {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = FLASH_WARPS;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBM = 16 * kWarps;  // query rows per block, 16 per warp
-constexpr int kBN = 64;           // keys per tile
+constexpr int kBN = FLASH_BN;     // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kWarps >= 1 && kWarps <= 8, "FLASH_WARPS must be 1..8 (at most 256 threads)");
+static_assert(kBN >= 16 && kBN % 16 == 0, "FLASH_BN must be a positive multiple of 16");
 
 template <int DH>
 struct Tiles {
@@ -55,6 +69,7 @@ struct Tiles {
   static constexpr int kQBytes = kBM * kPitch * 2;
   static constexpr int kStageBytes = 2 * kTileElems * 2 + kBN * 4;  // K, V, bias
   static constexpr int kSmemBytes = kQBytes + kStages * kStageBytes;
+  static_assert(kSmemBytes <= 227 * 1024, "tiles exceed the 227 KB of shared memory a block may opt in to");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -130,7 +145,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// One block per (batch*head, 64-row query tile), 4 warps of 16 rows each.
+// One block per (batch*head, kBM-row query tile), kWarps warps of 16 rows each.
 // In the mma fragments a lane holds rows g and g + 8 of its warp's 16
 // (g = lane / 4) and columns 2t, 2t + 1 of every 8-wide tile (t = lane % 4).
 template <int DH, bool CAUSAL, bool STATS>
@@ -184,7 +199,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async_16(smem_u32(ks + r * kPitch + c), kp + src, live);
       cp_async_16(smem_u32(vs + r * kPitch + c), vp + src, live);
     }
-    if (tid < kBN) cp_async_4(smem_u32(bs + tid), bp + min(kv0 + tid, Lk - 1), kv0 + tid < Lk);
+    for (int i = tid; i < kBN; i += kThreads)
+      cp_async_4(smem_u32(bs + i), bp + min(kv0 + i, Lk - 1), kv0 + i < Lk);
   };
 
   // Prologue: q and tile 0 in the first group, then tiles 1 .. kStages-2.

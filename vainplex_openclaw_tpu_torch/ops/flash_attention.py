@@ -32,9 +32,21 @@ library cannot be built or loaded, or the launch fails, it raises. There is
 no fallback from the kernel to the plain version. The library picks its
 kernel by dtype alone: bf16 runs on the tensor cores
 (``csrc/flash_attention_mma.cuh``), fp32 on a scalar walk of the CUDA cores
-(a tensor-core fp32 path would be TF32). The TPU block table
-(``default_block``) has no counterpart: the kernel's tiles are its own
-compile-time constants, and it masks its own ragged edge instead of padding.
+(a tensor-core fp32 path would be TF32). The kernel masks its own ragged
+edge instead of padding.
+
+The block table. The bf16 kernel's tiles (query rows by key columns) are
+compile-time constants, so each tile is a library of its own
+(``_build.tile_defines``). As JAX's wrapper takes ``block_q`` and
+``block_k`` from ``default_block``, a launch takes its tiles from the
+checked-in table ``flash_block_table.json`` (rows
+``cuda:<dtype>:<pow2 bucket of L>``, written by ``kernel_search``), read
+once and cached, or from ``block_q``/``block_k`` given to
+:func:`flash_attention`. A bucket without a row runs the compiled default
+64×64, the library built without defines. The JAX table's TPU rows (and
+its 512/1024 heuristic) mean nothing for this kernel and are not read. A
+row whose tiles do not build or launch raises; it never falls back to the
+plain version. On the CPU the plain version runs and no table is read.
 Under ``causal`` it skips key tiles wholly after a query tile unless a row
 of that tile has no valid key, so such a row averages V over every key, as
 the plain version does.
@@ -58,11 +70,18 @@ nothing is saved for a backward.
 
 from __future__ import annotations
 
+import functools
+import json
 import math
+import os
 import threading
 from typing import Optional
 
 import torch
+
+from ..device import backend_family
+from ._build import DEFAULT_TILES
+from .similarity import pow2_bucket
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -74,6 +93,78 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 stats_launches = 0
 _launch_lock = threading.Lock()
+
+# ── the block table (JAX ``ops/flash_attention.py:43-128``) ────────────
+
+TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "flash_block_table.json")
+TABLE_ENV = "OPENCLAW_FLASH_BLOCK_TABLE"
+
+
+@functools.lru_cache(maxsize=8)
+def load_block_table(path: "str | None" = None) -> dict:
+    """The parsed block table ({} when missing or invalid: the compiled
+    default then runs every bucket). Cached per path, so no launch reads
+    the disk."""
+    p = path or os.environ.get(TABLE_ENV) or TABLE_PATH
+    try:
+        with open(p, encoding="utf-8") as f:
+            table = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    entries = table.get("entries") if isinstance(table, dict) else None
+    return table if isinstance(entries, dict) else {}
+
+
+def clear_table_cache() -> None:
+    """Drop the cached table and tile lookups (after a rewrite, or a
+    change of ``TABLE_ENV``)."""
+    load_block_table.cache_clear()
+    launch_tiles.cache_clear()
+
+
+def table_key(L: int, dtype: str = "bfloat16",
+              family: "str | None" = None) -> str:
+    """The one key format: ``family:dtype:pow2 bucket of L``. The search
+    writes and the launch reads through it."""
+    return f"{family or backend_family()}:{dtype}:{pow2_bucket(max(L, 1))}"
+
+
+def table_entry(L: int, dtype: str = "bfloat16",
+                family: "str | None" = None,
+                path: "str | None" = None) -> "dict | None":
+    """The table's row for (family, dtype, pow2 bucket of L), or None when
+    there is none or its blocks are not positive multiples of 8 (JAX's
+    test; a row that passes it but that the kernel cannot take raises at
+    the launch)."""
+    entries = load_block_table(path).get("entries", {})
+    ent = entries.get(table_key(L, dtype, family))
+    if not isinstance(ent, dict):
+        return None
+    bq, bk = ent.get("block_q"), ent.get("block_k")
+    if not (isinstance(bq, int) and isinstance(bk, int)
+            and bq >= 8 and bk >= 8 and bq % 8 == 0 and bk % 8 == 0):
+        return None
+    return ent
+
+
+def default_block(L: int, dtype: str = "bfloat16", side: str = "q",
+                  family: "str | None" = None) -> int:
+    """The tile of one attention side at length L: the table's row, else
+    the kernel's compiled default (64 either side)."""
+    ent = table_entry(L, dtype, family)
+    if ent is not None:
+        return ent["block_q"] if side == "q" else ent["block_k"]
+    return DEFAULT_TILES[0] if side == "q" else DEFAULT_TILES[1]
+
+
+@functools.lru_cache(maxsize=256)
+def launch_tiles(Lq: int, Lk: int, dtype: str) -> tuple:
+    """(block_q, block_k) a CUDA launch at (Lq, Lk, dtype) runs:
+    ``default_block`` of the ``cuda`` family, as JAX's wrapper takes
+    ``block_q`` from Lq and ``block_k`` from Lk. Cached per shape."""
+    return (default_block(Lq, dtype, "q", "cuda"),
+            default_block(Lk, dtype, "k", "cuda"))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -168,15 +259,19 @@ def flash_attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
                   causal, True)
 
 
-def _launch(q, k, v, bias, causal: bool, return_stats: bool):
-    """K1 (or K2 with ``return_stats``) on CUDA tensors; adds one to its
-    count once the launch is accepted, or raises."""
+def _launch(q, k, v, bias, causal: bool, return_stats: bool,
+            tiles: Optional[tuple] = None):
+    """K1 (or K2 with ``return_stats``) on CUDA tensors at ``tiles`` (None:
+    the block table's); adds one to its count once the launch is
+    accepted, or raises."""
     global launches, stats_launches
     from ._build import load_library
 
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    lib = load_library("flash_attention")
+    if tiles is None:
+        tiles = launch_tiles(Lq, Lk, str(q.dtype).replace("torch.", ""))
+    lib = load_library("flash_attention", tiles=tiles)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if return_stats:
@@ -206,10 +301,11 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool):
     return (acc, m, l) if return_stats else out
 
 
-def _forward(q, k, v, bias, causal: bool, return_stats: bool):
+def _forward(q, k, v, bias, causal: bool, return_stats: bool,
+             tiles: Optional[tuple] = None):
     """The plain version on CPU tensors, the kernel on CUDA tensors."""
     if q.device.type == "cuda":
-        return _launch(q, k, v, bias, causal, return_stats)
+        return _launch(q, k, v, bias, causal, return_stats, tiles)
     return _plain(q, k, v, bias, causal, return_stats)
 
 
@@ -218,10 +314,10 @@ class _Flash(torch.autograd.Function):
     (JAX ``_flash_norm_bwd`` / ``_flash_stats_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, return_stats):
+    def forward(ctx, q, k, v, bias, causal, return_stats, tiles=None):
         ctx.causal, ctx.return_stats = causal, return_stats
         ctx.save_for_backward(q, k, v, bias)
-        return _forward(q, k, v, bias, causal, return_stats)
+        return _forward(q, k, v, bias, causal, return_stats, tiles)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -233,19 +329,28 @@ class _Flash(torch.autograd.Function):
             outs = _plain(*qkv, bias, ctx.causal, ctx.return_stats)
             dqkv = torch.autograd.grad(
                 outs, qkv, grads if ctx.return_stats else grads[0])
-        return (*dqkv, None, None, None)
+        return (*dqkv, None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None, *,
-                    causal: bool = False, return_stats: bool = False):
+                    causal: bool = False, return_stats: bool = False,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
     """q ``[B, H, Lq, Dh]``, k and v ``[B, H, Lk, Dh]``, kv_mask ``[B, Lk]``
     bool or None → ``[B, H, Lq, Dh]`` in q's dtype, or with
     ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. Differentiable in q, k and v on both."""
+    raise, at ``block_q`` × ``block_k`` where given and each other side
+    from the block table. Differentiable in q, k and v on both."""
     _check(q, k, v, kv_mask, causal)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    tiles = None
+    if block_q is not None or block_k is not None:
+        dt = str(q.dtype).replace("torch.", "")
+        table = launch_tiles(q.shape[2], k.shape[2], dt) \
+            if q.device.type == "cuda" else DEFAULT_TILES
+        tiles = (block_q or table[0], block_k or table[1])
     bias = _bias(kv_mask, q.shape[0], k.shape[2], q.device)
-    return _Flash.apply(q, k, v, bias, causal, return_stats)
+    return _Flash.apply(q, k, v, bias, causal, return_stats, tiles)

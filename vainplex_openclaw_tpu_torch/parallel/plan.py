@@ -16,21 +16,41 @@ holds as many distinct shards as a grid of distinct devices would. The
 runners write out what GSPMD derives from the rules:
 ``parallel/sharded_forward.py`` (``"forward"``: dp rows, Megatron tensor
 parallel, expert parallel), ``models/pipeline_serve.py`` (``"pipeline"``)
-and ``models/long_context.py`` (``"long"``). The JAX package's searched
-plan table has no ``cuda:`` rows, so resolution returns the hand-written
-plan, as the JAX ``serving_plan`` does on a table miss.
+and ``models/long_context.py`` (``"long"``).
+
+Searched plans. The hand-written tables are the fallback and the
+equivalence oracle; the preferred plan per (device family, grid shape,
+family) comes from the checked-in ``parallel/plan_table.json``, written by
+the placement search (``parallel/plan_search.py``). Its ``cpu:`` rows are
+the JAX package's, copied verbatim, so that on the CPU both packages
+resolve the same plan and the same auto grid shape; its ``cuda:`` rows
+come from the H100. :func:`serving_plan` resolves override > searched >
+hand-written: a row that exists, parses and fits the mesh wins; anything
+malformed or stale falls back with a ``RuntimeWarning``.
+``OPENCLAW_PLAN_TABLE`` names another table and ``OPENCLAW_SEARCHED_PLANS=0``
+(or ``serve.searchedPlans: false`` per config) serves the hand-written
+rules. A plan's ``gather`` is resolved and kept as JAX keeps it; the
+port's runners bring the outputs to the mesh's first device under either
+mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
 import re
 import threading
+import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
+from ..device import backend_family
 from ..ops.similarity import pow2_bucket
 from .mesh import Mesh
 from .rules import validate_rule_table
@@ -161,19 +181,348 @@ PLAN_TABLE: dict = {
 }
 
 
-def resolve_plan(family, mesh: "Mesh | None" = None,
+# ── the searched plan table (JAX ``parallel/plan.py:255-622``) ──────────
+
+PLAN_TABLE_SCHEMA = "plan-table-v1"
+PLAN_TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "plan_table.json")
+PLAN_TABLE_ENV = "OPENCLAW_PLAN_TABLE"
+SEARCHED_PLANS_ENV = "OPENCLAW_SEARCHED_PLANS"
+
+GATHER_MODES = ("replicated", "sharded")
+
+# The collectives a table row's ``collectives`` may name (the placement
+# search's sketch grammar).
+COLLECTIVE_KINDS = ("psum", "all_gather", "ppermute", "all_to_all",
+                    "reduce_scatter")
+
+
+def searched_plans_enabled() -> bool:
+    """The process-wide switch: ``OPENCLAW_SEARCHED_PLANS=0`` serves every
+    family on the hand-written rules; a config passes ``searched=False``
+    instead."""
+    return os.environ.get(SEARCHED_PLANS_ENV, "1") != "0"
+
+
+@lru_cache(maxsize=8)
+def load_plan_table(path: "str | None" = None) -> dict:
+    """The parsed searched-plan table ({} when missing or invalid: the
+    hand-written rules then own every key). Cached per path, so no batch
+    reads the disk. A table that exists but cannot be used warns with a
+    ``RuntimeWarning`` and never raises."""
+    p = path or os.environ.get(PLAN_TABLE_ENV) or PLAN_TABLE_PATH
+    if not os.path.exists(p):
+        return {}
+    try:
+        with open(p, "rb") as f:
+            raw = f.read()
+        table = json.loads(raw.decode("utf-8"))
+    except (OSError, ValueError) as exc:
+        warnings.warn(
+            f"searched plan table {p} unreadable ({exc}) — serving on "
+            f"hand-written rules", RuntimeWarning, stacklevel=2)
+        return {}
+    entries = table.get("entries") if isinstance(table, dict) else None
+    if not isinstance(table, dict) \
+            or table.get("schema") != PLAN_TABLE_SCHEMA \
+            or not isinstance(entries, dict):
+        warnings.warn(
+            f"searched plan table {p} has schema "
+            f"{table.get('schema') if isinstance(table, dict) else None!r} "
+            f"(want {PLAN_TABLE_SCHEMA!r}) — serving on hand-written rules",
+            RuntimeWarning, stacklevel=2)
+        return {}
+    table["_path"] = p
+    table["_hash"] = hashlib.sha256(raw).hexdigest()[:12]
+    return table
+
+
+def clear_plan_table_cache() -> None:
+    """Drop the cached table (after a rewrite or a change of the env)."""
+    load_plan_table.cache_clear()
+
+
+def plan_table_hash(path: "str | None" = None) -> "str | None":
+    """sha256[:12] of the loaded table file (None when none loads)."""
+    return load_plan_table(path).get("_hash")
+
+
+def plan_table_key(mesh: Mesh, family: str,
+                   device_family: "str | None" = None) -> str:
+    """The one key format, ``device_family:shape:family`` (shape as
+    ``2x4`` in axis order; the device family of the mesh's first entry by
+    default). The search writes and :func:`serving_plan` reads through
+    it."""
+    shape = "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
+    return (f"{device_family or backend_family(mesh.devices[0])}:{shape}:"
+            f"{family}")
+
+
+def spec_to_json(spec: tuple) -> list:
+    """The JSON of a spec: per dimension an axis name, null, or a list of
+    axis names (``(None, "tp")`` → ``[null, "tp"]``, ``()`` → ``[]``), as
+    JAX serializes a ``PartitionSpec``."""
+    out = []
+    for part in spec:
+        if part is None:
+            out.append(None)
+        elif isinstance(part, (tuple, list)):
+            out.append([str(x) for x in part])
+        else:
+            out.append(str(part))
+    return out
+
+
+def spec_from_json(obj) -> tuple:
+    """Inverse of :func:`spec_to_json`; raises ``ValueError`` on anything
+    that is not a serialized spec."""
+    if not isinstance(obj, list):
+        raise ValueError(f"spec is not a list: {obj!r}")
+    parts = []
+    for part in obj:
+        if part is None:
+            parts.append(None)
+        elif isinstance(part, str):
+            parts.append(part)
+        elif isinstance(part, list) and part \
+                and all(isinstance(x, str) for x in part):
+            parts.append(tuple(part))
+        else:
+            raise ValueError(f"bad spec element {part!r}")
+    return tuple(parts)
+
+
+def _spec_axes(spec: tuple) -> set:
+    axes: set = set()
+    for part in spec:
+        if part is None:
+            continue
+        if isinstance(part, (tuple, list)):
+            axes.update(str(x) for x in part)
+        else:
+            axes.add(str(part))
+    return axes
+
+
+def plan_entry_problems(ent) -> list:
+    """Schema problems of one table row (empty: usable). The loader's
+    fallback and ``plan_search.validate_plan_table`` share it, so both
+    agree on what malformed means."""
+    if not isinstance(ent, dict):
+        return ["entry is not an object"]
+    problems = []
+    if "mesh_shape" in ent:
+        # a factorization row (device-count key): a shape, no rules
+        ms = ent["mesh_shape"]
+        if not (isinstance(ms, list) and ms
+                and all(isinstance(x, int) and x >= 1 for x in ms)):
+            problems.append(f"mesh_shape {ms!r} is not a list of ints ≥ 1")
+        return problems
+    rules = ent.get("rules")
+    if not isinstance(rules, list) or not rules:
+        problems.append("no rules")
+        return problems
+    for i, r in enumerate(rules):
+        if not (isinstance(r, list) and len(r) == 2
+                and isinstance(r[0], str)):
+            problems.append(f"rule {i} is not [pattern, spec]")
+            continue
+        try:
+            re.compile(r[0])
+        except re.error as exc:
+            problems.append(f"rule {i} pattern {r[0]!r} bad regex: {exc}")
+        try:
+            spec_from_json(r[1])
+        except ValueError as exc:
+            problems.append(f"rule {i}: {exc}")
+    if isinstance(rules[-1], list) and len(rules[-1]) == 2 \
+            and rules[-1][0] != "":
+        problems.append('last rule is not the ("", …) catch-all — an '
+                        'unmatched leaf would raise at placement')
+    axes = ent.get("axes")
+    if not (isinstance(axes, list) and axes
+            and all(isinstance(a, str) for a in axes)):
+        problems.append(f"axes {axes!r} is not a list of axis names")
+        axes = []
+    try:
+        data_spec = spec_from_json(ent.get("data_spec", []))
+    except ValueError as exc:
+        problems.append(f"data_spec: {exc}")
+        data_spec = ()
+    named: set = _spec_axes(data_spec)
+    for r in rules:
+        if isinstance(r, list) and len(r) == 2:
+            try:
+                named |= _spec_axes(spec_from_json(r[1]))
+            except ValueError:
+                pass
+    undeclared = sorted(named - set(axes))
+    if undeclared:
+        problems.append(f"specs name axes {undeclared} outside the "
+                        f"entry's axes {axes}")
+    bm = ent.get("bucket_min", 1)
+    if not (isinstance(bm, int) and 1 <= bm <= 1024
+            and (bm & (bm - 1)) == 0):
+        problems.append(f"bucket_min {bm!r} is not a pow2 in [1, 1024]")
+    gather = ent.get("gather", "replicated")
+    if gather not in GATHER_MODES:
+        problems.append(f"gather {gather!r} not in {GATHER_MODES}")
+    runner = ent.get("runner", "forward")
+    if runner not in RUNNERS:
+        problems.append(f"runner {runner!r} not in {RUNNERS}")
+    mb = ent.get("microbatches", 0)
+    if not (isinstance(mb, int) and 0 <= mb <= 1024
+            and (mb == 0 or (mb & (mb - 1)) == 0)):
+        problems.append(f"microbatches {mb!r} is not 0 or a pow2 in "
+                        f"[1, 1024]")
+        mb = 0
+    if runner == "pipeline" and not mb:
+        problems.append("pipeline runner without a microbatches count")
+    colls = ent.get("collectives")
+    if colls is not None:
+        if not isinstance(colls, list) or any(
+                not (isinstance(c, list) and len(c) == 2
+                     and isinstance(c[0], str) and isinstance(c[1], str)
+                     and c[0] in COLLECTIVE_KINDS) for c in colls):
+            problems.append(
+                f"collectives {colls!r} is not a list of [kind, site] "
+                f"rows with kind in {COLLECTIVE_KINDS}")
+    return problems
+
+
+def _plan_from_entry(family: str, key: str, ent: dict) -> ShardingPlan:
+    """A ShardingPlan from a row that passed :func:`plan_entry_problems`."""
+    rules = tuple((pat, spec_from_json(spec)) for pat, spec in ent["rules"])
+    return ShardingPlan(
+        family=family,
+        rules=rules,
+        data_spec=spec_from_json(ent.get("data_spec", [])),
+        axes=tuple(ent["axes"]),
+        description=str(ent.get("source", "searched plan")),
+        bucket_min=int(ent.get("bucket_min", 1)),
+        gather=str(ent.get("gather", "replicated")),
+        source="searched",
+        table_key=key,
+        runner=str(ent.get("runner", "forward")),
+        microbatches=int(ent.get("microbatches", 0)))
+
+
+def searched_plan(family: str, mesh: Mesh,
+                  path: "str | None" = None) -> "ShardingPlan | None":
+    """The searched plan for (device family, grid shape, family), or None
+    when no usable row exists. A malformed or stale row (schema problems,
+    axes the mesh does not declare) warns and gives None: the caller then
+    serves on the hand-written rules."""
+    entries = load_plan_table(path).get("entries") or {}
+    key = plan_table_key(mesh, family)
+    ent = entries.get(key)
+    if ent is None:
+        return None
+    problems = plan_entry_problems(ent)
+    if not problems:
+        plan = _plan_from_entry(family, key, ent)
+        missing = [a for a in plan.axes if a not in mesh.shape]
+        if not missing:
+            return plan
+        problems = [f"plan needs mesh axes {missing} but the mesh "
+                    f"declares {tuple(mesh.shape)}"]
+    warnings.warn(
+        f"searched plan {key} unusable ({'; '.join(problems)}) — falling "
+        f"back to hand-written {family!r} rules", RuntimeWarning,
+        stacklevel=2)
+    return None
+
+
+def preferred_mesh_shape(n_devices: int, family: str = "encoder_validator",
+                         path: "str | None" = None,
+                         device=None) -> "tuple | None":
+    """The searched dp×tp factorization for a device count (key
+    ``device_family:nN:family``, the family of ``device``), or None: the
+    caller's default (``parallel/mesh._factor``). A shape whose product is
+    not N is stale and warns."""
+    entries = load_plan_table(path).get("entries") or {}
+    key = f"{backend_family(device)}:n{int(n_devices)}:{family}"
+    ent = entries.get(key)
+    if ent is None:
+        return None
+    problems = plan_entry_problems(ent)
+    ms = ent.get("mesh_shape") if isinstance(ent, dict) else None
+    if not problems and int(np.prod(ms)) != int(n_devices):
+        problems = [f"mesh_shape {ms} is not a factorization of "
+                    f"{n_devices} devices"]
+    if problems:
+        warnings.warn(
+            f"searched factorization {key} unusable "
+            f"({'; '.join(problems)}) — using the default factorization",
+            RuntimeWarning, stacklevel=2)
+        return None
+    return tuple(ms)
+
+
+# ── resolution: override > searched > hand-written ─────────────────────
+
+_plan_overrides: dict = {}
+
+
+@contextmanager
+def plan_override(family: str, plan: ShardingPlan):
+    """Serve ``family`` on ``plan`` inside the block: the placement
+    search's measurement seam (candidates flow through the unchanged
+    batcher and embeddings backend) and a test seam. The search is serial;
+    overrides are not a concurrency surface."""
+    prev = _plan_overrides.get(family)
+    _plan_overrides[family] = plan
+    try:
+        yield plan
+    finally:
+        if prev is None:
+            _plan_overrides.pop(family, None)
+        else:
+            _plan_overrides[family] = prev
+
+
+def serving_plan(family: str, mesh: "Mesh | None" = None,
                  searched: "bool | None" = None) -> ShardingPlan:
-    """The plan ``family`` serves on: a :class:`ShardingPlan` passes
-    through; a family name returns its hand-written plan. ``mesh`` and
-    ``searched`` are accepted for the JAX signature; no searched table row
-    exists for a CUDA grid, so both resolve to the hand-written plan."""
-    if isinstance(family, ShardingPlan):
-        return family
-    plan = PLAN_TABLE.get(family)
-    if plan is None:
+    """The plan a family serves on: an active :func:`plan_override`; else,
+    given a mesh and unless ``searched`` is False or
+    ``OPENCLAW_SEARCHED_PLANS=0`` (which wins even over ``searched=True``),
+    the searched table's usable row; else the hand-written plan."""
+    override = _plan_overrides.get(family)
+    if override is not None:
+        return override
+    base = PLAN_TABLE.get(family)
+    if base is None:
         raise KeyError(f"no sharding plan for family {family!r} — known: "
                        f"{sorted(PLAN_TABLE)}")
-    return plan
+    use = searched_plans_enabled() and \
+        (True if searched is None else bool(searched))
+    if not use or mesh is None:
+        return base
+    plan = searched_plan(family, mesh)
+    return plan if plan is not None else base
+
+
+def resolve_plan(family, mesh: "Mesh | None" = None,
+                 searched: "bool | None" = None) -> ShardingPlan:
+    """:func:`serving_plan`, passing an already resolved
+    :class:`ShardingPlan` through unchanged: the one resolution seam of
+    every plan-consuming helper below."""
+    if isinstance(family, ShardingPlan):
+        return family
+    return serving_plan(family, mesh, searched)
+
+
+def plan_provenance(family, mesh: Mesh,
+                    searched: "bool | None" = None) -> dict:
+    """Which table key governs (mesh, family), the loaded table's hash,
+    and whether the plan serving is ``searched`` or ``handwritten``."""
+    fam = family.family if isinstance(family, ShardingPlan) else family
+    plan = resolve_plan(family, mesh, searched)
+    return {
+        "plan_table_key": plan_table_key(mesh, fam),
+        "plan_table_hash": plan_table_hash(),
+        "plan_source": plan.source,
+    }
 
 
 def short_path_plan(plan: ShardingPlan) -> ShardingPlan:
