@@ -20,7 +20,7 @@ non-zero before the last line is printed.
    tile the committed block table (``ops/flash_block_table.json``) names,
    so that serving builds nothing; each instantiation's registers,
    static shared memory and spills from ``ptxas`` (every kernel's, for a
-   library of at most 8), at most 32 instantiations, no spills in the bf16
+   library of at most 8), at most 40 instantiations, no spills in the bf16
    kernels at Dh <= 64;
 3. kernels: each kernel against its plain version on the card, in bf16
    (tolerance 3e-2, the JAX suite's own bf16 bound, absolute and relative
@@ -28,8 +28,10 @@ non-zero before the last line is printed.
    another order), over every row (a row with no valid key averages V),
    every row finite; the cases reach the key tile's edges (Lk 63/64/65,
    127/128/129), query counts off the 64-row tile, causal at L=130, masks
-   valid only in the last key tile and masks with holes, L=16384, and the
-   shard shapes the mesh phases launch (16-21); at 2048 keys or more the
+   valid only in the last key tile and masks with holes, L=16384, head
+   dim 8 (a compiled width) and 24 (zero-padded to 32 by the wrapper),
+   and the shard shapes the mesh and graft_entry phases launch (16-21,
+   29); at 2048 keys or more the
    plain version without its first key tile must fail the same check
    (``CONTROL_MIN_LK``); each bf16 case runs the tile the committed block
    table gives its shape, and every row of that table must serve at least
@@ -53,10 +55,13 @@ is driven after it:
 
 7. kernels (K2): K2 against its plain version on the card in bf16 and
    fp32 at the ring's shapes (Dh 16 and 32, causal, Lq != Lk, L=100,
-   L=16384) and the tile-edge and mask cases of phase 3, over rows with a
-   valid key: m as an absolute difference, l
-   and the unnormalized acc relative to the plain l; every value finite,
-   and a row with no valid key has m = -1e30 and l = its key count;
+   L=16384), head dim 8 and 24, the dryrun's ring+flash shard (Dh 8) and
+   the tile-edge and mask cases of phase 3, over rows with a valid key: m
+   as an absolute difference, l and the unnormalized acc relative to the
+   plain l and, in bf16, acc per row relative to the row's largest value;
+   every value finite, and a row with no valid key has m = -1e30 and l =
+   its key count; at 2048 keys or more the plain version without its
+   first key tile must fail the same check;
 8. ring: ``forward_long`` at ``long_context_config(16384)`` on a (1, 4)
    grid laid over one card against the same call at (1, 1): fp32 logits
    within 1e-4, bf16 severity argmax identical;
@@ -230,11 +235,26 @@ The offline search loops end the run:
     resolves the plan ``plan_provenance`` reports and serves the one-shot
     path's verdicts.
 
+The graft entry points close it:
+
+29. graft_entry: ``graft_entry.entry()`` on the card, its forward
+    (``EncoderConfig()`` widths, bf16) against the same forward with the
+    plain attention on the card (argmax equal, logits within 5e-2), K1
+    launched n_layers times, and K1 timed at its shape [2, 8, 128, 32];
+    then ``dryrun_multichip(8)`` and ``(4)`` on grids that repeat the card
+    (distinct cards where the host has them): every leg's own checks, and
+    each leg's K1 and K2 launches equal to the count the leg records
+    beside them by the runners' formulas and its steps, wall ms per leg;
+    last, K1 and K2 at head dim 8 timed beside their bound, plain version
+    and SDPA: the dryrun's ring+flash shard [1, 2, 16, 16, 8] in fp32
+    (K2) and the kernels phases' Dh 8 shapes.
+
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
-K1 (with its launches on every path, the lifecycle and classify phases
-included, and the tiles the block table gives the serve and long
-shapes), K2 and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
+K1 (with its launches on every path, the lifecycle, classify and
+graft_entry phases included, the tiles the block table gives the serve
+and long shapes, and its head-dim-8 shapes), K2 (with its head-dim-8
+shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
 with its L=128 figures beside them; measured numbers and the bound only)
 and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -242,6 +262,7 @@ and, last,
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -304,6 +325,17 @@ STATS_CASES = [
     ("long_16384_masked", 2, 2, LONG_L, LONG_L, 16, False, "prefix"),
     # the long_moe phase's ring block: one sp shard of 8 tokens, 4 heads
     ("long_moe_sp4_shard", 8, 4, 8, 8, 16, False, "prefix"),
+    # head dim 8 (a compiled width) and 24 (zero-padded to 32 by the
+    # wrapper); the last is the graft_entry phase's ring+flash shard, fp32
+    # in the dryrun: one dp row of 2 heads, 16 tokens on each of 4 sp shards
+    ("head_dim_8", 4, 2, 64, 64, 8, False, "prefix"),
+    ("head_dim_8_long", 2, 2, 2048, 2048, 8, False, "prefix"),
+    ("head_dim_24_padded", 2, 4, 100, 100, 24, False, "prefix"),
+    ("dryrun_ring_shard_dh8", 1, 2, 16, 16, 8, False, False),
+    # the dryrun's ring forward (bf16, every key valid): one dp row of 8
+    # heads on one of 4 sp shards (8 devices) or of 2 (4 devices)
+    ("dryrun_ring_shard_sp4", 1, 8, 16, 16, 16, False, False),
+    ("dryrun_ring_shard_sp2", 1, 8, 32, 32, 16, False, False),
 ]
 
 KERNEL_CASES = [
@@ -340,6 +372,24 @@ KERNEL_CASES = [
     ("train_tp4_shard", 64, 1, 64, 64, 16, False, "prefix"),
     ("train_moe_dp_row", 32, 4, 32, 32, 16, False, "prefix"),
     ("graft_tp2_shard", 2, 4, 64, 64, 16, False, "prefix"),
+    # head dim 8 (a compiled width: m16n8k8 in bf16) and 24 (zero-padded to
+    # 32 with the scale of 24)
+    ("head_dim_8", 4, 2, 64, 64, 8, False, "prefix"),
+    ("head_dim_8_long", 2, 2, 2048, 2048, 8, False, "prefix"),
+    ("head_dim_8_causal", 2, 2, 130, 130, 8, True, "prefix"),
+    ("head_dim_24_padded", 2, 4, 100, 100, 24, False, "prefix"),
+    # the graft_entry phase: entry()'s forward (EncoderConfig() widths, two
+    # texts) and the dryrun's shards at 8 devices: a tp=4 column of a dp=2
+    # row (dense), an MoE dp row and an embeddings dp row of one text
+    ("graft_entry", 2, 8, 128, 128, 32, False, "prefix"),
+    ("dryrun_tp4_shard", 2, 2, 64, 64, 16, False, "prefix"),
+    ("dryrun_moe_dp_row", 2, 4, 32, 32, 16, False, "prefix"),
+    ("dryrun_embed_dp_row", 1, 8, 64, 64, 16, False, False),
+    # and the serve legs' pipeline microbatch (one text) and the
+    # single-device forwards they are held against (dense, MoE widths)
+    ("dryrun_pp_microbatch", 1, 4, 32, 32, 16, False, False),
+    ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
+    ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
 ]
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
@@ -363,16 +413,19 @@ _TEMPLATES = (
 )
 
 
-def attention_bound(B, H, Lq, Lk, Dh, elem_bytes, stats):
+def attention_bound(B, H, Lq, Lk, Dh, elem_bytes, stats,
+                    ops_per_s=PEAK_BF16_OPS_PER_S):
     """The least time the card could take for one attention launch.
 
     Bytes: q, k, v read once in their dtype (``elem_bytes``), the fp32 bias
     row [B, Lk], and the output written once: in q's dtype (K1) or, with
     ``stats`` (K2), the fp32 acc and the fp32 m and l. Operations: 4 per
     score and head dimension (q . k and p . v). ``bound_ms`` is the larger
-    of bytes over HBM_BYTES_PER_S and operations over PEAK_BF16_OPS_PER_S,
-    the guide's bound; ``exp_floor_ms`` is the one exponential per score
-    over SFU_EXP_PER_S, a floor the guide's bound does not see."""
+    of bytes over HBM_BYTES_PER_S and operations over ``ops_per_s`` (the
+    bf16 tensor-core peak; fp32 callers pass the CUDA cores'
+    ``CUDA_CORE_OPS_PER_S``, where the fp32 walk runs), the guide's bound;
+    ``exp_floor_ms`` is the one exponential per score over SFU_EXP_PER_S,
+    a floor the guide's bound does not see."""
     out_bytes = (B * H * Lq * Dh * 4 + 2 * B * H * Lq * 4 if stats
                  else B * H * Lq * Dh * elem_bytes)
     n_bytes = ((B * H * Lq * Dh + 2 * B * H * Lk * Dh) * elem_bytes
@@ -380,7 +433,7 @@ def attention_bound(B, H, Lq, Lk, Dh, elem_bytes, stats):
     n_ops = 4 * B * H * Lq * Lk * Dh
     n_exp = B * H * Lq * Lk
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return {"bytes": n_bytes, "operations": n_ops, "exponentials": n_exp,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -549,8 +602,9 @@ def phase_build() -> None:
         if r["cached"]:
             continue
         check(bool(report), f"{name}: no ptxas report in the build log")
-        check(len(report) <= 32, f"{name}: {len(report)} kernel "
-                                 "instantiations > 32")
+        # K1/K2: 5 head dims x 2 dtypes x causal or not x stats or not
+        check(len(report) <= 40, f"{name}: {len(report)} kernel "
+                                 "instantiations > 40")
         check_spills(name, report)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "table_tiles": [list(t) for t in table_tiles()],
@@ -882,6 +936,32 @@ def served_library(L: int):
                                tiles=fa.launch_tiles(L, L, "bfloat16"))
 
 
+def raw_launch(lib, q, k, v, bias, out, what: str):
+    """A call that launches K1 from ``lib`` into ``out`` (a tensor), or K2
+    into ``out`` = ``(acc, m, l)``, on q, k, v and the bias at q's head dim
+    (a compiled one) and its softmax scale: the C entry point alone, with
+    no count and no allocation, for timing. A CUDA error raises."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    stats = isinstance(out, tuple)
+    entry = lib.flash_attention_stats_fwd if stats else lib.flash_attention_fwd
+    outs = out if stats else (out,)
+
+    def launch():
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    *(t.data_ptr() for t in outs), B, H, Lq, Lk, Dh,
+                    fa._DTYPE_CODES[q.dtype], 0, Dh ** -0.5,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SmokeFailure(f"{what} launch failed: CUDA error {err}")
+
+    return launch
+
+
 def device_kernel_ms(fn, n: int = 50) -> dict:
     """Device time of the CUDA kernels that ``n`` calls of ``fn`` launch,
     from the profiler: per call, and per kernel record it kept. ``fn``
@@ -918,16 +998,8 @@ def phase_timing() -> dict:
     q, k, v, mask = make_qkv(np.random.default_rng(4), B, H, L, L, Dh,
                              torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
-    out = torch.empty_like(q)
-    lib = served_library(L)
-
-    def kernel():
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, L, L, Dh, fa._DTYPE_CODES[q.dtype], 0,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SmokeFailure(f"timing launch failed: CUDA error {err}")
+    kernel = raw_launch(served_library(L), q, k, v, bias, torch.empty_like(q),
+                        "timing")
 
     def wrapper():
         fa.flash_attention(q, k, v, mask)
@@ -980,17 +1052,24 @@ def phase_timing() -> dict:
     return record
 
 
-def stats_errors(got, want, rows):
-    """(max |Δm|, max |Δl|/l, max |Δacc|/l) over ``rows`` [B, 1, Lq, 1]:
-    m absolute; l and the unnormalized acc relative to the plain l, since
-    both grow with the key count."""
+def stats_errors(got, want, rows, dt_name: str = "float32"):
+    """(max |Δm|, max |Δl|/l, max |Δacc|/l, acc per row) over ``rows``
+    [B, 1, Lq, 1]: m absolute; l and the unnormalized acc relative to the
+    plain l, since both grow with the key count; in bf16 also acc per row
+    relative to the row's largest |acc| (``kernel_search.held_error``: a
+    kernel that dropped a key tile of a long row moves l by a few percent,
+    its acc by ~sqrt(64 / keys)), else 0."""
     (acc, m, l), (acc_w, m_w, l_w) = got, want
     r = rows[..., 0].expand_as(m)
     scale = l_w.clamp_min(1e-30)
     em = float((m - m_w).abs()[r].max())
     el = float(((l - l_w).abs() / scale)[r].max())
     ea = float(((acc - acc_w).abs().amax(dim=-1) / scale)[r].max())
-    return em, el, ea
+    ar = 0.0
+    if dt_name == "bfloat16":
+        ar = float(((acc - acc_w).abs().amax(dim=-1)
+                    / acc_w.abs().amax(dim=-1).clamp_min(1e-30))[r].max())
+    return em, el, ea, ar
 
 
 def phase_kernels_stats() -> float:
@@ -1021,11 +1100,21 @@ def phase_kernels_stats() -> float:
             check(all(bool(torch.isfinite(t).all()) for t in got),
                   f"K2 {name}/{dt_name}: non-finite output")
             rows = valid_rows(mask, B, Lq, Lk, causal, "cuda")
-            em, el, ea = stats_errors(got, want, rows)
-            err = max(em, el, ea)
+            em, el, ea, ar = stats_errors(got, want, rows, dt_name)
+            err = max(em, el, ea, ar)
             check(err <= TOL[dt_name],
                   f"K2 {name}/{dt_name}: |Δm| {em}, |Δl|/l {el}, "
-                  f"|Δacc|/l {ea} > {TOL[dt_name]}")
+                  f"|Δacc|/l {ea}, acc per row {ar} > {TOL[dt_name]}")
+            control = None
+            if Lk >= CONTROL_MIN_LK and not causal:
+                dropped = flash_attention_stats_reference(
+                    q, k[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(),
+                    None if mask is None else mask[:, 64:].contiguous())
+                control = max(stats_errors(dropped, want, rows, dt_name))
+                check(control > TOL[dt_name],
+                      f"K2 {name}/{dt_name}: the check passes the plain "
+                      f"version without its first key tile ({control})")
+                del dropped
             masked_rows = None
             if mask is not None and not causal:
                 empty = ~mask.any(dim=1)
@@ -1040,7 +1129,9 @@ def phase_kernels_stats() -> float:
             cases.append({"case": name, "dtype": dt_name,
                           "shape": [B, H, Lq, Lk, Dh], "causal": causal,
                           "mask": mask_kind, "m_abs_err": em, "l_rel_err": el,
-                          "acc_rel_err": ea, "tol": TOL[dt_name],
+                          "acc_rel_err": ea, "acc_row_rel_err": ar,
+                          "control_without_first_tile": control,
+                          "tol": TOL[dt_name],
                           "rows_without_a_valid_key": masked_rows})
             del q, k, v, mask, got, want, acc, m, l
             torch.cuda.empty_cache()
@@ -1268,25 +1359,10 @@ def phase_timing_stats() -> dict:
     acc = torch.empty((B, H, L, Dh), dtype=torch.float32, device="cuda")
     m = torch.empty((B, H, L), dtype=torch.float32, device="cuda")
     l = torch.empty_like(m)
-    out = torch.empty_like(q)
     lib = served_library(L)
-    code = fa._DTYPE_CODES[q.dtype]
-
-    def kernel():
-        err = lib.flash_attention_stats_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, L, L, Dh, code,
-            0, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SmokeFailure(f"K2 timing launch failed: CUDA error {err}")
-
-    def k1_same_shape():
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, L, L, Dh, code, 0,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SmokeFailure(f"K1 timing launch failed: CUDA error {err}")
+    kernel = raw_launch(lib, q, k, v, bias, (acc, m, l), "K2 timing")
+    k1_same_shape = raw_launch(lib, q, k, v, bias, torch.empty_like(q),
+                               "K1 timing")
 
     def plain():
         # one batch element at a time: [B, H, L, L] fp32 scores at once
@@ -1742,16 +1818,8 @@ def phase_timing_train(smi: str) -> dict:
     q, k, v, mask = make_qkv(np.random.default_rng(41), B, H, L, L, Dh,
                              torch.bfloat16, "prefix", "cuda")
     bias = fa._bias(mask, B, L, q.device)
-    out = torch.empty_like(q)
-    lib = served_library(L)
-
-    def kernel():
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, L, L, Dh, fa._DTYPE_CODES[q.dtype], 0,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SmokeFailure(f"train timing launch failed: CUDA error {err}")
+    kernel = raw_launch(served_library(L), q, k, v, bias, torch.empty_like(q),
+                        "train timing")
 
     def plain():
         fa.flash_attention_reference(q, k, v, mask)
@@ -2301,53 +2369,86 @@ def phase_embed_mesh(smi: str, moe_dirs: dict) -> dict:
     return {"launches": total}
 
 
-def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
-    """K1 at one shape (bf16, prefix mask) beside its plain version, SDPA
-    and the bound, in turns within this call."""
+def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
+                   seed: int) -> dict:
+    """K1 (or K2 with ``stats``) at a compiled head dim in one dtype,
+    prefix-masked (all keys valid at B = 1), beside its plain version,
+    SDPA (the normalized output: K1's function, so K1's ``library_ms``
+    and K2's ``sdpa_normalized_ms``) and the bound, in turns within this
+    call; the kernel's output held against the plain version's."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
+    from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, L, L, Dh,
-                             torch.bfloat16, "prefix", "cuda")
-    bias = fa._bias(mask, B, L, q.device)
-    out = torch.empty_like(q)
-    lib = served_library(L)
+    dtype = getattr(torch, dt_name)
+    q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, Lq, Lk, Dh,
+                             dtype, "prefix" if B > 1 else False, "cuda")
+    bias = fa._bias(mask, B, Lk, q.device)
+    lib = _build.load_library("flash_attention",
+                              tiles=fa.launch_tiles(Lq, Lk, dt_name))
+    if stats:
+        got = (torch.empty((B, H, Lq, Dh), dtype=torch.float32,
+                           device="cuda"),
+               torch.empty((B, H, Lq), dtype=torch.float32, device="cuda"),
+               torch.empty((B, H, Lq), dtype=torch.float32, device="cuda"))
+        plain = functools.partial(fa.flash_attention_stats_reference, q, k,
+                                  v, mask)
+    else:
+        got = torch.empty_like(q)
+        plain = functools.partial(fa.flash_attention_reference, q, k, v,
+                                  mask)
+    kernel = raw_launch(lib, q, k, v, bias, got,
+                        f"{'K2' if stats else 'K1'} timing")
 
-    def kernel():
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, L, L, Dh, fa._DTYPE_CODES[q.dtype], 0,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SmokeFailure(f"K1 timing launch failed: CUDA error {err}")
-
-    sdpa_mask = bias.to(q.dtype)[:, None, None, :]
+    sdpa_mask = bias.to(dtype)[:, None, None, :]
     kernel_ms = [time_ms(kernel)]
-    plain_ms = [time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
-                for _ in range(2)]
+    plain_ms = [time_ms(plain) for _ in range(2)]
     kernel_ms.append(time_ms(kernel))
     library_ms = [time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask)) for _ in range(2)]
     kernel_ms.append(time_ms(kernel))
-    ref = fa.flash_attention_reference(q, k, v, mask)
-    err = k1_errors(out, ref, "bfloat16")[2]
-    check(err <= TOL["bfloat16"], f"K1 at {[B, H, L, Dh]}: {err}")
-    # the wrapper the mesh paths call (bias, dtype dispatch), same inputs
-    wrapper_err = k1_errors(fa.flash_attention(q, k, v, mask), ref,
+    want = plain()
+    if stats:
+        rows = valid_rows(mask, B, Lq, Lk, False, "cuda")
+        err = max(stats_errors(got, want, rows, dt_name))
+    else:
+        err = k1_errors(got, want, dt_name)[2]
+    check(err <= TOL[dt_name], f"{'K2' if stats else 'K1'} at "
+                               f"{[B, H, Lq, Lk, Dh]} {dt_name}: {err}")
+    ops = PEAK_BF16_OPS_PER_S if dt_name == "bfloat16" \
+        else CUDA_CORE_OPS_PER_S
+    sdpa = ({"library_ms": None,
+             "sdpa_normalized_ms": statistics.median(library_ms)} if stats
+            else {"library_ms": statistics.median(library_ms)})
+    return {"shape": [B, H, Lq, Lk, Dh], "dtype": dt_name, "stats": stats,
+            "err": err, "kernel_ms": statistics.median(kernel_ms),
+            "kernel_ms_runs": kernel_ms,
+            "plain_ms": statistics.median(plain_ms), **sdpa,
+            **attention_bound(B, H, Lq, Lk, Dh, q.element_size(), stats,
+                              ops_per_s=ops)}
+
+
+def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
+    """K1 at one shape (bf16, prefix mask) timed by :func:`time_attention`,
+    and the wrapper the mesh paths call (bias, dtype dispatch) held
+    against the plain version on the same inputs."""
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    record = time_attention(B, H, L, L, Dh, "bfloat16", False, seed)
+    q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, L, L, Dh,
+                             torch.bfloat16, "prefix", "cuda")
+    wrapper_err = k1_errors(fa.flash_attention(q, k, v, mask),
+                            fa.flash_attention_reference(q, k, v, mask),
                             "bfloat16")[2]
     check(wrapper_err <= TOL["bfloat16"],
           f"K1 wrapper at {[B, H, L, Dh]}: {wrapper_err}")
-    return {"shape": [B, H, L, L, Dh], "dtype": "bfloat16",
-            "wrapper_row_rel_err": wrapper_err,
-            "kernel_ms": statistics.median(kernel_ms),
-            "kernel_ms_runs": kernel_ms,
-            "plain_ms": statistics.median(plain_ms),
-            "library_ms": statistics.median(library_ms),
-            "row_rel_err": err,
-            **attention_bound(B, H, L, L, Dh, q.element_size(), stats=False)}
+    return {**record, "wrapper_row_rel_err": wrapper_err}
 
 
 def phase_timing_mesh(smi: str) -> dict:
@@ -3968,6 +4069,149 @@ def phase_plan_search(smi: str) -> dict:
     return record
 
 
+# ── the graft entry points (graft_entry) ───────────────────────────────────
+
+GRAFT_DRYRUN_SIZES = (8, 4)
+ENTRY_TOL = 5e-2  # entry()'s bf16 forward: kernel against plain attention
+# (case, dtype, stats, dryrun leg): head-dim-8 cases of KERNEL_CASES (K1)
+# or STATS_CASES (K2, ``stats``) timed beside their bound: the dryrun's
+# ring+flash shard in fp32, the one shape a main path launches at Dh 8
+# (in the leg named), and the kernels phases' Dh 8 cases (no leg)
+DH8_TIMED = (
+    ("dryrun_ring_shard_dh8", "float32", True, "ring_flash"),
+    ("head_dim_8", "bfloat16", False, None),
+    ("head_dim_8_long", "bfloat16", False, None),
+    ("head_dim_8_long", "bfloat16", True, None),
+)
+
+
+def graft_dryrun(n: int) -> dict:
+    """``dryrun_multichip(n)`` on the card's grid: every leg's own checks,
+    and each leg's K1 and K2 launches equal to the formula count it
+    records beside them (``expected``), the counts set to 0 just
+    before."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch import graft_entry
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.launches = fa.stats_launches = 0
+    t = time.perf_counter()
+    try:
+        report = graft_entry.dryrun_multichip(n)  # prints its line
+    except AssertionError as exc:
+        raise SmokeFailure(f"dryrun_multichip({n}): {exc}") from exc
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1, k2 = fa.launches, fa.stats_launches
+    got = {leg: {"k1": r["k1_launches"], "k2": r["k2_launches"]}
+           for leg, r in report["legs"].items()}
+    want = {leg: r["expected"] for leg, r in report["legs"].items()}
+    check(got == want, f"dryrun_multichip({n}): launches per leg {got} != "
+                       f"the formulas {want}")
+    check(k1 == sum(w["k1"] for w in want.values())
+          and k2 == sum(w["k2"] for w in want.values()),
+          f"dryrun_multichip({n}): K1 {k1}, K2 {k2} launched in all")
+    check(k1 > 0 and k2 > 0, f"dryrun_multichip({n}): a kernel never ran")
+    check(report["grid"] in ("repeated", "distinct"),
+          f"dryrun_multichip({n}) ran on a {report['grid']} grid")
+    return {"grid": report["grid"], "line": report["line"], "wall_s": wall,
+            "k1_launches": k1, "k2_launches": k2, "legs": report["legs"]}
+
+
+def phase_graft_entry(smi: str) -> dict:
+    """``graft_entry.entry()`` and ``dryrun_multichip(n)`` on the card."""
+    import unittest.mock
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch import graft_entry
+    from vainplex_openclaw_tpu_torch.models import encoder
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    cfg = encoder.EncoderConfig()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        fa.launches = fa.stats_launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        k1 = fa.launches
+        # the same forward with the plain attention, on the card
+        with unittest.mock.patch.object(encoder, "flash_attention",
+                                        fa.flash_attention_reference):
+            want = fn(*args)
+            torch.cuda.synchronize()
+        plain_launches = fa.launches - k1
+        forward_ms = time_ms(lambda: fn(*args), n=20, reps=5, warmup=3)
+    check(k1 == cfg.n_layers, f"entry(): K1 launched {k1} != n_layers "
+                              f"{cfg.n_layers}")
+    check(plain_launches == 0, f"entry(): the plain forward launched K1 "
+                               f"{plain_launches} times")
+    errs = {}
+    for h in ("severity", "keep", "mood", "embedding"):
+        check(bool(torch.isfinite(out[h]).all()), f"entry(): non-finite {h}")
+        errs[h] = float((out[h].float() - want[h].float()).abs().max())
+        check(errs[h] <= ENTRY_TOL, f"entry(): {h} differs from the plain "
+                                    f"attention's by {errs[h]}")
+        if h != "embedding":
+            check(bool((out[h].argmax(-1) == want[h].argmax(-1)).all()),
+                  f"entry(): {h} argmax differs")
+    B, L = args[1].shape
+    record = {"phase": "graft_entry", "nvidia_smi": smi,
+              "entry": {"k1_launches": k1, "max_abs_err": errs,
+                        "tol": ENTRY_TOL, "forward_ms": forward_ms,
+                        "k1": time_k1(B, cfg.n_heads, L,
+                                      cfg.d_model // cfg.n_heads, seed=81)}}
+    for n in GRAFT_DRYRUN_SIZES:
+        record[f"dryrun_{n}"] = graft_dryrun(n)
+    record["dh8_timing"] = {}
+    for i, (case, dt, stats, leg) in enumerate(DH8_TIMED):
+        shape = {c[0]: c[1:6] for c in (STATS_CASES if stats
+                                         else KERNEL_CASES)}[case]
+        record["dh8_timing"][f"{case}_{'k2' if stats else 'k1'}"] = {
+            **time_attention(*shape, dt, stats, seed=90 + i), "leg": leg}
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return record
+
+
+def dh8_line(graft: dict, stats: bool) -> list:
+    """The kernels line's head-dim-8 shapes of K1 or K2: measured ms beside
+    the bound, the plain version and SDPA (for K2 ``sdpa_normalized_ms``:
+    no library call returns acc, m and l), and the main path that
+    launches the shape with its launches, the same count as that path's
+    ``launches_by_path`` entry; both null where no main path launches
+    it."""
+    by_path = dryrun_launches(graft, "k2" if stats else "k1")
+    line = []
+    for name, t in graft["dh8_timing"].items():
+        if t["stats"] != stats:
+            continue
+        path = t["leg"] and f"dryrun_{t['leg']}"
+        line.append({"name": name, "shape": t["shape"], "dtype": t["dtype"],
+                     "path": path, "launches": by_path.get(path),
+                     "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "exp_floor_ms": t["exp_floor_ms"],
+                     "plain_ms": t["plain_ms"],
+                     "library_ms": t["library_ms"],
+                     **({"sdpa_normalized_ms": t["sdpa_normalized_ms"]}
+                        if stats else {})})
+    return line
+
+
+def dryrun_launches(graft: dict, kernel: str) -> dict:
+    """``{"dryrun_<leg>": n}``: K1's (``"k1"``) or K2's launches in each
+    dryrun leg that launched it, at n = 8 and 4 together."""
+    legs = graft[f"dryrun_{GRAFT_DRYRUN_SIZES[0]}"]["legs"]
+    counts = {leg: sum(graft[f"dryrun_{n}"]["legs"][leg][f"{kernel}_launches"]
+                       for n in GRAFT_DRYRUN_SIZES) for leg in legs}
+    return {f"dryrun_{leg}": c for leg, c in counts.items() if c}
+
+
 def main() -> int:
     info = phase_device()
     try:
@@ -3998,6 +4242,7 @@ def main() -> int:
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
         phase_plan_search(info["nvidia_smi"])
+        graft = phase_graft_entry(info["nvidia_smi"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -4040,7 +4285,17 @@ def main() -> int:
             "embed_mesh": mesh["embed"]["launches"],
             "train_mesh": train_mesh["k1_launches"],
             "lifecycle": lifecycle["k1_launches"],
-            "classify": classified["k1_launches"]},
+            "classify": classified["k1_launches"],
+            "graft_entry": graft["entry"]["k1_launches"],
+            **dryrun_launches(graft, "k1")},
+        "entry_shape": {"shape": graft["entry"]["k1"]["shape"],
+                        "launches": graft["entry"]["k1_launches"],
+                        "ms": graft["entry"]["k1"]["kernel_ms"],
+                        "bound_ms": graft["entry"]["k1"]["bound_ms"],
+                        "bound_by": graft["entry"]["k1"]["bound_by"],
+                        "plain_ms": graft["entry"]["k1"]["plain_ms"],
+                        "library_ms": graft["entry"]["k1"]["library_ms"]},
+        "dh8_shapes": dh8_line(graft, stats=False),
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
@@ -4085,7 +4340,9 @@ def main() -> int:
          "bound_by": timing_stats["bound_by"], "library_ms": None,
          "sdpa_normalized_ms": timing_stats["sdpa_normalized_ms"],
          "launches_by_path": {"serve_long": served_long["launches"],
-                              "long_moe": long_moe["k2_launches"]}},
+                              "long_moe": long_moe["k2_launches"],
+                              **dryrun_launches(graft, "k2")},
+         "dh8_shapes": dh8_line(graft, stats=True)},
         {"name": "levenshtein", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": similarity["k3_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in

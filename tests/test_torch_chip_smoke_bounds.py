@@ -14,8 +14,9 @@ counts dropped and mis-versioned tickets against each stamp's oracle,
 flips every verdict, and the K1 count it expects per mesh batch is the
 runner's formula. The search phases' helpers: the point's parity bound
 and measure, the launch count, the shapes each searched tile is held at,
-the rows one card may write, and the rows every run agreed on.
-chip_smoke's top level
+the rows one card may write, and the rows every run agreed on. Every
+shape the graft dryrun launches K1 or K2 at is a kernels case, and the
+kernels line books the dryrun's launches per leg. chip_smoke's top level
 imports only the standard library, so importing it here runs nothing.
 """
 
@@ -35,7 +36,8 @@ if REPO not in sys.path:
 import chip_smoke  # noqa: E402
 
 from vainplex_openclaw_tpu_torch.ops.flash_attention import (  # noqa: E402
-    SUPPORTED_HEAD_DIMS, flash_attention_reference)
+    COMPILED_HEAD_DIMS, flash_attention_reference,
+    flash_attention_stats_reference, kernel_head_dim)
 
 
 def test_k2_long_shape_hand_counts():
@@ -155,7 +157,9 @@ def test_make_qkv_without_a_mask():
                          ids=lambda c: c[0])
 def test_kernel_cases_are_shapes_the_kernel_takes(case):
     _, B, H, Lq, Lk, Dh, causal, kind = case
-    assert min(B, H, Lq, Lk) >= 1 and Dh in SUPPORTED_HEAD_DIMS
+    # a compiled width, or a Dh <= 128 the wrapper zero-pads to one
+    assert min(B, H, Lq, Lk, Dh) >= 1 and kernel_head_dim(Dh) in \
+        COMPILED_HEAD_DIMS
     assert Lq == Lk or not causal
     assert kind in (False, "prefix", "last_tile", "holes")
 
@@ -198,6 +202,65 @@ def test_k1_check_fails_a_dropped_key_tile_at_16384_keys(dtype):
     other = ((p.to(tdt).double() @ v.double())
              / p.sum(dim=-1, keepdim=True)).to(tdt)
     assert chip_smoke.k1_errors(other, ref, dtype)[2] <= tol / 3
+
+
+def test_head_dim_cases_cover_the_compiled_and_padded_routes():
+    """Both kernels' cases reach Dh 8 (a compiled width) at a short and a
+    controlled long length, and Dh 24 (the padded route); K2's include
+    the dryrun's ring+flash shard."""
+    for cases in (chip_smoke.KERNEL_CASES, chip_smoke.STATS_CASES):
+        dhs = {c[5] for c in cases}
+        assert {8, 24} <= dhs and 24 not in COMPILED_HEAD_DIMS
+        assert any(c[5] == 8 and c[4] >= chip_smoke.CONTROL_MIN_LK
+                   and not c[6] for c in cases)
+    assert ("dryrun_ring_shard_dh8", 1, 2, 16, 16, 8, False, False) in \
+        chip_smoke.STATS_CASES
+
+
+def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch):
+    """Every shape at which ``dryrun_multichip(8)`` and ``(4)`` launch K1
+    or K2 (the legs, the pipeline microbatch and the single-device
+    forwards the serve legs are held against) is a case the kernels or
+    kernels_stats phase holds against the plain version. On the CPU each
+    would-be launch is a call of the wrapper's ``_forward``."""
+    from vainplex_openclaw_tpu_torch import graft_entry
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    seen = set()
+    forward = fa._forward
+
+    def record(q, k, v, bias, causal, return_stats, tiles=None):
+        seen.add((bool(return_stats), (*q.shape[:3], k.shape[2], q.shape[3],
+                                       causal)))
+        return forward(q, k, v, bias, causal, return_stats, tiles)
+
+    monkeypatch.setattr(fa, "_forward", record)
+    for n in chip_smoke.GRAFT_DRYRUN_SIZES:
+        graft_entry.dryrun_multichip(n, "cpu")
+    cases = {False: {c[1:7] for c in chip_smoke.KERNEL_CASES},
+             True: {c[1:7] for c in chip_smoke.STATS_CASES}}
+    missing = sorted(s for s in seen if s[1] not in cases[s[0]])
+    assert not missing
+    assert (True, (1, 8, 16, 16, 16, False)) in seen   # the ring at n = 8
+    assert (False, (4, 8, 64, 64, 16, False)) in seen  # leg 5's reference
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k2_check_fails_a_dropped_key_tile_at_2048_keys(dtype):
+    """K2's check (m, l and acc over l, and in bf16 acc per row) must fail
+    the plain version without its first key tile at the head-dim-8 long
+    case, as the kernels_stats phase's control demands."""
+    tdt = getattr(torch, dtype)
+    q, k, v, mask = chip_smoke.make_qkv(np.random.default_rng(5), 2, 2, 256,
+                                        2048, 8, tdt, "prefix", "cpu")
+    want = flash_attention_stats_reference(q, k, v, mask)
+    rows = chip_smoke.valid_rows(mask, 2, 256, 2048, False, "cpu")
+    assert max(chip_smoke.stats_errors(want, want, rows, dtype)) == 0.0
+    dropped = flash_attention_stats_reference(
+        q, k[:, :, 64:].contiguous(), v[:, :, 64:].contiguous(),
+        mask[:, 64:].contiguous())
+    assert max(chip_smoke.stats_errors(dropped, want, rows, dtype)) > \
+        3 * chip_smoke.TOL[dtype]
 
 
 def test_every_long_k1_case_gets_the_control():
@@ -592,7 +655,7 @@ def test_served_cases_are_the_searched_buckets_shapes():
     assert not {"keys_65", "mfu_shape", "head_dim_128"} & set(names)
     for c in cases:
         assert {pow2_bucket(c[3]), pow2_bucket(c[4])} & {64, 16384}
-        assert c[5] in SUPPORTED_HEAD_DIMS
+        assert kernel_head_dim(c[5]) in COMPILED_HEAD_DIMS
     assert cases[-1] == ("long_serve", *chip_smoke.LONG_SERVE[:3],
                          chip_smoke.LONG_L, 16, False, False)
     assert [c[0] for c in chip_smoke.served_cases((64,))] == \
@@ -686,3 +749,44 @@ def test_table_tiles_are_the_committed_rows_libraries():
     assert set(chip_smoke.table_tiles()) == want
     for t in chip_smoke.table_tiles():
         assert _build.tile_defines(t)
+
+
+def test_kernels_line_books_dryrun_launches_by_leg():
+    """The kernels line counts the dryrun's launches per leg (K2's ring
+    forward at Dh 16 apart from its ring+flash leg at Dh 8), a Dh 8 shape
+    carries its path's count or null where no path launches it, and K2's
+    SDPA time is ``sdpa_normalized_ms`` beside a null ``library_ms``."""
+    def legs(ring_forward, ring_flash, serve):
+        return {"legs": {
+            "ring_forward": {"k1_launches": 0, "k2_launches": ring_forward},
+            "ring_flash": {"k1_launches": 0, "k2_launches": ring_flash},
+            "serve_plan": {"k1_launches": serve, "k2_launches": 0}}}
+
+    timed = {"kernel_ms": 0.01, "bound_ms": 1e-6, "bound_by": "bytes",
+             "exp_floor_ms": 1e-7, "plain_ms": 0.2, "dtype": "float32",
+             "shape": [1, 2, 16, 16, 8]}
+    graft = {"dryrun_8": legs(64, 32, 34), "dryrun_4": legs(16, 8, 18),
+             "dh8_timing": {
+                 "ring_k2": {**timed, "stats": True, "leg": "ring_flash",
+                             "library_ms": None, "sdpa_normalized_ms": 0.03},
+                 "long_k2": {**timed, "stats": True, "leg": None,
+                             "library_ms": None, "sdpa_normalized_ms": 0.04},
+                 "short_k1": {**timed, "stats": False, "leg": None,
+                              "library_ms": 0.05}}}
+    assert chip_smoke.dryrun_launches(graft, "k2") == {
+        "dryrun_ring_forward": 64 + 16, "dryrun_ring_flash": 32 + 8}
+    assert chip_smoke.dryrun_launches(graft, "k1") == {
+        "dryrun_serve_plan": 34 + 18}
+    k2 = {e["name"]: e for e in chip_smoke.dh8_line(graft, stats=True)}
+    assert k2["ring_k2"]["launches"] == 40
+    assert k2["ring_k2"]["path"] == "dryrun_ring_flash"
+    assert k2["long_k2"]["launches"] is None and k2["long_k2"]["path"] is None
+    assert all(e["library_ms"] is None and e["sdpa_normalized_ms"] > 0
+               for e in k2.values())
+    (k1,) = chip_smoke.dh8_line(graft, stats=False)
+    assert k1["launches"] is None and k1["library_ms"] == 0.05
+    assert "sdpa_normalized_ms" not in k1
+    cases = {False: {c[0] for c in chip_smoke.KERNEL_CASES},
+             True: {c[0] for c in chip_smoke.STATS_CASES}}
+    assert all(case in cases[stats]
+               for case, _, stats, _ in chip_smoke.DH8_TIMED)

@@ -141,6 +141,43 @@ def test_random_init_small_config(impl):
                                    err_msg=h)
 
 
+# tests/test_encoder.py:12's config: d_model 32 over 4 heads, head dim 8
+DH8_CFG = JaxConfig(vocab_size=256, seq_len=32, d_model=32, n_heads=4,
+                    n_layers=3, d_ff=64)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_head_dim_8_config_matches_jax(dtype_name):
+    """The port's ``forward`` with its default ``attn_impl="auto"`` (the
+    kernel's wrapper) at head dim 8, on JAX's ``init_params`` weights,
+    against JAX's ``forward`` through its Pallas kernel (interpreter):
+    fp32 within 1e-5; bf16 (the inference cast) argmax equal and logits
+    within 5e-2. The wrapper once refused Dh 8."""
+    dt = getattr(jnp, dtype_name)
+    jc = dataclasses.replace(DH8_CFG, attn_impl="flash", dtype=dt)
+    jparams = init_params(jax.random.PRNGKey(0), jc)
+    tokens = encode_texts(["tool call failed: connection refused",
+                           "we decided to ship v2 tomorrow", ""],
+                          jc.seq_len, jc.vocab_size)
+    cast = dtype_name == "bfloat16"
+    if cast:
+        from vainplex_openclaw_tpu.models import cast_params
+
+        jparams = cast_params(jparams, dt)
+    want = jax_forward(jparams, jnp.asarray(tokens), jc)
+    pc = port_cfg(jc, attn_impl="auto")
+    params = params_from_numpy(to_numpy_tree(jparams), pc, "cpu", cast=cast)
+    got = forward(params, torch.from_numpy(tokens), pc)
+    for h in HEADS:
+        g = got[h].float().numpy()
+        w = np.asarray(want[h], np.float32)
+        assert np.isfinite(g).all(), h
+        if cast and h != "embedding":
+            assert (g.argmax(-1) == w.argmax(-1)).all(), h
+        np.testing.assert_allclose(g, w, atol=1e-5 if not cast else 5e-2,
+                                   rtol=0, err_msg=h)
+
+
 def test_auto_is_flash_on_the_cpu():
     _, params = port_pretrained.load_pretrained(device="cpu")
     cfg = port_pretrained.load_pretrained(device="cpu")[0]

@@ -12,6 +12,9 @@ is held against the same plain version on the card by ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +23,13 @@ import torch
 from vainplex_openclaw_tpu.ops import flash_attention as jax_fa
 from vainplex_openclaw_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention)
+from vainplex_openclaw_tpu.parallel import mesh as jax_mesh
+from vainplex_openclaw_tpu.parallel.ring_attention import (
+    ring_attention as jax_ring)
 from vainplex_openclaw_tpu_torch.ops import _build
 from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+from vainplex_openclaw_tpu_torch.parallel.mesh import make_mesh
+from vainplex_openclaw_tpu_torch.parallel.ring_attention import ring_attention
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -39,6 +47,13 @@ CASES = [
     ("fully_masked_rows", 4, 4, 64, 64, 16, [64, 20, 0, 0], False),
     ("head_dim_16", 2, 4, 64, 64, 16, [64, 30], False),
     ("head_dim_64", 2, 2, 64, 64, 64, [64, 50], False),
+    # Dh 8 is a compiled width; Dh 24 runs zero-padded to 32 on the card
+    ("head_dim_8_masked", 2, 4, 64, 64, 8, [64, 23], False),
+    ("head_dim_8_ragged", 3, 2, 100, 72, 8, [72, 9, 0], False),
+    ("head_dim_8_causal", 2, 2, 48, 48, 8, [48, 20], True),
+    ("head_dim_24_masked", 2, 2, 64, 64, 24, [64, 30], False),
+    ("head_dim_24_ragged", 3, 2, 100, 72, 24, [72, 41, 0], False),
+    ("head_dim_24_causal", 2, 2, 48, 48, 24, None, True),
 ]
 
 
@@ -135,8 +150,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     if bad == "causal_lengths":
         k = v = torch.zeros((2, 2, 12, 16))
         causal = True
-    elif bad == "head_dim":
-        q = k = v = torch.zeros((2, 2, 8, 24))
+    elif bad == "head_dim":  # above the widest compiled width, 128
+        q = k = v = torch.zeros((2, 2, 8, 129))
     elif bad == "dtype":
         q = k = v = torch.zeros((2, 2, 8, 16), dtype=torch.float16)
     elif bad == "mixed_dtype":
@@ -311,3 +326,108 @@ def test_stats_fully_masked_row_counts_real_keys(no_kernel_build):
         *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask),
         interpret=True, return_stats=True)
     assert (np.asarray(l_jax)[1] == 104.0).all()
+
+
+# ── head dims: compiled widths, the padded route, the refusal above 128 ──
+
+
+def test_kernel_head_dim_is_the_next_compiled_width():
+    assert fa.COMPILED_HEAD_DIMS == (8, 16, 32, 64, 128)
+    assert [fa.kernel_head_dim(d) for d in (1, 7, 8, 9, 16, 24, 33, 100,
+                                            128)] == \
+        [8, 8, 8, 16, 16, 32, 64, 128, 128]
+    with pytest.raises(ValueError, match="head dim 129"):
+        fa.kernel_head_dim(129)
+
+
+@pytest.mark.parametrize("Dh", [3, 8, 12, 24, 48, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_route_leaves_every_output_unchanged(Dh, dtype):
+    """What a launch at an uncompiled Dh computes, on the CPU: q, k and v
+    zero-padded to the next compiled width with the real Dh's scale give
+    the unpadded acc (its first Dh columns), m and l, and the padded acc
+    columns are 0."""
+    q, k, v, mask = make_inputs(Dh, 2, 2, 40, 56, Dh, [56, 13])
+    tdt = DTYPES[dtype][0]
+    args = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    bias = fa._bias(torch.from_numpy(mask), 2, 56, torch.device("cpu"))
+    width = fa.kernel_head_dim(Dh)
+    padded = [fa._pad_head_dim(t, width) for t in args]
+    assert all(t.shape[-1] == width and t.is_contiguous() for t in padded)
+    acc, m, l = fa._stats(*args, bias, False)
+    acc_p, m_p, l_p = fa._stats(*padded, bias, False,
+                                scale=1.0 / math.sqrt(Dh))
+    assert torch.equal(m_p, m) and torch.equal(l_p, l)
+    assert torch.equal(acc_p[..., :Dh], acc)
+    assert not acc_p[..., Dh:].any()
+
+
+def test_head_dim_above_128_is_refused_where_jax_computes_it():
+    """The open deviation: the JAX kernel takes any Dh (here 129 through
+    the interpreter); the port's wrapper refuses Dh > 128 on every device,
+    while its plain versions compute it."""
+    q, k, v, mask = make_inputs(129, 1, 1, 8, 8, 129, [8])
+    got = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                              jnp.asarray(mask), interpret=True)
+    assert got.shape == (1, 1, 8, 129)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    for stats in (False, True):
+        with pytest.raises(ValueError, match="head dim 129 > 128"):
+            fa.flash_attention(*args, torch.from_numpy(mask),
+                               return_stats=stats)
+    plain = fa.flash_attention_reference(*args, torch.from_numpy(mask))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(got), atol=1e-5)
+
+
+@pytest.mark.parametrize("return_stats", [False, True])
+def test_flash_gradient_at_head_dim_8_matches_jax_vjp(return_stats,
+                                                      no_kernel_build):
+    """``_Flash``'s backward at Dh 8 (fp32, a masked and a fully masked
+    row) against the JAX custom VJP (``_flash_norm_bwd`` /
+    ``_flash_stats_bwd``) on the same cotangents: 1e-5."""
+    q, k, v, mask = make_inputs(88, 3, 2, 40, 40, 8, [40, 17, 0])
+    rng = np.random.default_rng(89)
+    if return_stats:
+        cots = (rng.standard_normal((3, 2, 40, 8)).astype(np.float32),
+                rng.standard_normal((3, 2, 40)).astype(np.float32),
+                rng.standard_normal((3, 2, 40)).astype(np.float32))
+    else:
+        cots = (rng.standard_normal((3, 2, 40, 8)).astype(np.float32),)
+
+    def jax_loss(q, k, v):
+        out = jax_flash_attention(q, k, v, jnp.asarray(mask),
+                                  interpret=True, return_stats=return_stats)
+        outs = out if return_stats else (out,)
+        return sum((o * jnp.asarray(c)).sum() for o, c in zip(outs, cots))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    args = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*args, torch.from_numpy(mask),
+                             return_stats=return_stats)
+    outs = out if return_stats else (out,)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cots)
+        ).backward()
+    for t, w in zip(args, want):
+        assert t.grad is not None and t.grad.abs().max() > 0
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+def test_ring_flash_at_head_dim_8_matches_jax_ring(no_kernel_build):
+    """``ring_attention(impl="flash")`` at Dh 8 on (2, 4) over (dp, sp),
+    the shape of ``__graft_entry__``'s ring+flash leg (fp32, L = 64),
+    against JAX's ring on the same grid: 1e-5 on rows with a valid key."""
+    shape = (2, 4)
+    q, k, v, mask = make_inputs(17, 4, 2, 64, 64, 8, [64, 40, 33, 0])
+    out = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                         torch.from_numpy(mask),
+                         make_mesh(axes=("dp", "sp"), shape=shape,
+                                   device="cpu"), impl="flash")
+    want = jax_ring(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask),
+                    jax_mesh.make_mesh(8, axes=("dp", "sp"), shape=shape),
+                    impl="flash")
+    valid = mask.any(axis=1)[:, None, None, None]
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy() * valid, np.asarray(want) * valid,
+                               atol=1e-5, rtol=0)

@@ -87,7 +87,8 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.analysis.witness",
                 "vainplex_openclaw_tpu_torch.ops.search_common",
                 "vainplex_openclaw_tpu_torch.ops.kernel_search",
-                "vainplex_openclaw_tpu_torch.parallel.plan_search"):
+                "vainplex_openclaw_tpu_torch.parallel.plan_search",
+                "vainplex_openclaw_tpu_torch.graft_entry"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

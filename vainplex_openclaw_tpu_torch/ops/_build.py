@@ -41,12 +41,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # ctypes signatures of each library's C interface: pointers and the stream
-# as c_void_p (a plain int would cut them to 32 bits), ints as c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# as c_void_p (a plain int would cut them to 32 bits), ints as c_int, the
+# flash kernels' softmax scale as c_float.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_attention": {
-        "flash_attention_fwd": ([_P] * 5 + [_I] * 7 + [_P], _I),
-        "flash_attention_stats_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        "flash_attention_fwd": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
+        "flash_attention_stats_fwd": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         "kernel_error_string": ([_I], ctypes.c_char_p),
     },
     "levenshtein": {

@@ -57,6 +57,15 @@
 // - Causal: key tiles wholly after a query tile are skipped, unless a row
 //   of the tile sees no valid key (causal_kv_end).
 //
+// Head dims. The JAX kernel takes any Dh. The compiled widths here are 8,
+// 16, 32, 64 and 128 in both dtypes and both modes; at Dh=8 the bf16
+// kernel takes q . k^T on mma.sync m16n8k8 and P . V on one n8 tile. The
+// wrapper (ops/flash_attention.py) zero-pads any other Dh <= 128 to the
+// next compiled width: zero columns add nothing to q . k^T, and the output
+// columns that v's zero columns give are sliced away. So the softmax scale
+// is an argument (1/sqrt of the caller's Dh), not the template's width.
+// Dh > 128 is refused.
+//
 // fp32 inputs (the parity paths: no served configuration runs them) take
 // the scalar walk below: one thread per query row, the dot products on the
 // CUDA cores, since a tensor-core fp32 path would be TF32. The dispatch
@@ -193,11 +202,10 @@ __global__ void __launch_bounds__(kBlockM)
 template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int causal,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
   auto kernel = causal ? flash_fwd_fp32<DH, true, STATS> : flash_fwd_fp32<DH, false, STATS>;
   kernel<<<static_cast<unsigned>(blocks), kBlockM, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -212,37 +220,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int dtype,
-                   int causal, cudaStream_t stream) {
+                   int causal, float scale, cudaStream_t stream) {
   switch (dtype) {
     case 0:
       return scalar::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
-                                       stream);
+                                       scale, stream);
     case 1:
       return mma::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
-                                    stream);
+                                    scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// The compiled head dims: 8, 16, 32, 64 and 128. The wrapper zero-pads any
+// other Dh <= 128 to the next of them and passes the real Dh's scale.
 template <bool STATS>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
              void* m_out, void* l_out, int B, int H, int Lq, int Lk, int Dh, int dtype,
-             int causal, void* stream) {
+             int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
   if (causal && Lq != Lk) return cudaErrorInvalidValue;
+  if (!(scale > 0.f) || !std::isfinite(scale)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(m_out);
   float* l = static_cast<float*>(l_out);
   switch (Dh) {
+    case 8:
+      return launch<8, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale, s);
     case 16:
-      return launch<16, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+      return launch<16, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale, s);
     case 32:
-      return launch<32, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+      return launch<32, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale, s);
     case 64:
-      return launch<64, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+      return launch<64, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale, s);
     case 128:
-      return launch<128, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, s);
+      return launch<128, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale,
+                                s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -251,13 +265,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
 }  // namespace
 
 // K1. q, out: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh], all contiguous, in one
-// dtype (0 = fp32, 1 = bf16); bias: [B, Lk] fp32. Launches on `stream` and
-// returns cudaGetLastError() after the launch (0 on success).
+// dtype (0 = fp32, 1 = bf16); bias: [B, Lk] fp32; Dh one of the compiled
+// widths; scale the softmax scale (1/sqrt of the unpadded head dim).
+// Launches on `stream` and returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int B, int H, int Lq,
-                                   int Lk, int Dh, int dtype, int causal, void* stream) {
+                                   int Lk, int Dh, int dtype, int causal, float scale,
+                                   void* stream) {
   return dispatch<false>(q, k, v, bias, out, nullptr, nullptr, B, H, Lq, Lk, Dh, dtype,
-                         causal, stream);
+                         causal, scale, stream);
 }
 
 // K2. As K1, but writes acc: [B, H, Lq, Dh] fp32 (unnormalized) and m, l:
@@ -265,8 +282,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 extern "C" int flash_attention_stats_fwd(const void* q, const void* k, const void* v,
                                          const void* bias, void* acc, void* m, void* l,
                                          int B, int H, int Lq, int Lk, int Dh, int dtype,
-                                         int causal, void* stream) {
-  return dispatch<true>(q, k, v, bias, acc, m, l, B, H, Lq, Lk, Dh, dtype, causal, stream);
+                                         int causal, float scale, void* stream) {
+  return dispatch<true>(q, k, v, bias, acc, m, l, B, H, Lq, Lk, Dh, dtype, causal, scale,
+                        stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -61,8 +61,9 @@ static_assert(kBN >= 16 && kBN % 16 == 0, "FLASH_BN must be a positive multiple 
 template <int DH>
 struct Tiles {
   // Row pitch in bf16: a 16-byte pad puts the 8 rows that one ldmatrix
-  // phase reads on 8 distinct 16-byte bank groups.
-  static constexpr int kPitch = DH + 8;
+  // phase reads on 8 distinct 16-byte bank groups. A Dh=8 row takes the
+  // Dh=16 pitch (48 bytes): at 32 bytes, rows r and r + 4 would share banks.
+  static constexpr int kPitch = (DH < 16 ? 16 : DH) + 8;
   // Three tiles in flight; two at Dh=128 to keep two blocks on an SM.
   static constexpr int kStages = DH >= 128 ? 2 : 3;
   static constexpr int kTileElems = kBN * kPitch;
@@ -106,6 +107,20 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
                : "memory");
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -120,6 +135,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x8 bf16, row) * b (8x8 bf16, col), fp32 accumulate: the
+// q . k^T product at Dh=8, one k-step of 8.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -156,12 +181,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                   float* __restrict__ l_out, int H, int Lq, int Lk, int n_qtiles,
                   float scale) {
   using T = Tiles<DH>;
-  constexpr int kSteps = DH / 16;    // k-steps of q . k^T
+  // Dh=8: q . k^T is one m16n8k8 step on 16-byte rows (ldmatrix .x2), and
+  // P . V one n8 output tile; every other width steps k by 16.
+  constexpr bool kK8 = DH == 8;
+  constexpr int kSteps = kK8 ? 1 : DH / 16;  // k-steps of q . k^T
   constexpr int kSTiles = kBN / 8;   // 8-key column tiles of the scores
   constexpr int kOTiles = DH / 8;    // 8-wide column tiles of the output
   constexpr int kChunks = DH / 8;    // 16-byte chunks in a row
   constexpr int kPitch = T::kPitch;
-  static_assert(DH % 16 == 0, "Dh must be a multiple of 16");
+  static_assert(DH == 8 || DH % 16 == 0, "Dh must be 8 or a multiple of 16");
 
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -240,10 +268,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async_commit();
     }
     if (j == 0) {
+      if constexpr (kK8) {
+        // lanes 0-15 address rows 0-15: qf[0][0] holds row g, qf[0][1] row g + 8
+        ldsm_x2(qf[0][0], qf[0][1], smem_u32(q_s + (warp * 16 + (lane & 15)) * kPitch));
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        ldsm_x4(qf[kk], smem_u32(q_s + (warp * 16 + (lane & 15)) * kPitch + kk * 16 +
-                                 (lane >> 4) * 8));
+        for (int kk = 0; kk < kSteps; ++kk)
+          ldsm_x4(qf[kk], smem_u32(q_s + (warp * 16 + (lane & 15)) * kPitch + kk * 16 +
+                                   (lane >> 4) * 8));
+      }
     }
     const int st = j % T::kStages;
     const __nv_bfloat16* ks = stage_k(st);
@@ -255,15 +288,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[kSTiles][4];
 #pragma unroll
     for (int n = 0; n < kSTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
+    if constexpr (kK8) {
 #pragma unroll
       for (int p = 0; p < kSTiles / 2; ++p) {
-        uint32_t kb[4];
-        ldsm_x4(kb, smem_u32(ks + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * kPitch +
-                             kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * p], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * p + 1], qf[kk], kb[2], kb[3]);
+        // keys 16p .. 16p+7 and 16p+8 .. 16p+15: the B fragments of two
+        // 8-key score tiles
+        uint32_t kb0, kb1;
+        ldsm_x2(kb0, kb1, smem_u32(ks + (16 * p + (lane & 15)) * kPitch));
+        mma_bf16_k8(s[2 * p], qf[0][0], qf[0][1], kb0);
+        mma_bf16_k8(s[2 * p + 1], qf[0][0], qf[0][1], kb1);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int p = 0; p < kSTiles / 2; ++p) {
+          uint32_t kb[4];
+          ldsm_x4(kb, smem_u32(ks + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * kPitch +
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(s[2 * p], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * p + 1], qf[kk], kb[2], kb[3]);
+        }
       }
     }
     // Natural units, as the plain version: s * 1/sqrt(Dh) + bias.
@@ -348,13 +393,21 @@ __global__ void __launch_bounds__(kThreads, 1)
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      if constexpr (kK8) {
+        // keys 16kk .. 16kk+15 of the 8 columns: b0 and b1 of one n8 tile
+        uint32_t vb0, vb1;
+        ldsm_x2_trans(vb0, vb1, smem_u32(vs + (16 * kk + (lane & 15)) * kPitch));
+        mma_bf16(o[0], pa, vb0, vb1);
+      } else {
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, smem_u32(vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
-                                   dp * 16 + (lane >> 4) * 8));
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        for (int dp = 0; dp < DH / 16; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, smem_u32(vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                              kPitch +
+                                     dp * 16 + (lane >> 4) * 8));
+          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
       }
     }
   }
@@ -401,15 +454,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// scale: the softmax scale, 1/sqrt of the caller's head dim, which is not
+// DH when the wrapper zero-pads a head dim up to a compiled width.
 template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int causal,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   constexpr int kSmem = Tiles<DH>::kSmemBytes;
   const int n_qtiles = (Lq + kBM - 1) / kBM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
   auto kernel = causal ? flash_fwd_mma<DH, true, STATS> : flash_fwd_mma<DH, false, STATS>;
   if (kSmem > 48 * 1024) {
     const cudaError_t e =

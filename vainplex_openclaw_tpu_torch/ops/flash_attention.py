@@ -35,6 +35,14 @@ kernel by dtype alone: bf16 runs on the tensor cores
 (a tensor-core fp32 path would be TF32). The kernel masks its own ragged
 edge instead of padding.
 
+Head dims. The kernels are compiled for Dh 8, 16, 32, 64 and 128
+(:data:`COMPILED_HEAD_DIMS`). A launch at any other Dh up to 128 zero-pads
+q, k and v to the next compiled width (:func:`kernel_head_dim`), passes
+the softmax scale of the real Dh, and slices the padded output columns
+away: zero columns add nothing to q·kᵀ. The plain versions take any Dh;
+:func:`flash_attention` refuses Dh > 128 on every device, where the JAX
+kernel takes it (no configuration of the repo has one).
+
 The block table. The bf16 kernel's tiles (query rows by key columns) are
 compile-time constants, so each tile is a library of its own
 (``_build.tile_defines``). As JAX's wrapper takes ``block_q`` and
@@ -84,7 +92,9 @@ from ._build import DEFAULT_TILES
 from .similarity import pow2_bucket
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+# csrc/flash_attention.cu's dispatch (the module docstring's "Head dims")
+COMPILED_HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_HEAD_DIM = COMPILED_HEAD_DIMS[-1]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset: K1 (normalized) and K2 (stats).
@@ -167,6 +177,17 @@ def launch_tiles(Lq: int, Lk: int, dtype: str) -> tuple:
             default_block(Lk, dtype, "k", "cuda"))
 
 
+def kernel_head_dim(Dh: int) -> int:
+    """The compiled width a launch at head dim ``Dh`` runs: ``Dh`` itself
+    when compiled, else the next compiled width, with q, k and v
+    zero-padded to it. Raises ``ValueError`` above :data:`MAX_HEAD_DIM`."""
+    for width in COMPILED_HEAD_DIMS:
+        if Dh <= width:
+            return width
+    raise ValueError(f"head dim {Dh} > {MAX_HEAD_DIM}: the flash kernels "
+                     f"are compiled for {COMPILED_HEAD_DIMS}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_mask: Optional[torch.Tensor], causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -176,12 +197,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     Lk = k.shape[2]
-    if Lq == 0 or Lk == 0:
-        raise ValueError("flash_attention needs Lq ≥ 1 and Lk ≥ 1")
+    if Lq == 0 or Lk == 0 or Dh == 0:
+        raise ValueError("flash_attention needs Lq, Lk and Dh ≥ 1")
     if causal and Lq != Lk:
         raise ValueError("causal flash attention requires Lq == Lk")
-    if Dh not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {SUPPORTED_HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype of bf16 or fp32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -204,12 +223,22 @@ def _bias(kv_mask: Optional[torch.Tensor], B: int, Lk: int,
     return torch.where(valid, 0.0, NEG_INF).to(torch.float32).contiguous()
 
 
-def _stats(q, k, v, bias, causal: bool):
+def _pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` ``[..., Dh]`` zero-padded to ``[..., width]`` (itself when
+    Dh is the width)."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
+def _stats(q, k, v, bias, causal: bool, scale: Optional[float] = None):
     """(acc, m, l) in one dense pass: the quantities of the JAX package's
     ``_dense_stats_ref`` with the kernel's precision (fp32 scores and
-    accumulator, as the Pallas kernel's ``preferred_element_type``)."""
-    Dh = q.shape[-1]
-    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
+    accumulator, as the Pallas kernel's ``preferred_element_type``).
+    ``scale`` defaults to 1/√Dh."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
     s = s + bias[:, None, None, :]
     if causal:
         Lq, Lk = q.shape[2], k.shape[2]
@@ -263,32 +292,37 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool,
             tiles: Optional[tuple] = None):
     """K1 (or K2 with ``return_stats``) on CUDA tensors at ``tiles`` (None:
     the block table's); adds one to its count once the launch is
-    accepted, or raises."""
+    accepted, or raises. A head dim that is not compiled runs zero-padded
+    to :func:`kernel_head_dim` with its own softmax scale, and the padded
+    output columns are sliced away."""
     global launches, stats_launches
     from ._build import load_library
 
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
+    width = kernel_head_dim(Dh)
+    q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
+    scale = 1.0 / math.sqrt(Dh)
     if tiles is None:
         tiles = launch_tiles(Lq, Lk, str(q.dtype).replace("torch.", ""))
     lib = load_library("flash_attention", tiles=tiles)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if return_stats:
-            acc = torch.empty((B, H, Lq, Dh), dtype=torch.float32,
+            acc = torch.empty((B, H, Lq, width), dtype=torch.float32,
                               device=q.device)
             m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
             l = torch.empty_like(m)
             err = lib.flash_attention_stats_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Lq, Lk, Dh,
-                _DTYPE_CODES[q.dtype], int(causal), stream)
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Lq, Lk,
+                width, _DTYPE_CODES[q.dtype], int(causal), scale, stream)
         else:
             out = torch.empty_like(q)
             err = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, H, Lq, Lk, Dh, _DTYPE_CODES[q.dtype],
-                int(causal), stream)
+                out.data_ptr(), B, H, Lq, Lk, width, _DTYPE_CODES[q.dtype],
+                int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err} "
@@ -298,6 +332,10 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool,
             stats_launches += 1
         else:
             launches += 1
+    if width != Dh:
+        if return_stats:
+            return acc[..., :Dh].contiguous(), m, l
+        return out[..., :Dh].contiguous()
     return (acc, m, l) if return_stats else out
 
 
@@ -342,8 +380,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise, at ``block_q`` × ``block_k`` where given and each other side
-    from the block table. Differentiable in q, k and v on both."""
+    from the block table. Differentiable in q, k and v on both. A head
+    dim above :data:`MAX_HEAD_DIM` raises on every device; any other runs
+    (zero-padded on the card where it is not compiled)."""
     _check(q, k, v, kv_mask, causal)
+    kernel_head_dim(q.shape[-1])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     tiles = None
