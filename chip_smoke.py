@@ -180,7 +180,7 @@ the grids again repeating the one card:
     hold (``K3_TOKEN_CASES``): a outside the byte alphabet (its ballot
     path), and a inside it with b outside it and on its top rows.
 
-Versioned serving and the trace analyzer's classification come last:
+Versioned serving and the trace analyzer follow:
 
 25. lifecycle: the shipped checkpoint as ``v1`` and its twin with the
     severity head negated as ``v2`` (every verdict changes), in a
@@ -203,11 +203,24 @@ Versioned serving and the trace analyzer's classification come last:
     version;
 26. classify: ``classify_findings(..., use_local_triage=True)`` on 64
     seeded findings on the card: K1 launched n_layers times, the ``kept``
-    flags equal to ``local_triage`` on the card and on the CPU.
+    flags equal to ``local_triage`` on the card and on the CPU;
+27. trace_analyzer: the port's ``TraceAnalyzer`` (classify with
+    ``useLocalTriage``, the incremental clusterer) over ~22,000 seeded
+    events (``trace_corpora``: 1000 chains of bench.py's shape and 64
+    doom loops of 65 failing ``exec`` retries of 200-500-character
+    commands): a warm-up, then two runs on one state dir, the second over
+    10% new chains, each on the card and on the CPU with the report (less
+    its timing fields), the cluster state and the processing state equal;
+    K1 n_layers times a run, K3 once per window of at least 32 ASCII
+    pairs (``trace_k3_windows``, from the raw events); no ``clustering
+    failed``, clusters non-empty within the 512-signal cap; then
+    ``/trace-analyze`` through ``register_trace_analyzer`` on a recording
+    API, and K1 at the triage bucket and K3 at the detector's window timed
+    beside their bounds.
 
 The offline search loops end the run:
 
-27. kernel_search: every candidate tile of K1/K2 (block_q, block_k in
+28. kernel_search: every candidate tile of K1/K2 (block_q, block_k in
     32/64/128) built in one parallel ``nvcc`` call, then
     ``kernel_search.search((64, 16384))`` from the compiled default (the
     64x64 incumbent; a winner must beat it by 5% and by each record's
@@ -222,7 +235,7 @@ The offline search loops end the run:
     (``build/chip_smoke/`` by default); then K1 and K2 timed at the long
     serve shape (B=8 H=2 L=16384 Dh=16) at every tile, 64x64 first and
     last, beside the exponential floor at the measured ex2 rate;
-28. plan_search: ``plan_search.search`` for ``encoder_validator`` and
+29. plan_search: ``plan_search.search`` for ``encoder_validator`` and
     ``embeddings_forward`` with 256 requests and 256 queries a candidate
     (``PLAN_SEARCH_CARD``), each candidate in the incumbent's gather mode:
     at (1, 1) three times, whose rows may be written only where every run
@@ -237,7 +250,7 @@ The offline search loops end the run:
 
 The graft entry points close it:
 
-29. graft_entry: ``graft_entry.entry()`` on the card, its forward
+30. graft_entry: ``graft_entry.entry()`` on the card, its forward
     (``EncoderConfig()`` widths, bf16) against the same forward with the
     plain attention on the card (argmax equal, logits within 5e-2), K1
     launched n_layers times, and K1 timed at its shape [2, 8, 128, 32];
@@ -251,11 +264,13 @@ The graft entry points close it:
 
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
-K1 (with its launches on every path, the lifecycle, classify and
-graft_entry phases included, the tiles the block table gives the serve
+K1 (with its launches on every path, the lifecycle, classify,
+trace_analyzer and graft_entry phases included, its triage bucket in the
+trace analyzer, the tiles the block table gives the serve
 and long shapes, and its head-dim-8 shapes), K2 (with its head-dim-8
 shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
-with its L=128 figures beside them; measured numbers and the bound only)
+with its L=128 figures and the trace analyzer's window beside them, and
+its launches by path; measured numbers and the bound only)
 and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -338,6 +353,14 @@ STATS_CASES = [
     ("dryrun_ring_shard_sp2", 1, 8, 32, 32, 16, False, False),
 ]
 
+# the trace_analyzer phase's triage forwards: the pow2 bucket of each
+# run's findings (8949 in run 1, 879 in run 2); the phase fails if a run's
+# bucket is not among these cases
+TRACE_TRIAGE_CASES = [
+    ("trace_triage_run1", 16384, 4, 64, 64, 16, False, "prefix"),
+    ("trace_triage_run2", 1024, 4, 64, 64, 16, False, "prefix"),
+]
+
 KERNEL_CASES = [
     ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
     ("encoder_default_width", 32, 8, 128, 128, 32, False, "prefix"),
@@ -390,7 +413,7 @@ KERNEL_CASES = [
     ("dryrun_pp_microbatch", 1, 4, 32, 32, 16, False, False),
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
-]
+] + TRACE_TRIAGE_CASES
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -2370,12 +2393,13 @@ def phase_embed_mesh(smi: str, moe_dirs: dict) -> dict:
 
 
 def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
-                   seed: int) -> dict:
+                   seed: int, n: int = 200, reps: int = 15) -> dict:
     """K1 (or K2 with ``stats``) at a compiled head dim in one dtype,
     prefix-masked (all keys valid at B = 1), beside its plain version,
     SDPA (the normalized output: K1's function, so K1's ``library_ms``
     and K2's ``sdpa_normalized_ms``) and the bound, in turns within this
-    call; the kernel's output held against the plain version's."""
+    call (``time_ms`` of ``n`` calls, ``reps`` times); the kernel's output
+    held against the plain version's."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2404,12 +2428,13 @@ def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
                         f"{'K2' if stats else 'K1'} timing")
 
     sdpa_mask = bias.to(dtype)[:, None, None, :]
-    kernel_ms = [time_ms(kernel)]
-    plain_ms = [time_ms(plain) for _ in range(2)]
-    kernel_ms.append(time_ms(kernel))
-    library_ms = [time_ms(lambda: F.scaled_dot_product_attention(
+    timed = functools.partial(time_ms, n=n, reps=reps)
+    kernel_ms = [timed(kernel)]
+    plain_ms = [timed(plain) for _ in range(2)]
+    kernel_ms.append(timed(kernel))
+    library_ms = [timed(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=sdpa_mask)) for _ in range(2)]
-    kernel_ms.append(time_ms(kernel))
+    kernel_ms.append(timed(kernel))
     want = plain()
     if stats:
         rows = valid_rows(mask, B, Lq, Lk, False, "cuda")
@@ -2431,7 +2456,8 @@ def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
                               ops_per_s=ops)}
 
 
-def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
+def time_k1(B: int, H: int, L: int, Dh: int, seed: int, n: int = 200,
+            reps: int = 15) -> dict:
     """K1 at one shape (bf16, prefix mask) timed by :func:`time_attention`,
     and the wrapper the mesh paths call (bias, dtype dispatch) held
     against the plain version on the same inputs."""
@@ -2440,7 +2466,8 @@ def time_k1(B: int, H: int, L: int, Dh: int, seed: int) -> dict:
 
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
-    record = time_attention(B, H, L, L, Dh, "bfloat16", False, seed)
+    record = time_attention(B, H, L, L, Dh, "bfloat16", False, seed, n=n,
+                            reps=reps)
     q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, L, L, Dh,
                              torch.bfloat16, "prefix", "cuda")
     wrapper_err = k1_errors(fa.flash_attention(q, k, v, mask),
@@ -2948,6 +2975,17 @@ def near_duplicate(s: str, rng, alphabet: str, keep_length: bool) -> str:
     return "".join(out)
 
 
+_ASCII = "".join(map(chr, range(32, 127)))
+
+
+def seeded_command(rng, length: int) -> str:
+    """A shell command of ``length`` characters from ``_COMMAND_WORDS``."""
+    words = []
+    while len(" ".join(words)) < length:
+        words.append(_COMMAND_WORDS[int(rng.integers(len(_COMMAND_WORDS)))])
+    return " ".join(words)[:length]
+
+
 def detector_pairs(n: int, seed: int) -> list:
     """``n`` pairs shaped like the doom-loop detector's: ASCII commands of
     1 to 500 characters, the odd pairs near-duplicates of their partner a
@@ -2958,25 +2996,17 @@ def detector_pairs(n: int, seed: int) -> list:
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    ascii_ = "".join(map(chr, range(32, 127)))
-
-    def command(length: int) -> str:
-        words = []
-        while len(" ".join(words)) < length:
-            words.append(_COMMAND_WORDS[int(rng.integers(len(_COMMAND_WORDS)))])
-        return " ".join(words)[:length]
-
     pairs = []
     for i in range(n):
-        a = command(int(rng.integers(1, 501)))
-        b = (near_duplicate(a, rng, ascii_, keep_length=False)[:500]
-             if i % 2 else command(int(rng.integers(1, 501))))
+        a = seeded_command(rng, int(rng.integers(1, 501)))
+        b = (near_duplicate(a, rng, _ASCII, keep_length=False)[:500]
+             if i % 2 else seeded_command(rng, int(rng.integers(1, 501))))
         pairs.append((a, b or "x"))
     pairs[0] = ("", "")
     pairs[1] = (pairs[3][0], pairs[3][0])
     for i, edge in enumerate(DETECTOR_EDGES):
-        a = command(edge)
-        pairs[2 + 2 * i] = (a, near_duplicate(a, rng, ascii_, keep_length=True))
+        a = seeded_command(rng, edge)
+        pairs[2 + 2 * i] = (a, near_duplicate(a, rng, _ASCII, keep_length=True))
     return pairs
 
 
@@ -3729,6 +3759,588 @@ def phase_classify(smi: str) -> dict:
     return record
 
 
+# ── the trace analyzer ───────────────────────────────────────────────
+
+# A fleet's scheduled run: bench.py's chain shape (synth_events, 14 events
+# a chain) and doom loops of failing exec retries, ~22,000 events under the
+# analyzer's default maxEventsPerRun of 100,000; the second run adds 10%
+# new chains a day later
+TRACE_BENCH_CHAINS = 1000
+TRACE_DOOM_CHAINS = 64
+TRACE_DOOM_RETRIES = 65
+TRACE_NEW_BENCH_CHAINS = 100
+TRACE_NEW_DOOM_CHAINS = 6
+TRACE_BASE_TS = 1_700_000_000_000.0
+TRACE_DAY_MS = 86_400_000.0
+TRACE_STEP_MS = 1000.0
+TRACE_SEED = 111
+TRACE_RUNS = ("run1", "run2")
+TRACE_CLOCK = 1_700_100_000.0  # the analyzers' fixed clock (s)
+TRACE_CONFIG = {"classify": {"enabled": True, "useLocalTriage": True},
+                "cluster": {"incremental": True}}
+# signals.py: BATCH_SIMILARITY_MIN ASCII pairs take K3, at
+# LEVENSHTEIN_CAP + 12 tokens a row
+TRACE_BATCH_MIN = 32
+TRACE_K3_LEN = 512
+TRACE_REWRITE_P = 0.15  # a retry that rewrites half its command's words
+# the report's timing fields, which alone may differ card vs CPU
+TRACE_TIMING_KEYS = ("durationMs", "eventsPerMinute", "stageMs")
+# The clusterer's growing window: run 1 fills the 512-signal kept window,
+# so the main corpus's run 2 computes no new x kept block. The cluster leg
+# stays under the cap: chains of two failing calls whose errors share one
+# of a few phrases and differ in their words, then 10% new chains a day
+# later, whose signals join the window. No classify: it launches neither
+# kernel, only the clusterer's Jaccard blocks.
+TRACE_CLUSTER_CHAINS = 400
+TRACE_CLUSTER_NEW_CHAINS = 40
+TRACE_CLUSTER_CONFIG = {"classify": {"enabled": False},
+                        "cluster": {"incremental": True}}
+_CLUSTER_PHRASES = ("permission denied while opening",
+                    "disk quota exceeded when writing",
+                    "connection reset by peer during",
+                    "certificate verify failed for")
+_CLUSTER_WORDS = ("artifact", "bucket", "volume", "ledger", "replica",
+                  "socket", "manifest", "archive", "tenant", "snapshot",
+                  "shard", "registry", "mirror", "cache", "journal",
+                  "index")
+_DOOM_ERRORS = (
+    "npm ERR! code ELIFECYCLE: build script exited with status 1",
+    "fatal: unable to access origin: connection refused",
+    "error: container api exited: OOMKilled (memory limit reached)",
+    "ModuleNotFoundError: No module named requests in worker process",
+)
+
+
+class TraceChain:
+    """Raw Schema-A events of one session, ``TRACE_STEP_MS`` apart,
+    appended to ``out`` (the shape of the tests' ``EventFactory``, with no
+    ``seq``: a ``MemoryTraceSource`` numbers events by their place in the
+    list, so a second run over a longer list reads only the new ones)."""
+
+    def __init__(self, out: list, agent: str, session: str,
+                 start_ts: float):
+        self.out, self.agent, self.session = out, agent, session
+        self.ts, self.n = start_ts, 0
+
+    def event(self, etype: str, payload: dict) -> None:
+        self.ts += TRACE_STEP_MS
+        self.n += 1
+        self.out.append({"id": f"{self.session}-{self.n}", "ts": self.ts,
+                         "agent": self.agent, "session": self.session,
+                         "type": etype, "payload": payload})
+
+    def msg_in(self, text: str) -> None:
+        self.event("msg.in", {"content": text})
+
+    def msg_out(self, text: str) -> None:
+        self.event("msg.out", {"content": text})
+
+    def call(self, tool: str, params: dict, error=None) -> None:
+        self.event("tool.call", {"tool_name": tool, "params": params})
+        self.event("tool.result", {"tool_name": tool, "error": error,
+                                   "result": None if error else "ok"})
+
+
+def trace_corpus(first_bench: int, n_bench: int, first_doom: int,
+                 n_doom: int, start_ts: float, seed: int) -> list:
+    """Raw events: ``n_bench`` chains of bench.py's shape (a fix request, 3
+    failing ``kubectl rollout status`` calls, a false completion claim, a
+    correction, a read) and ``n_doom`` doom loops of
+    ``TRACE_DOOM_RETRIES`` failing ``exec`` calls whose ASCII commands of
+    200 to 500 characters change by a few edits a retry, or, at
+    ``TRACE_REWRITE_P``, by half their words (a pair below the 0.8
+    threshold), topped up with words where they fall under 200."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out: list = []
+    for c in range(first_bench, first_bench + n_bench):
+        ch = TraceChain(out, f"agent{c % 4}", f"s{c}", start_ts)
+        ch.msg_in(f"please fix the deployment issue number {c}")
+        ch.msg_out("looking into it now")
+        for _ in range(3):
+            ch.call("exec", {"command": f"kubectl rollout status app{c % 7}"},
+                    "error: deployment exceeded progress deadline")
+        ch.msg_out("I've successfully restarted the deployment.")
+        ch.msg_in("no, that's wrong — it is still failing and this is "
+                  "useless")
+        ch.msg_out("my apologies, let me fix that properly")
+        ch.call("read", {"path": f"/var/log/app{c}.log"})
+        ch.msg_out("the root cause is a bad liveness probe")
+    for d in range(first_doom, first_doom + n_doom):
+        ch = TraceChain(out, f"agent{d % 4}", f"doom{d}", start_ts)
+        ch.msg_in("ship the release build to staging and make sure it "
+                  "passes")
+        command = seeded_command(rng, int(rng.integers(200, 501)))
+        for _ in range(TRACE_DOOM_RETRIES):
+            ch.call("exec", {"command": command},
+                    _DOOM_ERRORS[d % len(_DOOM_ERRORS)])
+            if rng.random() < TRACE_REWRITE_P:
+                words = command.split(" ")
+                for i in rng.choice(len(words), size=len(words) // 2,
+                                    replace=False):
+                    words[i] = _COMMAND_WORDS[int(rng.integers(
+                        len(_COMMAND_WORDS)))]
+                command = " ".join(words)[:500]
+            else:
+                command = near_duplicate(command, rng, _ASCII,
+                                         keep_length=False)[:500]
+            if len(command) < 200:
+                command += " " + seeded_command(rng, 199 - len(command))
+        ch.msg_out("the build still fails; I stopped retrying")
+    return out
+
+
+def trace_corpora(seed: int = TRACE_SEED) -> tuple:
+    """The first run's events and the second run's new ones."""
+    first = trace_corpus(0, TRACE_BENCH_CHAINS, 0, TRACE_DOOM_CHAINS,
+                         TRACE_BASE_TS, seed)
+    new = trace_corpus(TRACE_BENCH_CHAINS, TRACE_NEW_BENCH_CHAINS,
+                       TRACE_DOOM_CHAINS, TRACE_NEW_DOOM_CHAINS,
+                       TRACE_BASE_TS + TRACE_DAY_MS, seed + 1)
+    return first, new
+
+
+def trace_cluster_corpus(first: int, n: int, start_ts: float,
+                         seed: int) -> list:
+    """Raw events of the cluster leg: ``n`` chains, each two failing
+    ``exec`` calls whose errors are one of ``_CLUSTER_PHRASES`` (by chain)
+    and three of ``_CLUSTER_WORDS`` (seeded), so that their feature rows
+    differ and fall on both sides of the clusterer's 0.5 threshold."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out: list = []
+    for c in range(first, first + n):
+        ch = TraceChain(out, f"agent{c % 4}", f"sync{c}", start_ts)
+        ch.msg_in("run the nightly sync job")
+        phrase = _CLUSTER_PHRASES[c % len(_CLUSTER_PHRASES)]
+        for _ in range(2):
+            words = rng.choice(len(_CLUSTER_WORDS), size=3, replace=False)
+            ch.call("exec", {"command": f"sync --target store{c}"},
+                    f"{phrase} " + " ".join(_CLUSTER_WORDS[int(w)]
+                                            for w in words))
+        ch.msg_out("the sync job could not finish")
+    return out
+
+
+def trace_cluster_corpora(seed: int = TRACE_SEED) -> tuple:
+    """The cluster leg's first run's events and the second run's new ones."""
+    first = trace_cluster_corpus(0, TRACE_CLUSTER_CHAINS, TRACE_BASE_TS, seed)
+    new = trace_cluster_corpus(TRACE_CLUSTER_CHAINS, TRACE_CLUSTER_NEW_CHAINS,
+                               TRACE_BASE_TS + TRACE_DAY_MS, seed + 1)
+    return first, new
+
+
+def trace_k1_shape(cfg, n_findings: int) -> list:
+    """[B, H, L, Dh] of the triage forward over ``n_findings`` findings."""
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    return [pow2_bucket(n_findings), cfg.n_heads, cfg.seq_len,
+            cfg.d_model // cfg.n_heads]
+
+
+def trace_k1_unheld(shapes) -> list:
+    """The [B, H, L, Dh] of ``shapes`` that no non-causal ``KERNEL_CASES``
+    case (Lq = Lk = L) holds against the plain version."""
+    held = {(B, H, Lq, Dh) for _, B, H, Lq, Lk, Dh, causal, _
+            in KERNEL_CASES if Lq == Lk and not causal}
+    return [list(s) for s in shapes if tuple(s) not in held]
+
+
+def trace_k3_windows(raws: list) -> list:
+    """The pair counts of the windows that take K3, from the raw events:
+    per session, each ``tool.call`` with the ``tool.result`` of its tool
+    in the next three events; consecutive calls that both failed, of one
+    tool, with both commands non-empty ASCII strings (over the
+    500-character cap) count as a pair; a session with at least
+    ``TRACE_BATCH_MIN`` pairs is one K3 launch."""
+    by_session: dict = {}
+    for raw in raws:
+        by_session.setdefault((raw["session"], raw["agent"]), []).append(raw)
+    windows = []
+    for events in by_session.values():
+        events = sorted(events, key=lambda e: e["ts"])
+        attempts = []
+        for i, e in enumerate(events):
+            if e["type"] != "tool.call":
+                continue
+            tool = e["payload"].get("tool_name")
+            result = next((r for r in events[i + 1:i + 4]
+                           if r["type"] == "tool.result"
+                           and r["payload"].get("tool_name") == tool), None)
+            command = (e["payload"].get("params") or {}).get("command")
+            attempts.append((tool, bool(result and result["payload"].get(
+                "error")), command if isinstance(command, str) else ""))
+        pairs = sum(
+            1 for (ta, ea, ca), (tb, eb, cb) in zip(attempts, attempts[1:])
+            if ea and eb and ta == tb and ca and cb
+            and ca[:500].isascii() and cb[:500].isascii())
+        if pairs >= TRACE_BATCH_MIN:
+            windows.append(pairs)
+    return windows
+
+
+class RecordingLogger:
+    """The logger an analyzer writes to: ``(level, message)`` records."""
+
+    def __init__(self):
+        self.records: list = []
+
+    def info(self, msg):
+        self.records.append(("info", msg))
+
+    def warn(self, msg):
+        self.records.append(("warn", msg))
+
+    def error(self, msg):
+        self.records.append(("error", msg))
+
+    def messages(self, level: str) -> list:
+        return [m for lv, m in self.records if lv == level]
+
+
+class RecordingApi:
+    """The part of a gateway's plugin API ``register_trace_analyzer`` uses."""
+
+    def __init__(self):
+        self.logger = RecordingLogger()
+        self.commands: dict = {}
+        self.services: dict = {}
+
+    def register_command(self, cmd) -> None:
+        self.commands[cmd.name] = cmd
+
+    def register_service(self, svc) -> None:
+        self.services[svc.id] = svc
+
+
+def trace_files(state_dir: str) -> dict:
+    """The report (parsed, less its timing fields), the cluster state and
+    the processing state (bytes) an analyzer run left in ``state_dir``."""
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
+        clusters, report)
+
+    def read(name: str) -> bytes:
+        with open(os.path.join(state_dir, name), "rb") as f:
+            return f.read()
+
+    rep = json.loads(read(report.REPORT_FILE))
+    for key in TRACE_TIMING_KEYS:
+        rep["runStats"].pop(key, None)
+    return {"report": rep, "clusters": read(clusters.CLUSTER_STATE_FILE),
+            "state": read(report.STATE_FILE)}
+
+
+def trace_run(raws: list, state_dir: str, device: str,
+              config: dict = TRACE_CONFIG) -> dict:
+    """One ``TraceAnalyzer(config).run()`` over ``raws`` on ``device`` with
+    K1 and K3 counted from 0, its wall time, its report, its log, the
+    files it left, and the clusterer's new x kept blocks: ``[new rows,
+    kept rows]`` of each Jaccard call given two row sets."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
+        MemoryTraceSource, TraceAnalyzer, clusters)
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    log = RecordingLogger()
+    analyzer = TraceAnalyzer(config, state_dir, log,
+                             source=MemoryTraceSource(raws),
+                             clock=lambda: TRACE_CLOCK, device=device)
+    blocks: list = []
+    jaccard = clusters.jaccard_from_rows
+
+    def recorded(Xa, Xb=None, device=None):
+        if Xb is not None:
+            blocks.append([len(Xa), len(Xb)])
+        return jaccard(Xa, Xb, device=device)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fa.launches = sim.launches = 0
+    clusters.jaccard_from_rows = recorded
+    try:
+        t = time.perf_counter()
+        rep = analyzer.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        clusters.jaccard_from_rows = jaccard
+    return {"report": rep, "k1": fa.launches, "k3": sim.launches,
+            "wall_s": wall, "log": log, "files": trace_files(state_dir),
+            "blocks": blocks}
+
+
+def trace_profile(raws: list, state_dir: str, device: str) -> dict:
+    """One more ``trace_run`` over ``raws``, into its own state dir, with
+    the host's parts of the stages timed on the host's clock (the triage
+    tokenizer, K3's tokenizer, the report's assembly and its write) and
+    each K1 and K3 call between CUDA events on the card (on the host's
+    clock on the CPU): where a run's time goes. Not a timed run: the
+    wrappers add their own cost. ``report`` is the report less its timing
+    fields."""
+    import importlib
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import encoder
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    pkg = "vainplex_openclaw_tpu_torch.cortex.trace_analyzer"
+    analyzer = importlib.import_module(f"{pkg}.analyzer")
+    classifier = importlib.import_module(f"{pkg}.classifier")
+    host = {"triage_tokenize": (classifier, "encode_texts"),
+            "k3_tokenize": (sim, "tokenize_fixed"),
+            "report_assemble": (analyzer, "assemble_report"),
+            "report_save": (analyzer, "save_report")}
+    kernels = {"k1": (encoder, "flash_attention"),
+               "k3": (sim, "levenshtein_rows")}
+    ms = dict.fromkeys(list(host) + list(kernels), 0.0)
+    pending: list = []
+
+    def on_host(key, fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ms[key] += (time.perf_counter() - t) * 1e3
+        return timed
+
+    def on_device(key, fn):
+        if device != "cuda":
+            return on_host(key, fn)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            pending.append((key, start, end))
+            return out
+        return timed
+
+    saved = [(mod, name, getattr(mod, name))
+             for mod, name in list(host.values()) + list(kernels.values())]
+    try:
+        for key, (mod, name) in host.items():
+            setattr(mod, name, on_host(key, getattr(mod, name)))
+        for key, (mod, name) in kernels.items():
+            setattr(mod, name, on_device(key, getattr(mod, name)))
+        run = trace_run(raws, state_dir, device)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for key, start, end in pending:  # trace_run synchronized the card
+        ms[key] += start.elapsed_time(end)
+    return {"wall_s": run["wall_s"], "report": run["files"]["report"],
+            "duration_ms": run["report"]["runStats"]["durationMs"],
+            "stage_ms": run["report"]["runStats"]["stageMs"],
+            "ms": ms, "launches": {"k1": run["k1"], "k3": run["k3"]}}
+
+
+def trace_summary(run: dict) -> dict:
+    rep = run["report"]
+    rs = rep["runStats"]
+    return {"events": rs["events"], "chains": rs["chains"],
+            "signals": rs["signals"], "findings": len(rep["findings"]),
+            "kept": sum(f["kept"] for f in rep["findings"]),
+            "outputs": len(rep["outputs"]),
+            "clusters": len(rep["failureClusters"]),
+            "clustered_signals": sum(c["size"]
+                                     for c in rep["failureClusters"]),
+            "clusters_truncated": rep["failureClustersTruncated"],
+            "events_per_min": rs["eventsPerMinute"],
+            "duration_ms": rs["durationMs"], "stage_ms": rs["stageMs"],
+            "wall_s": run["wall_s"], "k1_launches": run["k1"],
+            "k3_launches": run["k3"]}
+
+
+def trace_k3_timing(raws: list) -> dict:
+    """K3 at the analyzer's shape: the first doom window's pairs as the
+    detector hands them to ``batch_levenshtein_ratio`` (bucketed to a
+    power of two, ``TRACE_K3_LEN`` tokens), beside its plain version and
+    the bound, the kernel held against the plain version."""
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    session = next(r["session"] for r in raws
+                   if r["session"].startswith("doom"))
+    commands = [r["payload"]["params"]["command"] for r in raws
+                if r["session"] == session and r["type"] == "tool.call"]
+    pairs = list(zip(commands, commands[1:]))
+    pairs += [("", "")] * (sim.pow2_bucket(len(pairs)) - len(pairs))
+    A = sim.tokenize_fixed([a for a, _ in pairs], TRACE_K3_LEN)
+    B = sim.tokenize_fixed([b for _, b in pairs], TRACE_K3_LEN)
+    la = (A > 0).sum(axis=1).astype(np.int32)
+    lb = (B > 0).sum(axis=1).astype(np.int32)
+    Ad, Bd, lad, lbd = (torch.from_numpy(x).cuda() for x in (A, B, la, lb))
+    kernel = sim.levenshtein_rows(Ad, Bd, lad, lbd)
+    plain = sim.levenshtein_rows_reference(Ad, Bd, lad, lbd)
+    err = int((kernel - plain).abs().max())
+    check(err == 0, f"trace_analyzer: K3 at {len(pairs)} x {TRACE_K3_LEN} "
+                    f"differs from its plain version by {err}")
+    record = {"shape": [len(pairs), TRACE_K3_LEN], "max_abs_err": err,
+              "kernel_ms": time_ms(lambda: sim.levenshtein_rows(
+                  Ad, Bd, lad, lbd), n=20, reps=5, warmup=3),
+              "plain_ms": time_ms(lambda: sim.levenshtein_rows_reference(
+                  Ad, Bd, lad, lbd), n=5, reps=5, warmup=2),
+              **levenshtein_bound(TRACE_K3_LEN, la, lb)}
+    check_bound(record["kernel_ms"], record["bound_ms"],
+                f"K3 at {record['shape']}")
+    return record
+
+
+def phase_trace_analyzer(smi: str) -> dict:
+    """The port's ``TraceAnalyzer`` at a scheduled run's size on the card:
+    a warm-up run, then two timed runs on one state dir (the second over
+    10% new chains), each against the same runs on the CPU: reports (less
+    their timing fields), cluster-state and processing-state files equal;
+    K1 n_layers and K3 one launch per ``trace_k3_windows`` window a run,
+    K1 at a bucket the kernels phase holds; no ``clustering failed``;
+    clusters non-empty and within the 512-signal cap. Then the cluster
+    leg, whose second run's signals join the kept window (a new x kept
+    block, card against CPU); a profiled copy of run 1; ``/trace-analyze``
+    through ``register_trace_analyzer``; and K1 and K3 timed at the run's
+    shapes."""
+    import tempfile
+
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
+        MemoryTraceSource, TraceAnalyzer, clusters)
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer.analyzer import (
+        register_trace_analyzer)
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    t0 = time.perf_counter()
+    cfg, _ = load_pretrained()
+    first, new = trace_corpora()
+    legs = tuple(zip(TRACE_RUNS, (first, first + new)))
+    expected_k3 = dict(zip(TRACE_RUNS, (trace_k3_windows(first),
+                                        trace_k3_windows(new))))
+    c_first, c_new = trace_cluster_corpora()
+    c_legs = tuple(zip(TRACE_RUNS, (c_first, c_first + c_new)))
+    with tempfile.TemporaryDirectory() as tmp:
+        TraceAnalyzer(TRACE_CONFIG, os.path.join(tmp, "warm"),
+                      RecordingLogger(), source=MemoryTraceSource(first),
+                      clock=lambda: TRACE_CLOCK, device="cuda").run()
+        runs = {dev: {name: trace_run(raws, os.path.join(tmp, dev), dev)
+                      for name, raws in legs} for dev in ("cuda", "cpu")}
+        c_runs = {dev: {name: trace_run(raws, os.path.join(tmp, f"c_{dev}"),
+                                        dev, TRACE_CLUSTER_CONFIG)
+                        for name, raws in c_legs} for dev in ("cuda", "cpu")}
+        profile = trace_profile(first, os.path.join(tmp, "profile"), "cuda")
+        api = RecordingApi()
+        analyzer = TraceAnalyzer(TRACE_CONFIG, os.path.join(tmp, "command"),
+                                 api.logger, source=MemoryTraceSource(new),
+                                 clock=lambda: TRACE_CLOCK, device="cuda")
+        register_trace_analyzer(api, analyzer, wall_timers=False)
+        text = api.commands["trace-analyze"].handler({})["text"]
+    record = {"phase": "trace_analyzer", "nvidia_smi": smi,
+              "corpus": {"bench_chains": TRACE_BENCH_CHAINS,
+                         "doom_chains": TRACE_DOOM_CHAINS,
+                         "doom_retries": TRACE_DOOM_RETRIES,
+                         "new_chains": TRACE_NEW_BENCH_CHAINS
+                         + TRACE_NEW_DOOM_CHAINS,
+                         "events": len(first), "new_events": len(new)}}
+    for name, _ in legs:
+        card, host = runs["cuda"][name], runs["cpu"][name]
+        trace_equal(card, host, name)
+        windows = expected_k3[name]
+        check(card["k3"] == len(windows),
+              f"trace_analyzer: {name}: K3 launches {card['k3']} != "
+              f"{len(windows)} windows of >= {TRACE_BATCH_MIN} pairs")
+        n_findings = len(card["report"]["findings"])
+        check(card["k1"] == cfg.n_layers * (n_findings > 0),
+              f"trace_analyzer: {name}: K1 launches {card['k1']} != "
+              f"{cfg.n_layers} layers x 1 triage forward")
+        summary = trace_summary(card)
+        check(0 < summary["clusters"] and summary["clustered_signals"]
+              <= clusters.MAX_CLUSTER_SIGNALS,
+              f"trace_analyzer: {name}: {summary['clusters']} clusters of "
+              f"{summary['clustered_signals']} signals")
+        record[name] = {
+            "card": summary, "cpu": trace_summary(host),
+            "k3_windows": windows,
+            "k3_buckets": sorted({pow2_bucket(n) for n in windows}),
+            "k1_shape": trace_k1_shape(cfg, n_findings),
+            "cluster_blocks": card["blocks"],
+            "equal_card_cpu": ["report", "clusters", "state"]}
+    unheld = trace_k1_unheld([record[name]["k1_shape"] for name in TRACE_RUNS])
+    check(not unheld, f"trace_analyzer: K1 launched at {unheld}, which no "
+                      "kernels case holds against the plain version")
+    record["cluster_leg"] = trace_cluster_leg(c_runs, len(c_new))
+    check(profile["launches"] == {"k1": runs["cuda"]["run1"]["k1"],
+                                  "k3": runs["cuda"]["run1"]["k3"]},
+          f"trace_analyzer: the profiled run launched {profile['launches']}")
+    check(profile.pop("report") == runs["cuda"]["run1"]["files"]["report"],
+          "trace_analyzer: the profiled run's report differs from run 1's")
+    record["profile_run1"] = profile
+    rs2 = runs["cuda"]["run2"]["report"]["runStats"]
+    head = text.splitlines()[0]
+    check(head.startswith("🔍 trace analysis:") and "failed" not in head
+          and f"{len(new)} events" in head
+          and f"{rs2['signals']} signals" in head,
+          f"trace_analyzer: /trace-analyze answered {text[:200]!r}")
+    record["command_text"] = head
+    B, H, L, Dh = record["run1"]["k1_shape"]
+    # the plain version at a bucket of thousands: fewer calls a sample
+    record["k1_timing"] = time_k1(B, H, L, Dh, seed=121, n=20, reps=5)
+    record["k3_timing"] = trace_k3_timing(first)
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    return record
+
+
+def trace_equal(card: dict, host: dict, name: str) -> None:
+    """A card run's files equal the CPU's, and neither logged a clustering
+    or detector failure."""
+    for part in ("report", "clusters", "state"):
+        check(card["files"][part] == host["files"][part],
+              f"trace_analyzer: {name}'s {part} differs card vs CPU")
+    for dev, run in (("card", card), ("CPU", host)):
+        bad = [m for m in run["log"].messages("error")
+               if "clustering failed" in m or "detector" in m]
+        check(not bad, f"trace_analyzer: {name} on the {dev}: {bad}")
+
+
+def trace_cluster_leg(c_runs: dict, n_new_chains: int) -> dict:
+    """The cluster leg's checks: card and CPU files equal on both runs; no
+    signal truncated; run 1 one block over its whole window, run 2 one
+    block of new rows (at most two a new chain) against more kept rows;
+    no kernel launched; clusters non-empty."""
+    out = {}
+    for name in TRACE_RUNS:
+        card, host = c_runs["cuda"][name], c_runs["cpu"][name]
+        trace_equal(card, host, f"cluster leg {name}")
+        summary = trace_summary(card)
+        check(summary["clusters_truncated"] == 0 and summary["clusters"] > 0,
+              f"trace_analyzer: cluster leg {name}: "
+              f"{summary['clusters']} clusters, "
+              f"{summary['clusters_truncated']} signals truncated")
+        check(card["blocks"] == host["blocks"] and len(card["blocks"]) == 1,
+              f"trace_analyzer: cluster leg {name}: blocks {card['blocks']} "
+              f"on the card, {host['blocks']} on the CPU")
+        check(card["k1"] == card["k3"] == 0,
+              f"trace_analyzer: cluster leg {name} launched K1 {card['k1']}, "
+              f"K3 {card['k3']}")
+        out[name] = {"card": summary, "cpu": trace_summary(host),
+                     "blocks": card["blocks"],
+                     "equal_card_cpu": ["report", "clusters", "state"]}
+    (r1, k1), = out["run1"]["blocks"]
+    (r2, k2), = out["run2"]["blocks"]
+    check(r1 == k1 and 0 < r2 <= 2 * n_new_chains and r2 < k2 and k2 > k1,
+          f"trace_analyzer: cluster leg blocks {[r1, k1]}, then {[r2, k2]}: "
+          "run 2's new signals did not join the kept window")
+    return out
+
+
 # ── the offline search loops ─────────────────────────────────────────
 
 SEARCH_LENGTHS = (64, LONG_L)  # the serve bucket and the long family's
@@ -3758,12 +4370,15 @@ def served_cases(lengths) -> list:
     """The bf16 ``KERNEL_CASES`` a block-table row of a bucket in
     ``lengths`` would serve (the pow2 bucket of Lq or Lk is one of
     them), plus the long serve shape: where a searched tile is held
-    against the plain version before its row may be written."""
+    against the plain version before its row may be written. Not the
+    ``TRACE_TRIAGE_CASES``: they differ from ``serve_path`` only in the
+    batch, which a tile does not see, and the search's check walks one
+    (batch, head) slice at a time (65,536 of them at B=16384)."""
     from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
 
     buckets = {pow2_bucket(L) for L in lengths}
-    cases = [c for c in KERNEL_CASES
-             if {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
+    cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
+             and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
     if pow2_bucket(L) in buckets:
         cases.append(("long_serve", B, H, L, L, Dh, False, False))
@@ -4203,6 +4818,26 @@ def dh8_line(graft: dict, stats: bool) -> list:
     return line
 
 
+def trace_k1_line(traced: dict) -> dict:
+    """The kernels line's K1 at the trace analyzer's triage bucket."""
+    t = traced["k1_timing"]
+    return {"shape": t["shape"], "launches": sum(
+        traced[run]["card"]["k1_launches"] for run in TRACE_RUNS),
+            "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"]}
+
+
+def trace_k3_line(traced: dict) -> dict:
+    """The kernels line's K3 at the doom-loop detector's window."""
+    t = traced["k3_timing"]
+    return {"shape": t["shape"], "launches": sum(
+        traced[run]["card"]["k3_launches"] for run in TRACE_RUNS),
+            "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "plain_ms": t["plain_ms"],
+            "library_ms": None}
+
+
 def dryrun_launches(graft: dict, kernel: str) -> dict:
     """``{"dryrun_<leg>": n}``: K1's (``"k1"``) or K2's launches in each
     dryrun leg that launched it, at n = 8 and 4 together."""
@@ -4239,6 +4874,7 @@ def main() -> int:
         similarity = phase_similarity(info["nvidia_smi"])
         lifecycle = phase_lifecycle(info["nvidia_smi"])
         classified = phase_classify(info["nvidia_smi"])
+        traced = phase_trace_analyzer(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
         phase_plan_search(info["nvidia_smi"])
@@ -4286,6 +4922,8 @@ def main() -> int:
             "train_mesh": train_mesh["k1_launches"],
             "lifecycle": lifecycle["k1_launches"],
             "classify": classified["k1_launches"],
+            "trace_analyzer": sum(traced[run]["card"]["k1_launches"]
+                                  for run in TRACE_RUNS),
             "graft_entry": graft["entry"]["k1_launches"],
             **dryrun_launches(graft, "k1")},
         "entry_shape": {"shape": graft["entry"]["k1"]["shape"],
@@ -4295,6 +4933,7 @@ def main() -> int:
                         "bound_by": graft["entry"]["k1"]["bound_by"],
                         "plain_ms": graft["entry"]["k1"]["plain_ms"],
                         "library_ms": graft["entry"]["k1"]["library_ms"]},
+        "trace_analyzer_shape": trace_k1_line(traced),
         "dh8_shapes": dh8_line(graft, stats=False),
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
@@ -4350,6 +4989,11 @@ def main() -> int:
          "ms": k3["kernel_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None, "shape": [4096, DETECTOR_LEN],
+         "launches_by_path": {
+             "similarity": similarity["k3_launches"],
+             "trace_analyzer": sum(traced[run]["card"]["k3_launches"]
+                                   for run in TRACE_RUNS)},
+         "trace_analyzer_shape": trace_k3_line(traced),
          "dp_cell_bound_ms": k3["dp_cell_bound_ms"],
          "l128_shape": {"shape": [4096, SIM_LEN], "ms": k3_l128["kernel_ms"],
                         "plain_ms": k3_l128["plain_ms"],

@@ -22,6 +22,7 @@ imports only the standard library, so importing it here runs nothing.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -643,8 +644,9 @@ def test_point_parity_bound_is_the_kernels_phase_bf16_bound():
 
 
 def test_served_cases_are_the_searched_buckets_shapes():
-    """Every bf16 kernel case whose Lq or Lk falls in a searched bucket,
-    and the long serve shape, hold each candidate tile."""
+    """Every bf16 kernel case whose Lq or Lk falls in a searched bucket
+    (but the trace analyzer's triage batches), and the long serve shape,
+    hold each candidate tile."""
     from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
 
     cases = chip_smoke.served_cases(chip_smoke.SEARCH_LENGTHS)
@@ -653,6 +655,8 @@ def test_served_cases_are_the_searched_buckets_shapes():
             "long_16384", "long_16384_masked", "mesh_tp2_shard",
             "train_tp4_shard", "long_serve"} <= set(names)
     assert not {"keys_65", "mfu_shape", "head_dim_128"} & set(names)
+    # the triage buckets differ from serve_path only in the batch
+    assert not {c[0] for c in chip_smoke.TRACE_TRIAGE_CASES} & set(names)
     for c in cases:
         assert {pow2_bucket(c[3]), pow2_bucket(c[4])} & {64, 16384}
         assert kernel_head_dim(c[5]) in COMPILED_HEAD_DIMS
@@ -790,3 +794,173 @@ def test_kernels_line_books_dryrun_launches_by_leg():
              True: {c[0] for c in chip_smoke.STATS_CASES}}
     assert all(case in cases[stats]
                for case, _, stats, _ in chip_smoke.DH8_TIMED)
+
+
+# ── the trace analyzer phase ─────────────────────────────────────────
+
+
+def test_trace_corpus_is_the_phase_size():
+    """~22,000 events: 1000 chains of 14 events and 64 doom loops of 65
+    failing retries, whose ASCII commands of 200-500 characters fall on
+    both sides of the 0.8 threshold; the second run's chains come a day
+    later. The host formula gives one K3 window of 64 pairs per doom
+    loop."""
+    from vainplex_openclaw_tpu_torch.ops.similarity import levenshtein_ratio
+
+    first, new = chip_smoke.trace_corpora()
+    assert len(first) == 1000 * 14 + 64 * (2 + 2 * 65) == 22448
+    assert len(new) == 100 * 14 + 6 * (2 + 2 * 65)
+    assert min(e["ts"] for e in new) > max(e["ts"] for e in first)
+    assert chip_smoke.trace_k3_windows(first) == [64] * 64
+    assert chip_smoke.trace_k3_windows(new) == [64] * 6
+    commands = [e["payload"]["params"]["command"] for e in first
+                if e["session"] == "doom0" and e["type"] == "tool.call"]
+    assert len(commands) == 65 and all(
+        200 <= len(c) <= 500 and c.isascii() for c in commands)
+    ratios = [levenshtein_ratio(a, b) for a, b in zip(commands, commands[1:])]
+    assert min(ratios) < 0.8 <= max(ratios)
+    assert chip_smoke.trace_corpora() == (first, new)  # seeded
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The plain Levenshtein DP runs thousands of small tensor ops, which
+    stall on a thread pool when test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_trace_launch_formulas_equal_the_port_cpu_run(tmp_path, monkeypatch):
+    """The phase's host formulas against what the port's analyzer does on
+    the CPU over a cut corpus of the same shape: one batched Levenshtein
+    call per ``trace_k3_windows`` window, at a bucket of 64 × 512 tokens,
+    and one triage forward a run (n_layers attention calls) at the pow2
+    bucket of the run's findings."""
+    import math
+
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
+        MemoryTraceSource, TraceAnalyzer)
+    from vainplex_openclaw_tpu_torch.models import encoder
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    first = chip_smoke.trace_corpus(0, 12, 0, 3, chip_smoke.TRACE_BASE_TS, 5)
+    new = chip_smoke.trace_corpus(12, 2, 3, 1, chip_smoke.TRACE_BASE_TS
+                                  + chip_smoke.TRACE_DAY_MS, 6)
+    k3, k1 = [], []
+    real_rows, real_attn = sim.levenshtein_rows, encoder.flash_attention
+    monkeypatch.setattr(sim, "levenshtein_rows", lambda A, *r: k3.append(
+        tuple(A.shape)) or real_rows(A, *r))
+    monkeypatch.setattr(encoder, "flash_attention", lambda q, *r: k1.append(
+        tuple(q.shape)) or real_attn(q, *r))
+    for raws, windows in ((first, chip_smoke.trace_k3_windows(first)),
+                          (first + new, chip_smoke.trace_k3_windows(new))):
+        k3.clear()
+        k1.clear()
+        log = chip_smoke.RecordingLogger()
+        rep = TraceAnalyzer(chip_smoke.TRACE_CONFIG, tmp_path, log,
+                            source=MemoryTraceSource(raws),
+                            clock=lambda: chip_smoke.TRACE_CLOCK,
+                            device="cpu").run()
+        assert k3 == [(sim.pow2_bucket(n), chip_smoke.TRACE_K3_LEN)
+                      for n in windows] and windows
+        n = len(rep["findings"])
+        bucket = 1 << math.ceil(math.log2(n))
+        shape = [bucket, TINY_CONFIG.n_heads, TINY_CONFIG.seq_len,
+                 TINY_CONFIG.d_model // TINY_CONFIG.n_heads]
+        assert k1 == [tuple(shape)] * TINY_CONFIG.n_layers
+        assert chip_smoke.trace_k1_shape(TINY_CONFIG, n) == shape
+        assert log.messages("error") == [] and rep["failureClusters"]
+    files = chip_smoke.trace_files(str(tmp_path))
+    assert set(files) == {"report", "clusters", "state"}
+    assert not set(chip_smoke.TRACE_TIMING_KEYS) & set(
+        files["report"]["runStats"])
+
+
+def test_trace_k1_buckets_of_the_phase_are_held_cases():
+    """The phase's triage buckets (8949 findings in run 1, 879 in run 2 on
+    the card) are kernels cases; a bucket no case holds is reported, and
+    the phase fails on it."""
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+
+    shapes = [chip_smoke.trace_k1_shape(TINY_CONFIG, n) for n in (8949, 879)]
+    assert shapes == [[16384, 4, 64, 16], [1024, 4, 64, 16]]
+    assert chip_smoke.trace_k1_unheld(shapes) == []
+    assert chip_smoke.trace_k1_unheld([[2048, 4, 64, 16]] + shapes) == [
+        [2048, 4, 64, 16]]
+    cases = {c[0]: c[1:] for c in chip_smoke.KERNEL_CASES}
+    assert cases["trace_triage_run2"] == (1024, 4, 64, 64, 16, False,
+                                          "prefix")
+
+
+def test_trace_cluster_leg_grows_the_kept_window(tmp_path):
+    """The cluster leg at the phase's size on the CPU: run 1 stays under
+    the 512-signal cap and computes one block over its window; run 2's
+    signals join the window, so its one block is new rows x every kept
+    row. ``trace_cluster_leg`` passes these runs and fails a second run
+    whose signals did not join (the main corpus's run 2)."""
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import clusters
+
+    first, new = chip_smoke.trace_cluster_corpora()
+    assert min(e["ts"] for e in new) > max(e["ts"] for e in first)
+    runs = {name: chip_smoke.trace_run(raws, str(tmp_path), "cpu",
+                                       chip_smoke.TRACE_CLUSTER_CONFIG)
+            for name, raws in zip(chip_smoke.TRACE_RUNS,
+                                  (first, first + new))}
+    leg = chip_smoke.trace_cluster_leg({"cuda": runs, "cpu": runs},
+                                       chip_smoke.TRACE_CLUSTER_NEW_CHAINS)
+    (r1, k1), = leg["run1"]["blocks"]
+    (r2, k2), = leg["run2"]["blocks"]
+    assert r1 == k1 and 0 < r2 < k2 <= clusters.MAX_CLUSTER_SIGNALS
+    assert k2 - k1 == r2 and leg["run2"]["card"]["clusters"] > 1
+    state = json.loads(runs["run2"]["files"]["clusters"])
+    assert len(state["kept"]) == len(state["entries"]) < 512
+    stalled = dict(runs["run2"], blocks=[])
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.trace_cluster_leg(
+            {"cuda": dict(runs, run2=stalled), "cpu": dict(runs,
+                                                           run2=stalled)},
+            chip_smoke.TRACE_CLUSTER_NEW_CHAINS)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_trace_profile_times_the_run_s_parts(tmp_path):
+    """The profiled run on the CPU over a cut corpus (one K3 window): the
+    same report and launches as an unprofiled run, each part timed, and
+    every wrapped name restored."""
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import classifier
+    from vainplex_openclaw_tpu_torch.models import encoder
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    raws = chip_smoke.trace_corpus(0, 6, 0, 1, chip_smoke.TRACE_BASE_TS, 5)
+    before = (classifier.encode_texts, sim.tokenize_fixed,
+              sim.levenshtein_rows, encoder.flash_attention)
+    plain = chip_smoke.trace_run(raws, str(tmp_path / "plain"), "cpu")
+    prof = chip_smoke.trace_profile(raws, str(tmp_path / "prof"), "cpu")
+    # the CPU counts no launch; the calls show in the times below
+    assert prof["launches"] == {"k1": plain["k1"], "k3": plain["k3"]}
+    assert chip_smoke.trace_k3_windows(raws) == [64]
+    assert prof["report"] == plain["files"]["report"]
+    assert set(prof["ms"]) == {"triage_tokenize", "k3_tokenize",
+                               "report_assemble", "report_save", "k1", "k3"}
+    assert all(v > 0 for v in prof["ms"].values())
+    assert before == (classifier.encode_texts, sim.tokenize_fixed,
+                      sim.levenshtein_rows, encoder.flash_attention)
+    assert set(prof["stage_ms"]) >= {"signals", "classify", "report"}
+
+
+def test_trace_lines_book_both_runs():
+    timed = {"shape": [64, 512], "kernel_ms": 0.01, "bound_ms": 1e-5,
+             "bound_by": "bytes", "plain_ms": 5.0, "library_ms": 0.02}
+    traced = {"run1": {"card": {"k1_launches": 2, "k3_launches": 64}},
+              "run2": {"card": {"k1_launches": 2, "k3_launches": 6}},
+              "k1_timing": dict(timed, shape=[16384, 4, 64, 64, 16]),
+              "k3_timing": timed}
+    k1 = chip_smoke.trace_k1_line(traced)
+    k3 = chip_smoke.trace_k3_line(traced)
+    assert k1["launches"] == 4 and k1["library_ms"] == 0.02
+    assert k3["launches"] == 70 and k3["library_ms"] is None
+    assert k1["shape"] == [16384, 4, 64, 64, 16] and k3["shape"] == [64, 512]

@@ -88,7 +88,21 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.ops.search_common",
                 "vainplex_openclaw_tpu_torch.ops.kernel_search",
                 "vainplex_openclaw_tpu_torch.parallel.plan_search",
-                "vainplex_openclaw_tpu_torch.graft_entry"):
+                "vainplex_openclaw_tpu_torch.graft_entry",
+                "vainplex_openclaw_tpu_torch.core.api",
+                "vainplex_openclaw_tpu_torch.storage.atomic",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.analyzer",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.chains",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.clusters",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.events",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.outputs",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.report",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.signals",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer."
+                "signal_patterns",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.source",
+                "vainplex_openclaw_tpu_torch.cortex.trace_analyzer."
+                "nats_source"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

@@ -517,3 +517,12 @@ class TestMeasuredPoint:
                                        block_k=16, interpret=True)
             jq = (o / jnp.float32(1.125)).astype(jq.dtype)
         np.testing.assert_allclose(got.numpy(), np.asarray(jq), atol=1e-5)
+
+
+def test_search_defaults_to_the_card():
+    """No card here: ``search`` without ``device`` raises before it
+    measures anything, as every entry point of the port does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ks.search((64,), steps=1, rounds=1)

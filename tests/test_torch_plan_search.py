@@ -424,3 +424,14 @@ def test_launches_per_forward_hand_counts(family, axes, shape, want):
                              "replicated")
     assert ps.launches_per_forward(
         rep, cached_mesh((2, 2), ("dp", "tp"), "cpu"), cfg) == ("k1", 4)
+
+
+def test_search_defaults_to_the_card():
+    """No card here: ``search`` without ``settings["device"]`` raises
+    before it measures anything, as every entry point of the port does."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ps.search({"shapes": ((1, 1),), "requests": 1, "queries": 1})

@@ -141,6 +141,62 @@ def test_the_card_is_the_default():
         sim.batch_levenshtein_ratio(string_pairs(40, 0))
 
 
+# ── param sets ──────────────────────────────────────────────────────
+
+PARAM_SETS = [
+    {}, {"command": "ls -la"}, {"command": "ls -la", "timeout": 30},
+    {"command": "ls -l", "ts": 1, "timestamp": "2024"},
+    {"path": "/tmp/a", "mode": "r"}, {"path": "/tmp/a", "mode": "w"},
+    {"cmd": ["ls", {"deep": [1, 2.5, None]}], "path": "/tmp/a"},
+    {"command": "echo 'déploiement échoué' ✓", "cwd": "/srv"},
+    {"command": "echo 'déploiement échoue'", "cwd": "/srv"},
+    {"command": "", "cwd": "/srv"}, {"command": 7, "cwd": "/srv"},
+    {"timeout": 5}, {"ts": 1, "timestamp": 2}, {"set": {1, 2}},
+    {"nested": {"b": 1, "a": [True, False]}},
+    {"nested": {"a": [True, False], "b": 1}},
+]
+
+
+def test_param_similarities_equal_jax():
+    """Volatile keys, nested values (key order ignored), non-ASCII, empty
+    and volatile-only sets: the exact scalars, pair for pair."""
+    assert sim.VOLATILE_KEYS == jax_sim.VOLATILE_KEYS
+    for a in PARAM_SETS:
+        for b in PARAM_SETS:
+            assert sim.jaccard_similarity(a, b) == \
+                jax_sim.jaccard_similarity(a, b)
+            assert sim.param_similarity(a, b) == jax_sim.param_similarity(a, b)
+    assert sim.jaccard_similarity({}, {"ts": 3}) == 1.0
+    assert sim.jaccard_similarity(None, None) == 1.0
+
+
+@pytest.mark.parametrize("dim", [1024, 64, 7])
+def test_hashed_rows_equal_jax(dim):
+    for p in PARAM_SETS:
+        assert sim.hash_entries(p, dim) == jax_sim.hash_entries(p, dim)
+    bit_rows = [sim.hash_entries(p, dim) for p in PARAM_SETS] + [()]
+    assert np.array_equal(sim.multi_hot_rows(bit_rows, dim),
+                          jax_sim.multi_hot_rows(bit_rows, dim))
+    got = sim.hashed_multi_hot(PARAM_SETS, dim)
+    assert got.dtype == np.float32 and got.shape == (len(PARAM_SETS), dim)
+    assert np.array_equal(got, jax_sim.hashed_multi_hot(PARAM_SETS, dim))
+    assert sim.hash_entries({"ts": 1, "timeout": 2}, dim) == ()
+
+
+@pytest.mark.parametrize("others", [None, slice(3, 11), slice(0, 1)])
+@pytest.mark.parametrize("use_jax", [False, True])
+def test_jaccard_matrix_is_bit_identical(others, use_jax):
+    """Square and rectangular blocks against JAX's numpy and jax paths."""
+    rng = np.random.default_rng(5)
+    sets = [PARAM_SETS[i] for i in rng.integers(0, len(PARAM_SETS), 70)]
+    other = None if others is None else PARAM_SETS[others]
+    got = sim.jaccard_matrix(sets, other, device="cpu")
+    want = jax_sim.jaccard_matrix(sets, other, use_jax=use_jax)
+    assert got.shape == (70, 70 if other is None else len(other))
+    assert np.array_equal(bits(got), bits(want))
+    assert sim.jaccard_matrix([], device="cpu").shape == (0, 0)
+
+
 # ── Levenshtein ─────────────────────────────────────────────────────
 
 

@@ -33,6 +33,8 @@ import threading
 import time
 from typing import Optional
 
+from ..device import DeviceError
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -84,7 +86,7 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and os.path.isfile(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+    raise DeviceError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (put nvcc on PATH or set CUDA_HOME)")
 
 
@@ -125,8 +127,8 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
     ``names`` may also be a ``(name, defines)`` pair, so that one call
     builds several variants of a source in parallel. Returns
     ``{label(name, defines): {"path", "seconds", "cached", "ptxas"}}``;
-    raises ``RuntimeError`` with the compiler's output when a build
-    fails."""
+    raises ``DeviceError`` (a ``RuntimeError``) with the compiler's output
+    when a build fails."""
     global builds
     jobs = []
     for entry in names or list(SIGNATURES):
@@ -168,7 +170,7 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
         results[key] = {"path": out, "seconds": seconds, "cached": False,
                         "ptxas": log}
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise DeviceError("kernel build failed:\n" + "\n".join(failures))
     return results
 
 

@@ -87,7 +87,7 @@ from typing import Optional
 
 import torch
 
-from ..device import backend_family
+from ..device import DeviceError, backend_family
 from ._build import DEFAULT_TILES
 from .similarity import pow2_bucket
 
@@ -324,7 +324,7 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool,
                 out.data_ptr(), B, H, Lq, Lk, width, _DTYPE_CODES[q.dtype],
                 int(causal), scale, stream)
     if err != 0:
-        raise RuntimeError(
+        raise DeviceError(
             f"flash_attention kernel launch failed: CUDA error {err} "
             f"({lib.kernel_error_string(err).decode()})")
     with _launch_lock:

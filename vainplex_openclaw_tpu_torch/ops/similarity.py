@@ -5,6 +5,11 @@ Counterpart of ``vainplex_openclaw_tpu/ops/similarity.py``:
 - ``pow2_bucket`` and ``pad_rows``: one rounding discipline for every
   bucketed batch, so the batcher pads to the same power-of-two sizes as the
   JAX package;
+- the param-set half, copied: ``VOLATILE_KEYS``, the scalar
+  :func:`jaccard_similarity` and :func:`param_similarity` the doom-loop
+  detectors read, and the rows the clusterer builds (:func:`hash_entries`,
+  :func:`multi_hot_rows`, :func:`hashed_multi_hot`), with
+  :func:`jaccard_matrix` over them;
 - :func:`jaccard_from_rows`, the twin of the jitted Jaccard block
   (``_jaccard_matrix_jax_impl``): intersections as one matrix product of the
   multi-hot rows, unions from the row counts. A plain matrix product, which
@@ -40,14 +45,17 @@ never falls back to the plain version: the kernel launches or raises.
 
 from __future__ import annotations
 
+import json
 import threading
+import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceError, DeviceLike, resolve_device
 
+VOLATILE_KEYS = frozenset({"timeout", "timestamp", "ts"})
 LEVENSHTEIN_CAP = 500
 
 # K3 launches since the last reset; only the CUDA branch of
@@ -70,6 +78,68 @@ def pad_rows(X: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
+# ── param sets ─────────────────────────────────────────────────────────
+
+
+def _entries(params: dict) -> set:
+    """A param set's ``key=value`` entries, volatile keys left out."""
+    return {f"{k}={json.dumps(v, sort_keys=True, default=str)}"
+            for k, v in (params or {}).items() if k not in VOLATILE_KEYS}
+
+
+def jaccard_similarity(a: dict, b: dict) -> float:
+    """Exact Jaccard of two param sets' entries; 1.0 when both are
+    empty."""
+    a_entries, b_entries = _entries(a), _entries(b)
+    union = a_entries | b_entries
+    if not union:
+        return 1.0
+    return len(a_entries & b_entries) / len(union)
+
+
+def param_similarity(a: dict, b: dict) -> float:
+    """Levenshtein ratio of two exec commands, Jaccard of the param sets
+    otherwise."""
+    a_cmd = a.get("command") if isinstance(a.get("command"), str) else ""
+    b_cmd = b.get("command") if isinstance(b.get("command"), str) else ""
+    if a_cmd and b_cmd:
+        return levenshtein_ratio(a_cmd, b_cmd)
+    return jaccard_similarity(a or {}, b or {})
+
+
+def hash_entries(params: dict, dim: int = 1024) -> tuple:
+    """Sorted unique bit indices of a param set's entries: crc32 of each
+    entry modulo ``dim``. crc32, not the salted builtin ``hash()``, so a
+    row hashes the same in every process and both packages read each
+    other's persisted bits."""
+    return tuple(sorted({zlib.crc32(e.encode("utf-8")) % dim
+                         for e in _entries(params)}))
+
+
+def multi_hot_rows(bit_rows: list, dim: int = 1024) -> np.ndarray:
+    """{0, 1}^dim fp32 rows from per-row bit-index tuples."""
+    X = np.zeros((len(bit_rows), dim), dtype=np.float32)
+    for i, bits in enumerate(bit_rows):
+        if bits:
+            X[i, list(bits)] = 1.0
+    return X
+
+
+def hashed_multi_hot(param_sets: list, dim: int = 1024) -> np.ndarray:
+    """One multi-hot row per param set."""
+    return multi_hot_rows([hash_entries(p, dim) for p in param_sets], dim)
+
+
+def jaccard_matrix(param_sets: list, others: Optional[list] = None,
+                   dim: int = 1024, device: DeviceLike = None) -> np.ndarray:
+    """Jaccard of hashed param sets: the full N×N block, or N×M against
+    ``others``, from :func:`jaccard_from_rows` on ``device`` (default: the
+    card). Hash collisions can only raise a similarity."""
+    Xa = hashed_multi_hot(param_sets, dim)
+    Xb = None if others is None else hashed_multi_hot(others, dim)
+    return jaccard_from_rows(Xa, Xb, device=device)
+
+
 # ── Jaccard ────────────────────────────────────────────────────────────
 
 
@@ -84,10 +154,16 @@ def _jaccard_block(Xa: torch.Tensor, Xb: torch.Tensor) -> torch.Tensor:
 
 def jaccard_from_rows(Xa: np.ndarray, Xb: Optional[np.ndarray] = None,
                       device: DeviceLike = None) -> np.ndarray:
-    """Jaccard block from {0, 1} multi-hot rows (the JAX package's
-    ``multi_hot_rows``); ``Xb=None`` is the symmetric Xa×Xa matrix. Both batch dimensions are bucketed to
-    powers of two on the way in and sliced back, as the JAX path does.
-    Returns an fp32 numpy array ``[len(Xa), len(Xb)]``."""
+    """Jaccard block from {0, 1} multi-hot rows (:func:`multi_hot_rows`);
+    ``Xb=None`` is the symmetric Xa×Xa matrix. Both batch dimensions are
+    bucketed to powers of two on the way in and sliced back, as the JAX
+    path does. Returns an fp32 numpy array ``[len(Xa), len(Xb)]``.
+
+    The block is always this torch product on ``device``; JAX routes
+    blocks under 64 rows, and every block on a CPU backend, to numpy. The
+    two agree bit for bit only because the rows are {0, 1} (every partial
+    sum an exact small integer) and the ratio is a float64 quotient cast
+    to fp32, which equals numpy's correctly rounded fp32 quotient."""
     dev = resolve_device(device)
     B = Xa if Xb is None else Xb
     na, nb = len(Xa), len(B)
@@ -197,7 +273,7 @@ def _launch(A, B, len_a, len_b) -> torch.Tensor:
             out.data_ptr(), None if edge is None else edge.data_ptr(), n, L,
             torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(
+        raise DeviceError(
             f"levenshtein kernel launch failed: CUDA error {err} "
             f"({lib.levenshtein_error_string(err).decode()})")
     with _launch_lock:

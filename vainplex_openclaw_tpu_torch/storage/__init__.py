@@ -1,2 +1,2 @@
 """State the port keeps across requests: the LRU manager that pages
-weight versions."""
+weight versions, and atomic JSON files."""
