@@ -16,7 +16,8 @@ non-zero before the last line is printed.
 1. device: the card's name and power limit (``nvidia-smi``), or exit 1
    without a CUDA device;
 2. build: ``nvcc`` builds every kernel library from the sources in
-   ``vainplex_openclaw_tpu_torch/ops/csrc``, and the K1/K2 library of every
+   ``vainplex_openclaw_tpu_torch/ops/csrc``, the K1/K2 library of head dims
+   above 128 (``_build.WIDE_DEFINES``) and the K1/K2 library of every
    tile the committed block table (``ops/flash_block_table.json``) names,
    so that serving builds nothing; each instantiation's registers,
    static shared memory and spills from ``ptxas`` (every kernel's, for a
@@ -30,8 +31,9 @@ non-zero before the last line is printed.
    127/128/129), query counts off the 64-row tile, causal at L=130, masks
    valid only in the last key tile and masks with holes, L=16384, head
    dim 8 (a compiled width) and 24 (zero-padded to 32 by the wrapper),
-   and the shard shapes the mesh and graft_entry phases launch (16-21,
-   29); at 2048 keys or more the
+   head dims 129, 256 and 384 (``WIDE_CASES``: the wide library, at one
+   launch per call), and the shard shapes the mesh and graft_entry phases
+   launch (16-21, 29); at 2048 keys or more the
    plain version without its first key tile must fail the same check
    (``CONTROL_MIN_LK``); each bf16 case runs the tile the committed block
    table gives its shape, and every row of that table must serve at least
@@ -55,13 +57,17 @@ is driven after it:
 
 7. kernels (K2): K2 against its plain version on the card in bf16 and
    fp32 at the ring's shapes (Dh 16 and 32, causal, Lq != Lk, L=100,
-   L=16384), head dim 8 and 24, the dryrun's ring+flash shard (Dh 8) and
-   the tile-edge and mask cases of phase 3, over rows with a valid key: m
+   L=16384), head dim 8 and 24, the dryrun's ring+flash shard (Dh 8), the
+   ``WIDE_CASES`` and the tile-edge and mask cases of phase 3, at one
+   launch per call, over rows with a valid key: m
    as an absolute difference, l and the unnormalized acc relative to the
    plain l and, in bf16, acc per row relative to the row's largest value;
    every value finite, and a row with no valid key has m = -1e30 and l =
    its key count; at 2048 keys or more the plain version without its
    first key tile must fail the same check;
+7a. timing_wide: K1 and K2 at each non-causal ``WIDE_CASES`` shape in
+    bf16 and fp32 beside the bound, the plain version and SDPA on the same
+    inputs (no main path runs a head dim above 128);
 8. ring: ``forward_long`` at ``long_context_config(16384)`` on a (1, 4)
    grid laid over one card against the same call at (1, 1): fp32 logits
    within 1e-4, bf16 severity argmax identical;
@@ -218,6 +224,22 @@ Versioned serving and the trace analyzer follow:
     API, and K1 at the triage bucket and K3 at the detector's window timed
     beside their bounds.
 
+27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
+     state writers. The train leg trains ``triage-tiny`` at its full width
+     (bf16, batch 64) from the JAX-key init for 60 steps, saving every 10,
+     once straight and once under a plan that fails the 2nd
+     ``checkpoint.write`` and the 4th ``checkpoint.rename``, restarting
+     ``train_loop`` on its directory after each ``FaultError``, both under
+     ``torch.use_deterministic_algorithms(True)``: after each fault no
+     tmp file, the latest step the one ``chaos_schedule`` gives from the
+     plan, every visible step's manifest present; one fault at each site;
+     K1 n_layers x the steps run, replays included; the final params and
+     AdamW moments bit-equal to the straight run. The trace leg runs run 1
+     of ``trace_corpora`` under a torn ``file.write`` and a failed
+     ``file.rename``, on the card and on the CPU: every state and report
+     file parses or is absent, no tmp file, and a rerun without the plan
+     leaves files equal card vs CPU.
+
 The offline search loops end the run:
 
 28. kernel_search: every candidate tile of K1/K2 (block_q, block_k in
@@ -265,10 +287,10 @@ The graft entry points close it:
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle, classify,
-trace_analyzer and graft_entry phases included, its triage bucket in the
-trace analyzer, the tiles the block table gives the serve
-and long shapes, and its head-dim-8 shapes), K2 (with its head-dim-8
-shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
+trace_analyzer, chaos and graft_entry phases included, its triage bucket
+in the trace analyzer, the tiles the block table gives the serve
+and long shapes, its head-dim-8 shapes and its shapes above head dim 128),
+K2 (with its head-dim-8 and wide shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
 with its L=128 figures and the trace analyzer's window beside them, and
 its launches by path; measured numbers and the bound only)
 and, last,
@@ -318,6 +340,19 @@ TRIAGE_TOL = 5e-2
 TRAIN_STEPS = 600  # the JAX recipe, pretrained.py:train_and_ship
 MOE_STEPS = 100
 
+# head dims above 128, which run in the wide library (Dh zero-padded to a
+# multiple of 128 and walked in 128-wide output slices): 129 and 384 padded,
+# 256 exact, a ragged and a causal one, and B=2 H=2 L=2048 at 256. The
+# prefix masks give masked rows and fully masked ones (the last quarter of
+# the batch). No main path runs them: the timing_wide phase times them.
+WIDE_CASES = [
+    ("head_dim_129_wide", 4, 2, 100, 100, 129, False, "prefix"),
+    ("head_dim_256_wide", 4, 2, 96, 130, 256, False, "prefix"),
+    ("head_dim_384_wide", 4, 2, 70, 65, 384, False, "prefix"),
+    ("head_dim_256_causal", 2, 2, 130, 130, 256, True, "prefix"),
+    ("head_dim_256_long", 2, 2, 2048, 2048, 256, False, "prefix"),
+]
+
 # (name, B, H, Lq, Lk, Dh, causal, mask) for K2 and, below, K1. mask is
 # False (every key valid), "prefix" (a valid prefix per batch element, the
 # last quarter of the batch fully masked: the batcher's zero-pad rows),
@@ -351,7 +386,7 @@ STATS_CASES = [
     # heads on one of 4 sp shards (8 devices) or of 2 (4 devices)
     ("dryrun_ring_shard_sp4", 1, 8, 16, 16, 16, False, False),
     ("dryrun_ring_shard_sp2", 1, 8, 32, 32, 16, False, False),
-]
+] + WIDE_CASES
 
 # the trace_analyzer phase's triage forwards: the pow2 bucket of each
 # run's findings (8949 in run 1, 879 in run 2); the phase fails if a run's
@@ -413,7 +448,7 @@ KERNEL_CASES = [
     ("dryrun_pp_microbatch", 1, 4, 32, 32, 16, False, False),
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
-] + TRACE_TRIAGE_CASES
+] + WIDE_CASES + TRACE_TRIAGE_CASES
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -604,6 +639,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     results = _build.build(list(_build.SIGNATURES) + [
+        ("flash_attention", _build.WIDE_DEFINES)] + [
         ("flash_attention", _build.tile_defines(t)) for t in table_tiles()])
     libraries = {}
     for name, r in results.items():
@@ -625,7 +661,8 @@ def phase_build() -> None:
         if r["cached"]:
             continue
         check(bool(report), f"{name}: no ptxas report in the build log")
-        # K1/K2: 5 head dims x 2 dtypes x causal or not x stats or not
+        # K1/K2: 5 head dims x 2 dtypes x causal or not x stats or not (the
+        # wide library: 2 dtypes x causal or not x stats or not)
         check(len(report) <= 40, f"{name}: {len(report)} kernel "
                                  "instantiations > 40")
         check_spills(name, report)
@@ -656,6 +693,7 @@ def phase_kernels() -> float:
     import numpy as np
     import torch
 
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
     from vainplex_openclaw_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference, launch_tiles)
 
@@ -668,10 +706,15 @@ def phase_kernels() -> float:
             q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
             # the block table's tile for this shape, as a launch reads it
-            # (the fp32 scalar walk keeps its own tiles)
-            tile = launch_tiles(Lq, Lk, dt_name)
+            # (the fp32 scalar walk and the wide library keep their own)
+            tile = launch_tiles(Lq, Lk, dt_name) \
+                if Dh <= fa.MAX_HEAD_DIM else (None, None)
+            before = fa.launches
             out = flash_attention(q, k, v, mask, causal=causal,
                                   block_q=tile[0], block_k=tile[1])
+            check(fa.launches == before + 1,
+                  f"{name}/{dt_name}: {fa.launches - before} K1 launches "
+                  "for one call")
             ref = flash_attention_reference(q, k, v, mask, causal=causal)
             torch.cuda.synchronize()
             check(out.dtype == q.dtype and out.shape == q.shape,
@@ -699,7 +742,7 @@ def phase_kernels() -> float:
             cases.append({"case": name, "dtype": dt_name,
                           "shape": [B, H, Lq, Lk, Dh], "causal": causal,
                           "tile": list(tile) if dt_name == "bfloat16"
-                          else None,
+                          and Dh <= fa.MAX_HEAD_DIM else None,
                           "mask": mask_kind, "max_abs_err": err,
                           "row_rel_err": rel, "held": held,
                           "control_without_first_tile": control,
@@ -959,11 +1002,12 @@ def served_library(L: int):
                                tiles=fa.launch_tiles(L, L, "bfloat16"))
 
 
-def raw_launch(lib, q, k, v, bias, out, what: str):
+def raw_launch(lib, q, k, v, bias, out, what: str, scale=None):
     """A call that launches K1 from ``lib`` into ``out`` (a tensor), or K2
     into ``out`` = ``(acc, m, l)``, on q, k, v and the bias at q's head dim
-    (a compiled one) and its softmax scale: the C entry point alone, with
-    no count and no allocation, for timing. A CUDA error raises."""
+    (one ``lib`` takes) and the softmax scale (default: q's head dim's):
+    the C entry point alone, with no count and no allocation, for timing.
+    A CUDA error raises."""
     import torch
 
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
@@ -977,7 +1021,8 @@ def raw_launch(lib, q, k, v, bias, out, what: str):
     def launch():
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     *(t.data_ptr() for t in outs), B, H, Lq, Lk, Dh,
-                    fa._DTYPE_CODES[q.dtype], 0, Dh ** -0.5,
+                    fa._DTYPE_CODES[q.dtype], 0,
+                    Dh ** -0.5 if scale is None else scale,
                     torch.cuda.current_stream().cuda_stream)
         if err:
             raise SmokeFailure(f"{what} launch failed: CUDA error {err}")
@@ -1099,6 +1144,7 @@ def phase_kernels_stats() -> float:
     import numpy as np
     import torch
 
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
     from vainplex_openclaw_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_stats_reference)
 
@@ -1110,8 +1156,12 @@ def phase_kernels_stats() -> float:
                                ("float32", torch.float32)):
             q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
+            before = fa.stats_launches
             got = flash_attention(q, k, v, mask, causal=causal,
                                   return_stats=True)
+            check(fa.stats_launches == before + 1,
+                  f"K2 {name}/{dt_name}: {fa.stats_launches - before} "
+                  "launches for one call")
             want = flash_attention_stats_reference(q, k, v, mask,
                                                    causal=causal)
             torch.cuda.synchronize()
@@ -1161,6 +1211,40 @@ def phase_kernels_stats() -> float:
     emit({"phase": "kernels_stats", "kernels": [
         {"name": "flash_attention_stats", "max_err": worst, "cases": cases}]})
     return worst
+
+
+def phase_timing_wide(smi: str) -> dict:
+    """K1 and K2 at every non-causal ``WIDE_CASES`` shape (head dims 129,
+    256 and 384, and L=2048 at 256) in bf16 and fp32, each timed by
+    :func:`time_attention` beside its bound, its plain version and SDPA on
+    the same inputs. No main path runs a head dim above 128."""
+    t0 = time.perf_counter()
+    timed = []
+    for i, (name, B, H, Lq, Lk, Dh, causal, _) in enumerate(WIDE_CASES):
+        if causal:
+            continue
+        for dt_name in ("bfloat16", "float32"):
+            for stats in (False, True):
+                timed.append({"name": name, **time_attention(
+                    B, H, Lq, Lk, Dh, dt_name, stats, seed=300 + i, n=20,
+                    reps=5)})
+    record = {"phase": "timing_wide", "nvidia_smi": smi, "shapes": timed,
+              "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
+def wide_line(wide: dict, stats: bool) -> list:
+    """The kernels line's head dims above 128 for K1 or K2: measured ms
+    beside the bound, the plain version and SDPA (for K2
+    ``sdpa_normalized_ms``); no main path launches them."""
+    return [{"name": t["name"], "shape": t["shape"], "dtype": t["dtype"],
+             "path": None, "launches": None, "ms": t["kernel_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+             **({"sdpa_normalized_ms": t["sdpa_normalized_ms"]}
+                if stats else {})}
+            for t in wide["shapes"] if t["stats"] == stats]
 
 
 _WORDS = tuple(sorted({w for t in _TEMPLATES + _SUBJECTS
@@ -2394,12 +2478,14 @@ def phase_embed_mesh(smi: str, moe_dirs: dict) -> dict:
 
 def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
                    seed: int, n: int = 200, reps: int = 15) -> dict:
-    """K1 (or K2 with ``stats``) at a compiled head dim in one dtype,
+    """K1 (or K2 with ``stats``) at head dim ``Dh`` in one dtype,
     prefix-masked (all keys valid at B = 1), beside its plain version,
     SDPA (the normalized output: K1's function, so K1's ``library_ms``
     and K2's ``sdpa_normalized_ms``) and the bound, in turns within this
     call (``time_ms`` of ``n`` calls, ``reps`` times); the kernel's output
-    held against the plain version's."""
+    held against the plain version's. Above a compiled width the kernel
+    runs on q, k and v zero-padded as a launch pads them (the wide library
+    above 128) with the scale of ``Dh``; the bound is ``Dh``'s."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2411,21 +2497,27 @@ def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
     q, k, v, mask = make_qkv(np.random.default_rng(seed), B, H, Lq, Lk, Dh,
                              dtype, "prefix" if B > 1 else False, "cuda")
     bias = fa._bias(mask, B, Lk, q.device)
-    lib = _build.load_library("flash_attention",
-                              tiles=fa.launch_tiles(Lq, Lk, dt_name))
+    width = fa.kernel_head_dim(Dh)
+    if width > fa.MAX_HEAD_DIM:
+        lib = _build.load_library("flash_attention",
+                                  defines=_build.WIDE_DEFINES)
+    else:
+        lib = _build.load_library("flash_attention",
+                                  tiles=fa.launch_tiles(Lq, Lk, dt_name))
+    qp, kp, vp = (fa._pad_head_dim(t, width) for t in (q, k, v))
     if stats:
-        got = (torch.empty((B, H, Lq, Dh), dtype=torch.float32,
+        got = (torch.empty((B, H, Lq, width), dtype=torch.float32,
                            device="cuda"),
                torch.empty((B, H, Lq), dtype=torch.float32, device="cuda"),
                torch.empty((B, H, Lq), dtype=torch.float32, device="cuda"))
         plain = functools.partial(fa.flash_attention_stats_reference, q, k,
                                   v, mask)
     else:
-        got = torch.empty_like(q)
+        got = torch.empty_like(qp)
         plain = functools.partial(fa.flash_attention_reference, q, k, v,
                                   mask)
-    kernel = raw_launch(lib, q, k, v, bias, got,
-                        f"{'K2' if stats else 'K1'} timing")
+    kernel = raw_launch(lib, qp, kp, vp, bias, got,
+                        f"{'K2' if stats else 'K1'} timing", Dh ** -0.5)
 
     sdpa_mask = bias.to(dtype)[:, None, None, :]
     timed = functools.partial(time_ms, n=n, reps=reps)
@@ -2438,9 +2530,10 @@ def time_attention(B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
     want = plain()
     if stats:
         rows = valid_rows(mask, B, Lq, Lk, False, "cuda")
-        err = max(stats_errors(got, want, rows, dt_name))
+        err = max(stats_errors((got[0][..., :Dh], *got[1:]), want, rows,
+                               dt_name))
     else:
-        err = k1_errors(got, want, dt_name)[2]
+        err = k1_errors(got[..., :Dh], want, dt_name)[2]
     check(err <= TOL[dt_name], f"{'K2' if stats else 'K1'} at "
                                f"{[B, H, Lq, Lk, Dh]} {dt_name}: {err}")
     ops = PEAK_BF16_OPS_PER_S if dt_name == "bfloat16" \
@@ -4033,11 +4126,12 @@ def trace_files(state_dir: str) -> dict:
 
 
 def trace_run(raws: list, state_dir: str, device: str,
-              config: dict = TRACE_CONFIG) -> dict:
+              config: dict = TRACE_CONFIG, log=None) -> dict:
     """One ``TraceAnalyzer(config).run()`` over ``raws`` on ``device`` with
-    K1 and K3 counted from 0, its wall time, its report, its log, the
-    files it left, and the clusterer's new x kept blocks: ``[new rows,
-    kept rows]`` of each Jaccard call given two row sets."""
+    K1 and K3 counted from 0, its wall time, its report, its log (``log``,
+    a ``RecordingLogger``, or a new one), the files it left, and the
+    clusterer's new x kept blocks: ``[new rows, kept rows]`` of each
+    Jaccard call given two row sets."""
     import torch
 
     from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
@@ -4045,7 +4139,7 @@ def trace_run(raws: list, state_dir: str, device: str,
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
     from vainplex_openclaw_tpu_torch.ops import similarity as sim
 
-    log = RecordingLogger()
+    log = RecordingLogger() if log is None else log
     analyzer = TraceAnalyzer(config, state_dir, log,
                              source=MemoryTraceSource(raws),
                              clock=lambda: TRACE_CLOCK, device=device)
@@ -4341,6 +4435,294 @@ def trace_cluster_leg(c_runs: dict, n_new_chains: int) -> dict:
     return out
 
 
+# ── chaos: fault plans on the checkpoint and state writers ───────────
+
+CHAOS_STEPS = 60
+CHAOS_SAVE_EVERY = 10
+CHAOS_BATCH = 64
+CHAOS_INIT_SEED = 7  # JAX's PRNGKey seed of the init (init_params_from_seed)
+# (site, the call of that site that fails): the train leg's plan
+CHAOS_TRAIN_FAULTS = (("checkpoint.write", 2), ("checkpoint.rename", 4))
+# (site, call, mode): the trace leg's plan. The analyzer's writes, in
+# order: the cluster state (a fault there is caught and logged), the
+# report, the processing state.
+CHAOS_TRACE_FAULTS = (("file.write", 1, "torn"), ("file.rename", 2, "error"))
+# a leaf of the resumed state against the uninterrupted one where an op
+# on the path had no deterministic CUDA mode (else they are bit-equal)
+CHAOS_TOL = TRAIN_PARAM_TOL
+
+
+def chaos_schedule(total: int, save_every: int, faults) -> dict:
+    """What ``train_loop(total_steps=total, save_every=save_every)``
+    restarted on one checkpoint directory until it ends does under a plan
+    that fails each ``(site, n)`` of ``faults`` at that site's n-th call,
+    from the plan alone: each run's first and last step, the site that
+    ended it (None for the last) and the latest complete save after it;
+    the steps run (replays included) and the steps replayed. A save is
+    one ``checkpoint.write`` then one ``checkpoint.rename`` call, at every
+    multiple of ``save_every`` and once more at the end."""
+    fire = dict(faults)
+    calls = {"checkpoint.write": 0, "checkpoint.rename": 0}
+    saved, runs, steps = 0, [], 0
+    while True:
+        start, end, fault = saved, saved, None
+        points = [p for p in range(start + 1, total + 1)
+                  if p % save_every == 0] + [total]
+        for point in points:
+            end = point
+            for site in ("checkpoint.write", "checkpoint.rename"):
+                calls[site] += 1
+                if calls[site] == fire.get(site):
+                    fault = site
+                    break
+            if fault:
+                break
+            saved = point
+        steps += end - start
+        runs.append({"from": start, "to": end, "fault": fault,
+                     "latest": saved})
+        if fault is None:
+            return {"runs": runs, "steps": steps, "replayed": steps - total}
+
+
+def chaos_plan(specs):
+    """A port ``FaultPlan`` of ``(site, call[, mode])`` specs."""
+    from vainplex_openclaw_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec(site, steps=(n,), mode=(rest or ("error",))[0])
+                      for site, n, *rest in specs], seed=0)
+
+
+def ckpt_listing(ckpt_dir: str) -> dict:
+    """A checkpoint directory's visible steps, its ``*.tmp`` files and the
+    visible steps without a manifest."""
+    from vainplex_openclaw_tpu_torch.models import checkpoint
+
+    steps = checkpoint.all_steps(ckpt_dir)
+    return {"steps": steps,
+            "tmp": sorted(f for f in os.listdir(ckpt_dir)
+                          if f.endswith(".tmp")),
+            "no_manifest": [s for s in steps if not os.path.exists(
+                os.path.join(ckpt_dir, f"step-{s}.manifest.json"))]}
+
+
+def chaos_train_leg(device: str = "cuda", steps: int = CHAOS_STEPS,
+                    save_every: int = CHAOS_SAVE_EVERY,
+                    batch: int = CHAOS_BATCH) -> dict:
+    """``triage-tiny`` from the JAX-key init, ``steps`` AdamW steps of
+    ``batch`` on ``device``: once straight through, once under
+    ``CHAOS_TRAIN_FAULTS`` restarted on its directory after each
+    ``FaultError`` until it ends, both under
+    ``torch.use_deterministic_algorithms(True)``. After each fault: no
+    ``*.tmp`` file, the latest step the schedule's, every visible step's
+    manifest present. Then one fault at each site, K1 launched n_layers x
+    the schedule's steps, and the final params, AdamW moments and counts
+    of the two runs bit-equal (each leaf within ``CHAOS_TOL`` instead
+    where an op warned that it has no deterministic mode)."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import checkpoint, train
+    from vainplex_openclaw_tpu_torch.models.data import (
+        TextClassificationData, synthetic_split)
+    from vainplex_openclaw_tpu_torch.models.encoder import (
+        flatten_tree, init_params_from_seed, params_from_numpy)
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.resilience import FaultError, installed
+
+    cfg = TINY_CONFIG
+    init = init_params_from_seed(cfg, CHAOS_INIT_SEED)
+    train_ex, _ = synthetic_split(4096, 512, seed=0)
+    schedule = chaos_schedule(steps, save_every, CHAOS_TRAIN_FAULTS)
+
+    def loop(ckpt_dir: str):
+        state = train.init_state(params_from_numpy(init, cfg, device,
+                                                   cast=False),
+                                 train.make_optimizer())
+        data = TextClassificationData(train_ex, batch, seq_len=cfg.seq_len,
+                                      vocab_size=cfg.vocab_size, seed=0)
+        return train.train_loop(state, data, cfg, total_steps=steps,
+                                ckpt_dir=ckpt_dir, save_every=save_every)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            t = time.perf_counter()
+            straight = loop(os.path.join(tmp, "straight"))
+            sync()
+            straight_s = time.perf_counter() - t
+            chaos_dir = os.path.join(tmp, "chaos")
+            plan = chaos_plan(CHAOS_TRAIN_FAULTS)
+            sync()
+            fa.launches = 0
+            t = time.perf_counter()
+            with installed(plan):
+                for want in schedule["runs"]:
+                    try:
+                        state, fault = loop(chaos_dir), None
+                    except FaultError as exc:
+                        state, fault = None, str(exc)
+                    listing = ckpt_listing(chaos_dir)
+                    runs.append({"fault": fault, **listing,
+                                 "latest": checkpoint.latest_step(chaos_dir)})
+                    check((fault is None) == (want["fault"] is None)
+                          and (fault is None
+                               or f"[fault:{want['fault']}]" in fault),
+                          f"chaos: run {len(runs)} ended with {fault}, the "
+                          f"plan's schedule says {want['fault']}")
+                    check(not listing["tmp"] and not listing["no_manifest"]
+                          and runs[-1]["latest"] == want["latest"],
+                          f"chaos: after run {len(runs)}: {runs[-1]}, the "
+                          f"schedule's latest step {want['latest']}")
+            sync()
+            chaos_s = time.perf_counter() - t
+            launches = fa.launches
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    nondeterministic = sorted({str(w.message) for w in caught
+                               if "deterministic" in str(w.message)})
+    check(state is not None, "chaos: the last run did not end")
+    check(plan.fired == {site: 1 for site, _ in CHAOS_TRAIN_FAULTS},
+          f"chaos: the plan fired {plan.fired}")
+    want_k1 = cfg.n_layers * schedule["steps"]
+    check(launches == want_k1,
+          f"chaos: K1 launches {launches} != {cfg.n_layers} layers x "
+          f"{schedule['steps']} steps run")
+    check(state.step == straight.step == steps,
+          f"chaos: steps {state.step} and {straight.step} != {steps}")
+    got, want = (flatten_tree(s.to_tree()) for s in (state, straight))
+    unequal = {}
+    for key, w in want.items():
+        g = got[key]
+        g, w = (torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
+                                else x.detach()).cpu() for x in (g, w))
+        if not torch.equal(g, w):
+            unequal[key] = float((g.double() - w.double()).abs().max())
+    if nondeterministic:
+        bad = {k: e for k, e in unequal.items() if e > CHAOS_TOL}
+        check(not bad, f"chaos: resumed leaves beyond {CHAOS_TOL}: {bad}")
+    else:
+        check(not unequal, f"chaos: resumed leaves differ from the "
+                           f"uninterrupted run: {unequal}")
+    return {"steps": steps, "save_every": save_every, "batch": batch,
+            "config": "TINY_CONFIG bf16, init JAX PRNGKey(7)",
+            "plan": [list(f) for f in CHAOS_TRAIN_FAULTS],
+            "fired": dict(plan.fired), "runs": runs,
+            "schedule": schedule, "steps_run": schedule["steps"],
+            "replayed_steps": schedule["replayed"],
+            "k1_launches": launches, "k1_formula": want_k1,
+            "leaves": len(want), "unequal_leaves": unequal,
+            "bit_equal": not unequal, "nondeterministic_ops": nondeterministic,
+            "straight_s": straight_s, "chaos_s": chaos_s}
+
+
+def state_files(state_dir: str) -> dict:
+    """Each analyzer file in ``state_dir``: "absent", "parses" or "torn";
+    and every other file there (a ``.tmp<pid>`` left behind)."""
+    from vainplex_openclaw_tpu_torch.cortex.trace_analyzer import (
+        clusters, report)
+
+    names = (report.REPORT_FILE, report.STATE_FILE,
+             clusters.CLUSTER_STATE_FILE)
+    out = {}
+    for name in names:
+        path = os.path.join(state_dir, name)
+        if not os.path.exists(path):
+            out[name] = "absent"
+            continue
+        try:
+            with open(path, encoding="utf-8") as f:
+                json.load(f)
+            out[name] = "parses"
+        except ValueError:
+            out[name] = "torn"
+    others = sorted(set(os.listdir(state_dir)) - set(names)) \
+        if os.path.isdir(state_dir) else []
+    return {"files": out, "others": others}
+
+
+def chaos_trace_leg(raws: list, devices=("cuda", "cpu")) -> dict:
+    """The analyzer's run over ``raws`` on each device under
+    ``CHAOS_TRACE_FAULTS`` (a torn write, a failed rename), then again
+    without a plan on the same state dir. After the faulted run every
+    state and report file parses or is absent and nothing else is left;
+    the exception, the faults fired, the error log, the files' states and,
+    after the rerun, the report (less its timing fields), the cluster
+    state and the processing state are equal on every device."""
+    import tempfile
+
+    from vainplex_openclaw_tpu_torch.resilience import FaultError, installed
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, dev in enumerate(devices):
+            state_dir = os.path.join(tmp, f"{i}_{dev}")
+            plan = chaos_plan(CHAOS_TRACE_FAULTS)
+            log = RecordingLogger()
+            t = time.perf_counter()
+            with installed(plan):
+                try:
+                    trace_run(raws, state_dir, dev, log=log)
+                    raised = None
+                except FaultError as exc:
+                    raised = str(exc)
+            faulted_s = time.perf_counter() - t
+            left = state_files(state_dir)
+            check(raised is not None and plan.fired == {
+                site: 1 for site, *_ in CHAOS_TRACE_FAULTS},
+                f"chaos trace {dev}: raised {raised}, fired {plan.fired}")
+            check("torn" not in left["files"].values() and not left["others"],
+                  f"chaos trace {dev}: the faulted run left {left}")
+            rerun = trace_run(raws, state_dir, dev)
+            out[dev] = {"raised": raised, "fired": dict(plan.fired),
+                        "errors": log.messages("error"), "left": left,
+                        "faulted_s": faulted_s, "rerun": rerun}
+    first = out[devices[0]]
+    for dev in devices[1:]:
+        for key in ("raised", "fired", "errors", "left"):
+            check(out[dev][key] == first[key],
+                  f"chaos trace: {key} {first[key]} on {devices[0]}, "
+                  f"{out[dev][key]} on {dev}")
+        for part in ("report", "clusters", "state"):
+            check(out[dev]["rerun"]["files"][part]
+                  == first["rerun"]["files"][part],
+                  f"chaos trace: the rerun's {part} differs {devices[0]} "
+                  f"vs {dev}")
+    return {"plan": [list(f) for f in CHAOS_TRACE_FAULTS],
+            "events": len(raws), "raised": first["raised"],
+            "fired": first["fired"], "errors": first["errors"],
+            "left_after_fault": first["left"],
+            "equal_across": list(devices),
+            "faulted_s": {d: out[d]["faulted_s"] for d in devices},
+            "rerun": {d: trace_summary(out[d]["rerun"]) for d in devices}}
+
+
+def phase_chaos(smi: str) -> dict:
+    """The fault plans on the card: the train leg (``chaos_train_leg``)
+    and the trace leg (``chaos_trace_leg`` over run 1 of
+    ``trace_corpora``, card against CPU)."""
+    t0 = time.perf_counter()
+    trained = chaos_train_leg()
+    traced = chaos_trace_leg(trace_corpora()[0])
+    record = {"phase": "chaos", "nvidia_smi": smi, "train": trained,
+              "trace": traced, "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 # ── the offline search loops ─────────────────────────────────────────
 
 SEARCH_LENGTHS = (64, LONG_L)  # the serve bucket and the long family's
@@ -4373,11 +4755,13 @@ def served_cases(lengths) -> list:
     against the plain version before its row may be written. Not the
     ``TRACE_TRIAGE_CASES``: they differ from ``serve_path`` only in the
     batch, which a tile does not see, and the search's check walks one
-    (batch, head) slice at a time (65,536 of them at B=16384)."""
+    (batch, head) slice at a time (65,536 of them at B=16384). Nor the
+    ``WIDE_CASES``: the wide library has its own tiles."""
     from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
 
     buckets = {pow2_bucket(L) for L in lengths}
     cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
+             and c not in WIDE_CASES
              and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
     if pow2_bucket(L) in buckets:
@@ -4848,6 +5232,9 @@ def dryrun_launches(graft: dict, kernel: str) -> dict:
 
 
 def main() -> int:
+    # cuBLAS reads its workspace setting once, at the first product; the
+    # chaos phase's deterministic mode needs this one
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     info = phase_device()
     try:
         import torch
@@ -4860,6 +5247,7 @@ def main() -> int:
         served = phase_serve()
         timing = phase_timing()
         worst_stats = phase_kernels_stats()
+        wide = phase_timing_wide(info["nvidia_smi"])
         phase_ring()
         served_long = phase_serve_long(info["nvidia_smi"])
         timing_stats = phase_timing_stats()
@@ -4875,6 +5263,7 @@ def main() -> int:
         lifecycle = phase_lifecycle(info["nvidia_smi"])
         classified = phase_classify(info["nvidia_smi"])
         traced = phase_trace_analyzer(info["nvidia_smi"])
+        chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
         phase_plan_search(info["nvidia_smi"])
@@ -4924,6 +5313,8 @@ def main() -> int:
             "classify": classified["k1_launches"],
             "trace_analyzer": sum(traced[run]["card"]["k1_launches"]
                                   for run in TRACE_RUNS),
+            "chaos": chaos["train"]["k1_launches"]
+            + chaos["trace"]["rerun"]["cuda"]["k1_launches"],
             "graft_entry": graft["entry"]["k1_launches"],
             **dryrun_launches(graft, "k1")},
         "entry_shape": {"shape": graft["entry"]["k1"]["shape"],
@@ -4935,6 +5326,7 @@ def main() -> int:
                         "library_ms": graft["entry"]["k1"]["library_ms"]},
         "trace_analyzer_shape": trace_k1_line(traced),
         "dh8_shapes": dh8_line(graft, stats=False),
+        "wide_shapes": wide_line(wide, stats=False),
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
@@ -4981,7 +5373,8 @@ def main() -> int:
          "launches_by_path": {"serve_long": served_long["launches"],
                               "long_moe": long_moe["k2_launches"],
                               **dryrun_launches(graft, "k2")},
-         "dh8_shapes": dh8_line(graft, stats=True)},
+         "dh8_shapes": dh8_line(graft, stats=True),
+         "wide_shapes": wide_line(wide, stats=True)},
         {"name": "levenshtein", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": similarity["k3_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in
@@ -4992,7 +5385,8 @@ def main() -> int:
          "launches_by_path": {
              "similarity": similarity["k3_launches"],
              "trace_analyzer": sum(traced[run]["card"]["k3_launches"]
-                                   for run in TRACE_RUNS)},
+                                   for run in TRACE_RUNS),
+             "chaos": chaos["trace"]["rerun"]["cuda"]["k3_launches"]},
          "trace_analyzer_shape": trace_k3_line(traced),
          "dp_cell_bound_ms": k3["dp_cell_bound_ms"],
          "l128_shape": {"shape": [4096, SIM_LEN], "ms": k3_l128["kernel_ms"],

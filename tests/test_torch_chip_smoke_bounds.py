@@ -158,9 +158,11 @@ def test_make_qkv_without_a_mask():
                          ids=lambda c: c[0])
 def test_kernel_cases_are_shapes_the_kernel_takes(case):
     _, B, H, Lq, Lk, Dh, causal, kind = case
-    # a compiled width, or a Dh <= 128 the wrapper zero-pads to one
-    assert min(B, H, Lq, Lk, Dh) >= 1 and kernel_head_dim(Dh) in \
-        COMPILED_HEAD_DIMS
+    # a compiled width, a Dh <= 128 the wrapper zero-pads to one, or above
+    # 128 a multiple of 128 the wide library runs
+    width = kernel_head_dim(Dh)
+    assert min(B, H, Lq, Lk, Dh) >= 1 and (
+        width in COMPILED_HEAD_DIMS or (width > 128 and width % 128 == 0))
     assert Lq == Lk or not causal
     assert kind in (False, "prefix", "last_tile", "holes")
 
@@ -216,6 +218,39 @@ def test_head_dim_cases_cover_the_compiled_and_padded_routes():
                    and not c[6] for c in cases)
     assert ("dryrun_ring_shard_dh8", 1, 2, 16, 16, 8, False, False) in \
         chip_smoke.STATS_CASES
+
+
+def test_wide_cases_cover_head_dims_above_128_in_both_phases():
+    """K1 and K2 hold Dh 129, 256 and 384 (padded, exact, padded), with
+    fully masked rows, a causal case and B=2 H=2 L=2048 at 256; the tile
+    search never takes them, and the timing phase times every non-causal
+    one."""
+    for cases in (chip_smoke.KERNEL_CASES, chip_smoke.STATS_CASES):
+        assert set(chip_smoke.WIDE_CASES) <= set(cases)
+    wide = chip_smoke.WIDE_CASES
+    assert {c[5] for c in wide} == {129, 256, 384}
+    assert all(c[7] == "prefix" for c in wide)  # fully masked last rows
+    assert any(c[6] for c in wide)
+    assert ("head_dim_256_long", 2, 2, 2048, 2048, 256, False, "prefix") \
+        in wide
+    assert not set(wide) & set(chip_smoke.served_cases((64, 128, 256, 2048,
+                                                        16384)))
+
+
+def test_wide_line_lists_every_timed_shape_without_a_path():
+    timed = [{"name": "head_dim_129_wide", "shape": [4, 2, 100, 100, 129],
+              "dtype": "bfloat16", "stats": stats, "kernel_ms": 0.01,
+              "bound_ms": 0.001, "bound_by": "bytes", "plain_ms": 0.1,
+              "library_ms": None if stats else 0.02,
+              "sdpa_normalized_ms": 0.02} for stats in (False, True)]
+    k1 = chip_smoke.wide_line({"shapes": timed}, stats=False)
+    k2 = chip_smoke.wide_line({"shapes": timed}, stats=True)
+    assert len(k1) == len(k2) == 1
+    for line in (k1[0], k2[0]):
+        assert line["launches"] is None and line["path"] is None
+        assert {"ms", "bound_ms", "bound_by", "plain_ms", "library_ms"} <= \
+            set(line)
+    assert k2[0]["sdpa_normalized_ms"] == 0.02 and k1[0]["library_ms"] == 0.02
 
 
 def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch):

@@ -12,7 +12,9 @@ is held against the same plain version on the card by ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -150,8 +152,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     if bad == "causal_lengths":
         k = v = torch.zeros((2, 2, 12, 16))
         causal = True
-    elif bad == "head_dim":  # above the widest compiled width, 128
-        q = k = v = torch.zeros((2, 2, 8, 129))
+    elif bad == "head_dim":  # k and v at another head dim than q
+        k = v = torch.zeros((2, 2, 8, 129))
     elif bad == "dtype":
         q = k = v = torch.zeros((2, 2, 8, 16), dtype=torch.float16)
     elif bad == "mixed_dtype":
@@ -328,16 +330,18 @@ def test_stats_fully_masked_row_counts_real_keys(no_kernel_build):
     assert (np.asarray(l_jax)[1] == 104.0).all()
 
 
-# ── head dims: compiled widths, the padded route, the refusal above 128 ──
+# ── head dims: compiled widths, the padded route, the wide library ──
 
 
 def test_kernel_head_dim_is_the_next_compiled_width():
+    """Up to 128 the next compiled width; above it the next multiple of
+    128, the width the wide library runs."""
     assert fa.COMPILED_HEAD_DIMS == (8, 16, 32, 64, 128)
     assert [fa.kernel_head_dim(d) for d in (1, 7, 8, 9, 16, 24, 33, 100,
                                             128)] == \
         [8, 8, 8, 16, 16, 32, 64, 128, 128]
-    with pytest.raises(ValueError, match="head dim 129"):
-        fa.kernel_head_dim(129)
+    assert [fa.kernel_head_dim(d) for d in (129, 200, 256, 257, 300, 384)] \
+        == [256, 256, 256, 384, 384, 384]
 
 
 @pytest.mark.parametrize("Dh", [3, 8, 12, 24, 48, 96])
@@ -362,21 +366,111 @@ def test_padded_route_leaves_every_output_unchanged(Dh, dtype):
     assert not acc_p[..., Dh:].any()
 
 
-def test_head_dim_above_128_is_refused_where_jax_computes_it():
-    """The open deviation: the JAX kernel takes any Dh (here 129 through
-    the interpreter); the port's wrapper refuses Dh > 128 on every device,
-    while its plain versions compute it."""
+def test_head_dim_above_128_is_refused_where_jax_computes_it(
+        no_kernel_build):
+    """The deviation this test pinned is repaired: where the JAX kernel
+    takes Dh 129 (through the interpreter), the port's wrapper computes it
+    too, in both modes, instead of refusing it."""
     q, k, v, mask = make_inputs(129, 1, 1, 8, 8, 129, [8])
-    got = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
-                              jnp.asarray(mask), interpret=True)
-    assert got.shape == (1, 1, 8, 129)
     args = [torch.from_numpy(x) for x in (q, k, v)]
     for stats in (False, True):
-        with pytest.raises(ValueError, match="head dim 129 > 128"):
-            fa.flash_attention(*args, torch.from_numpy(mask),
-                               return_stats=stats)
-    plain = fa.flash_attention_reference(*args, torch.from_numpy(mask))
-    np.testing.assert_allclose(plain.numpy(), np.asarray(got), atol=1e-5)
+        want = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                   jnp.asarray(mask), interpret=True,
+                                   return_stats=stats)
+        got = fa.flash_attention(*args, torch.from_numpy(mask),
+                                 return_stats=stats)
+        for g, w in zip(got if stats else (got,), want if stats else (want,)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=0)
+
+
+# (Dh, B, H, L, valid keys per batch row): L a multiple of the JAX block, so
+# no padded key counts in JAX's l; the last row of each case fully masked
+WIDE_CASES = [(129, 3, 2, 64, [64, 23, 0]), (256, 3, 2, 64, [64, 40, 0]),
+              (300, 2, 2, 64, [17, 0])]
+WIDE_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("return_stats", [False, True],
+                         ids=["normalized", "stats"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: f"dh{c[0]}")
+def test_wide_head_dims_match_pallas_interpreter(case, dtype, return_stats,
+                                                 no_kernel_build):
+    """Head dims above 128, the wrapper on the CPU against JAX's
+    ``flash_attention(..., interpret=True)`` on every row, a masked and a
+    fully masked one included: K1's output, or K2's acc, m and l; fp32
+    within 1e-5, bf16 within 5e-2."""
+    Dh, B, H, L, lengths = case
+    q, k, v, mask = make_inputs(Dh + 1, B, H, L, L, Dh, lengths)
+    tdt, jdt = DTYPES[dtype]
+    want = jax_flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), jnp.asarray(mask),
+        interpret=True, return_stats=return_stats)
+    got = fa.flash_attention(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        torch.from_numpy(mask), return_stats=return_stats)
+    got, want = (got, want) if return_stats else ((got,), (want,))
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        g = g.float().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(w.astype(jnp.float32)),
+                                   atol=WIDE_TOL[dtype], rtol=0)
+    if return_stats:  # the fully masked row: m = -1e30, l = the L keys
+        assert (got[1][-1].numpy() == np.float32(-1e30)).all()
+        assert (got[2][-1].numpy() == L).all()
+
+
+class _WideLib:
+    """The wide library's C entry points, recording each call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_attention_fwd(self, *args):
+        self.calls.append(("k1", args))
+        return 0
+
+    def flash_attention_stats_fwd(self, *args):
+        self.calls.append(("k2", args))
+        return 0
+
+
+@pytest.mark.parametrize("return_stats", [False, True])
+def test_wide_launch_is_one_launch_of_the_wide_library(monkeypatch,
+                                                       return_stats):
+    """A launch at Dh 129 loads the wide library, passes the head dim
+    padded to 256 and the scale of 129, calls the kernel once and counts
+    one launch; tiles other than the wide kernels' own raise."""
+    lib = _WideLib()
+    loads = []
+
+    def load_library(name, tiles=None, defines=()):
+        loads.append((name, tiles, tuple(defines)))
+        return lib
+
+    monkeypatch.setattr(_build, "load_library", load_library)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, mask = make_inputs(5, 2, 2, 40, 72, 129, [72, 9])
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    bias = fa._bias(torch.from_numpy(mask), 2, 72, torch.device("cpu"))
+    before = (fa.launches, fa.stats_launches)
+    out = fa._launch(*args, bias, False, return_stats)
+    assert loads == [("flash_attention", None, _build.WIDE_DEFINES)]
+    assert [c[0] for c in lib.calls] == ["k2" if return_stats else "k1"]
+    assert list(lib.calls[0][1][-9:-4]) == [2, 2, 40, 72, 256]  # B..Dh
+    assert lib.calls[0][1][-2] == pytest.approx(1 / math.sqrt(129))
+    after = (fa.launches, fa.stats_launches)
+    assert after == ((before[0], before[1] + 1) if return_stats
+                     else (before[0] + 1, before[1]))
+    first = out[0] if return_stats else out
+    assert first.shape[-1] == 129
+    with pytest.raises(ValueError, match="own tiles"):
+        fa._launch(*args, bias, False, return_stats, tiles=(128, 64))
 
 
 @pytest.mark.parametrize("return_stats", [False, True])

@@ -102,7 +102,9 @@ def test_subprocess_import_leaves_no_jax_module():
                 "signal_patterns",
                 "vainplex_openclaw_tpu_torch.cortex.trace_analyzer.source",
                 "vainplex_openclaw_tpu_torch.cortex.trace_analyzer."
-                "nats_source"):
+                "nats_source",
+                "vainplex_openclaw_tpu_torch.resilience.faults",
+                "vainplex_openclaw_tpu_torch.models.prng"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

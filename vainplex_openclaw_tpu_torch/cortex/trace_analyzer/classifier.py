@@ -13,9 +13,9 @@ duck-typed: it needs ``.signal``, ``.summary``, ``.evidence`` and
 chain needs ``.id``, ``.agent``, ``.session`` and ``.events``.
 
 With no checkpoint the JAX function falls back to random weights from
-``PRNGKey(7)``; the port cannot draw those, so it falls back to its own
-seeded init (``torch.Generator`` seed 7), and decisions match JAX's only
-with a checkpoint.
+``PRNGKey(7)``; so does the port, through the numpy copy of JAX's key
+derivation (``models.encoder.init_params_from_seed``), so its decisions
+match JAX's with or without a checkpoint.
 
 One deliberate deviation: JAX's ``classify_findings`` catches any
 exception from ``local_triage`` and falls back to rule severity. Here it
@@ -33,8 +33,8 @@ from typing import Callable, Optional
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ...models.encoder import EncoderConfig, forward, init_params, \
-    params_from_numpy
+from ...models.encoder import EncoderConfig, forward, \
+    init_params_from_seed, params_from_numpy
 from ...models.pretrained import load_pretrained
 from ...models.tokenizer import encode_texts
 from ...ops.similarity import pad_rows, pow2_bucket
@@ -129,8 +129,7 @@ def keep_logits(findings: list, checkpoint_dir: Optional[str] = None,
     loaded = load_pretrained(checkpoint_dir, device=dev)
     if loaded is None:
         cfg = EncoderConfig()
-        params = params_from_numpy(
-            init_params(cfg, torch.Generator().manual_seed(7)), cfg, dev)
+        params = params_from_numpy(init_params_from_seed(cfg, 7), cfg, dev)
     else:
         cfg, params = loaded
     tokens = encode_texts([finding_text(f) for f in findings], cfg.seq_len,

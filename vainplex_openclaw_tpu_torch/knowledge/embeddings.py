@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models.encoder import (EncoderConfig, forward, init_params,
-                              params_from_numpy)
+from ..models.encoder import (EncoderConfig, forward,
+                              init_params_from_seed, params_from_numpy)
 from ..models.pretrained import load_pretrained
 from ..models.tokenizer import encode_texts
 from ..ops.similarity import pad_rows, pow2_bucket
@@ -124,9 +124,9 @@ class LocalEmbeddings:
     bag-of-tokens, cosine top-k by one matmul.
 
     - The learned half runs the shipped checkpoint (or ``checkpoint_dir``)
-      on ``device``; without one it falls back to the port's own seeded
-      init (``torch.Generator`` seed ``seed``). The model loads at first
-      use, under its own lock.
+      on ``device``; without one it falls back to the weights JAX draws
+      from ``PRNGKey(seed)`` (``init_params_from_seed``). The model loads
+      at first use, under its own lock.
     - ``_embed`` pads the batch to a power of two (zero-token rows pool to
       nothing and are sliced away); the bag-of-tokens half is one flat
       scatter-add.
@@ -198,9 +198,8 @@ class LocalEmbeddings:
                                               device=self.device)
             if self._model is None:  # no checkpoint anywhere
                 cfg = EncoderConfig()
-                gen = torch.Generator().manual_seed(self.seed)
                 self._model = (cfg, params_from_numpy(
-                    init_params(cfg, gen), cfg, self.device))
+                    init_params_from_seed(cfg, self.seed), cfg, self.device))
             return self._model
 
     def _embed(self, texts: list[str]) -> np.ndarray:

@@ -14,7 +14,10 @@ the numpy array the file holds, cast to its manifest dtype.
 leaves as ``uint16`` views with ``bfloat16`` in the manifest, the manifest
 renamed into place before the npz (``latest_step`` keys on the npz, so a
 visible step always has its dtypes), each through a temporary file, and
-steps beyond ``keep`` pruned oldest first.
+steps beyond ``keep`` pruned oldest first. Its fault sites are the JAX
+writer's (``resilience/faults.py``): ``checkpoint.write`` after the npz is
+written and before any rename, ``checkpoint.rename`` between the manifest's
+rename and the npz's; a failed save removes its temporary files.
 
 :func:`restore_checkpoint` refuses a checkpoint whose leaves are not
 exactly those of its ``like`` template, as the JAX restore does, and with a
@@ -34,6 +37,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..resilience.faults import maybe_fail
 from .encoder import flatten_tree, unflatten_tree
 
 _STEP_RE = re.compile(r"^step-(\d+)\.npz$")
@@ -122,12 +126,14 @@ def save_checkpoint(ckpt_dir: str, tree, step: int, keep: int = 3,
             with os.fdopen(fd, "wb") as f:
                 fd = None
                 np.savez(f, **arrays)
+                maybe_fail("checkpoint.write")  # before any rename
         finally:
             for leaked in (fd, mfd):
                 if leaked is not None:
                     os.close(leaked)
         os.replace(mtmp, os.path.join(ckpt_dir,
                                       f"step-{step}.manifest.json"))
+        maybe_fail("checkpoint.rename")  # between the two renames
         os.replace(tmp, final)
     except BaseException:
         for t in (tmp, mtmp):

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
+from . import prng
 from .moe import (MoEConfig, load_balance_loss, moe_ffn_parts, moe_init_std,
                   moe_shapes)
 
@@ -114,6 +115,48 @@ def init_params(cfg: EncoderConfig, generator: torch.Generator) -> dict:
             std = 1.0 / math.sqrt(shape[0])
         flat[key] = torch.randn(shape, generator=generator,
                                 dtype=torch.float32) * std
+    return unflatten_tree(flat)
+
+
+def init_params_from_seed(cfg: EncoderConfig, seed: int) -> dict:
+    """The fp32 tree the JAX package's ``init_params(PRNGKey(seed), cfg)``
+    draws, as CPU tensors: the same keys in the same order
+    (``split(key, 6 + 8 n_layers)``: the embeddings, the four heads, then
+    per layer q, k, v, o and the MLP's w1, w2, or one key that
+    ``init_moe_params`` splits in three for gate, w1, w2), each leaf
+    ``normal(key, shape) * scale`` in float32 (``models/prng.py``). The
+    draws are JAX's within 1e-6 per unit normal. The fallbacks that run
+    without a checkpoint use it, as JAX seeds ``PRNGKey`` there; training
+    from scratch draws from a ``torch.Generator`` (:func:`init_params`)."""
+    keys = iter(prng.split(prng.prng_key(seed), 6 + cfg.n_layers * 8))
+
+    def draw(key, shape, scale):
+        return torch.from_numpy(prng.normal(key, shape) * np.float32(scale))
+
+    flat = {}
+    for name in ("embed/tok", "embed/pos", "heads/severity", "heads/keep",
+                 "heads/mood", "heads/embed_proj"):
+        shape = param_shapes(cfg)[name]
+        scale = 0.02 if name.startswith("embed/") else 1 / math.sqrt(shape[0])
+        flat[name] = draw(next(keys), shape, scale)
+    flat["final_norm/scale"] = torch.ones(cfg.d_model)
+    for i in range(cfg.n_layers):
+        for name in ("q", "k", "v", "o"):
+            flat[f"blocks/{i}/attn/{name}"] = draw(
+                next(keys), (cfg.d_model, cfg.d_model),
+                1 / math.sqrt(cfg.d_model))
+        for name in ("norm1", "norm2"):
+            flat[f"blocks/{i}/{name}/scale"] = torch.ones(cfg.d_model)
+        if cfg.n_experts > 0:
+            sub = prng.split(next(keys), 3)
+            for key, (name, shape) in zip(sub, moe_shapes(cfg.moe).items()):
+                flat[f"blocks/{i}/moe/{name}"] = draw(
+                    key, shape, moe_init_std(name, shape))
+        else:
+            for name, shape in (("w1", (cfg.d_model, cfg.d_ff)),
+                                ("w2", (cfg.d_ff, cfg.d_model))):
+                flat[f"blocks/{i}/mlp/{name}"] = draw(
+                    next(keys), shape, 1 / math.sqrt(shape[0]))
     return unflatten_tree(flat)
 
 

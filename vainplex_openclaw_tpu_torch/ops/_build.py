@@ -17,7 +17,9 @@ constants (``FLASH_WARPS`` query warps of 16 rows, ``FLASH_BN`` keys per
 tile; :func:`tile_defines`), so each (block_q, block_k) the kernel search
 tries or the block table names is a library of its own, keyed by its
 defines too. The default tiles add no define, and their library keeps the
-path it has without one.
+path it has without one. The flash kernels above head dim 128 are one more
+library of the same source, built with :data:`WIDE_DEFINES` and holding
+only those kernels; the kernel search never builds it.
 """
 
 from __future__ import annotations
@@ -67,6 +69,8 @@ SIGNATURES = {
 # The bf16 flash kernels' compiled default (block_q, block_k): 4 warps of
 # 16 query rows, 64 keys per tile (csrc/flash_attention_mma.cuh).
 DEFAULT_TILES = (64, 64)
+# The flash library of head dims above 128 (csrc/flash_attention.cu).
+WIDE_DEFINES = ("-DFLASH_WIDE=1",)
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -153,6 +157,20 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
                                 stderr=subprocess.STDOUT, text=True)
         builds += 1
         running[label(name, defs)] = (proc, out, tmp, time.perf_counter())
+    # one waiter a process, so each build's seconds end when its own nvcc
+    # does, not when the ones before it in the list do
+    done: dict = {}
+
+    def wait(key, proc):
+        log, _ = proc.communicate()
+        done[key] = (time.perf_counter(), log)
+
+    waiters = [threading.Thread(target=wait, args=(key, job[0]))
+               for key, job in running.items() if job[0] is not None]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     results = {}
     failures = []
     for key, (proc, out, tmp, t0) in running.items():
@@ -160,8 +178,8 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
             results[key] = {"path": out, "seconds": 0.0, "cached": True,
                             "ptxas": ""}
             continue
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+        end, log = done[key]
+        seconds = end - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"{key}: nvcc exited {proc.returncode}\n{log}")
@@ -174,11 +192,12 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
     return results
 
 
-def load_library(name: str, tiles=None) -> ctypes.CDLL:
+def load_library(name: str, tiles=None, defines: tuple = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` at the flash ``tiles``
-    (None: the compiled default), built first if needed; cached per
-    (name, tiles)."""
-    defines = tile_defines(tiles)
+    (None: the compiled default) and with ``defines`` (such as
+    :data:`WIDE_DEFINES`), built first if needed; cached per (name,
+    defines)."""
+    defines = tile_defines(tiles) + tuple(defines)
     key = (name, defines)
     with _lock:
         lib = _libs.get(key)

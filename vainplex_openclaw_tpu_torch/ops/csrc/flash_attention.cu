@@ -64,7 +64,15 @@
 // next compiled width: zero columns add nothing to q . k^T, and the output
 // columns that v's zero columns give are sliced away. So the softmax scale
 // is an argument (1/sqrt of the caller's Dh), not the template's width.
-// Dh > 128 is refused.
+// Dh > 128 runs in a library of its own, built with -DFLASH_WIDE (the
+// compiled widths above are then left out, and the kernel search never
+// builds it): the wrapper zero-pads Dh to Dp, a multiple of 128, and a
+// second grid axis walks slices of the output's head dim. Each block
+// computes the whole q . k^T of its key tile over Dp in chunks and adds p . v
+// for its own slice, so every slice of a query tile sees the same scores,
+// m and l (K2 writes m and l from slice 0), in one launch per call. Those
+// kernels (flash_fwd_fp32_wide below, flash_fwd_mma_wide in the header) load
+// their tiles without a ring: right first, not yet fast.
 //
 // fp32 inputs (the parity paths: no served configuration runs them) take
 // the scalar walk below: one thread per query row, the dot products on the
@@ -214,6 +222,156 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+#ifdef FLASH_WIDE
+constexpr int kWideBN = 32;  // keys per tile
+constexpr int kWideW = 64;   // head-dim chunk of q . k^T and output slice
+
+// One thread per query row as above, a slice of kWideW output columns per
+// block (blockIdx.y): acc holds the slice only, and q . k^T sums over Dp in
+// kWideW-wide chunks of q (from global memory) and k (in shared memory),
+// so no row of Dp values sits in registers.
+template <int W, bool CAUSAL, bool STATS>
+__global__ void __launch_bounds__(kBlockM)
+    flash_fwd_fp32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int H, int Lq, int Lk, int Dp,
+                        int n_qtiles, float scale) {
+  constexpr int kRowVecs = W / 4;  // float4 per row of a chunk
+
+  __shared__ __align__(16) float k_s[kWideBN * W];
+  __shared__ __align__(16) float v_s[kWideBN * W];
+  __shared__ float b_s[kWideBN];
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
+  const int slice = blockIdx.y;
+  const int b = bh / H;
+  const int row = q0 + threadIdx.x;
+  const bool active = row < Lq;
+  const int n_chunks = Dp / W;
+
+  const float* kp = k + static_cast<size_t>(bh) * Lk * Dp;
+  const float* vp = v + static_cast<size_t>(bh) * Lk * Dp + slice * W;
+  const float* bp = bias + static_cast<size_t>(b) * Lk;
+  const float* qrow = q + (static_cast<size_t>(bh) * Lq + (active ? row : 0)) * Dp;
+
+  float acc[W];
+#pragma unroll
+  for (int d = 0; d < W; ++d) acc[d] = 0.f;
+  float m = kNegInf;
+  float l = 0.f;
+
+  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kBlockM) : Lk;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kWideBN) {
+    const int n = min(kWideBN, kv_end - kv0);
+    float s[kWideBN];
+#pragma unroll
+    for (int j = 0; j < kWideBN; ++j) s[j] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();  // every thread is done with the last chunk (and tile)
+      float4* ks4 = reinterpret_cast<float4*>(k_s);
+      float4* vs4 = reinterpret_cast<float4*>(v_s);
+      for (int i = threadIdx.x; i < kWideBN * kRowVecs; i += kBlockM) {
+        const int r = i / kRowVecs;
+        const size_t src = static_cast<size_t>(kv0 + r) * Dp + (i % kRowVecs) * 4;
+        ks4[i] = r < n ? *reinterpret_cast<const float4*>(kp + src + c * W) : zero;
+        if (c == 0) vs4[i] = r < n ? *reinterpret_cast<const float4*>(vp + src) : zero;
+      }
+      if (c == 0) {
+        for (int j = threadIdx.x; j < kWideBN; j += kBlockM) b_s[j] = j < n ? bp[kv0 + j] : 0.f;
+      }
+      __syncthreads();
+      if (active) {
+        float qr[W];
+        const float4* qsrc = reinterpret_cast<const float4*>(qrow + c * W);
+#pragma unroll
+        for (int i = 0; i < kRowVecs; ++i) {
+          const float4 x = qsrc[i];
+          qr[4 * i] = x.x;
+          qr[4 * i + 1] = x.y;
+          qr[4 * i + 2] = x.z;
+          qr[4 * i + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 0; j < kWideBN; ++j) {  // unrolled: s stays in registers
+          const float* kr = k_s + j * W;
+          float dot = s[j];
+#pragma unroll
+          for (int d = 0; d < W; ++d) dot = fmaf(qr[d], kr[d], dot);
+          s[j] = dot;
+        }
+      }
+    }
+    if (!active) continue;  // the next tile's loads wait at __syncthreads above
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kWideBN; ++j) {
+      float sv = -INFINITY;  // past the tile's end: p is exactly 0
+      if (j < n) {
+        sv = s[j] * scale + b_s[j];
+        if (CAUSAL && kv0 + j > row) sv = kNegInf;
+      }
+      s[j] = sv;
+      cmax = fmaxf(cmax, sv);
+    }
+    // n >= 1, so the tile holds a live key and m_new is finite.
+    const float m_new = fmaxf(m, cmax);
+    const float corr = expf(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int d = 0; d < W; ++d) acc[d] *= corr;
+#pragma unroll
+    for (int j = 0; j < kWideBN; ++j) {
+      if (j < n) {
+        const float p = expf(s[j] - m_new);
+        l += p;
+        const float* vr = v_s + j * W;
+#pragma unroll
+        for (int d = 0; d < W; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+      }
+    }
+    m = m_new;
+  }
+
+  if (!active) return;
+  const size_t orow = static_cast<size_t>(bh) * Lq + row;
+  float4* dst = reinterpret_cast<float4*>(out + orow * Dp + slice * W);
+  const float lc = STATS ? 1.f : fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kRowVecs; ++i) {
+    dst[i] = make_float4(acc[4 * i] / lc, acc[4 * i + 1] / lc, acc[4 * i + 2] / lc,
+                         acc[4 * i + 3] / lc);
+  }
+  if constexpr (STATS) {
+    if (slice == 0) {
+      m_out[orow] = m;
+      l_out[orow] = l;
+    }
+  }
+}
+
+template <bool STATS>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias, void* out,
+                        float* m_out, float* l_out, int B, int H, int Lq, int Lk, int Dp,
+                        int causal, float scale, cudaStream_t stream) {
+  const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
+  const long long blocks = static_cast<long long>(B) * H * n_qtiles;
+  if (blocks <= 0 || blocks > INT_MAX || Dp % kWideW != 0 || Dp / kWideW > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = causal ? flash_fwd_fp32_wide<kWideW, true, STATS>
+                       : flash_fwd_fp32_wide<kWideW, false, STATS>;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(Dp / kWideW));
+  kernel<<<grid, kBlockM, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(out), m_out, l_out, H, Lq, Lk, Dp,
+      n_qtiles, scale);
+  return cudaGetLastError();
+}
+#endif  // FLASH_WIDE
+
 }  // namespace scalar
 
 // dtype 0 = fp32 (the scalar walk), 1 = bf16 (the tensor-core kernel).
@@ -245,6 +403,20 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(m_out);
   float* l = static_cast<float*>(l_out);
+#ifdef FLASH_WIDE
+  // Dh: the padded head dim, a multiple of 128 above 128.
+  if (Dh <= 128 || Dh % 128 != 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0:
+      return scalar::launch_wide<STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal,
+                                        scale, s);
+    case 1:
+      return mma::launch_wide<STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal, scale,
+                                     s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#else
   switch (Dh) {
     case 8:
       return launch<8, STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, dtype, causal, scale, s);
@@ -260,13 +432,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
     default:
       return cudaErrorInvalidValue;
   }
+#endif
 }
 
 }  // namespace
 
 // K1. q, out: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh], all contiguous, in one
 // dtype (0 = fp32, 1 = bf16); bias: [B, Lk] fp32; Dh one of the compiled
-// widths; scale the softmax scale (1/sqrt of the unpadded head dim).
+// widths (with -DFLASH_WIDE: a multiple of 128 above 128); scale the
+// softmax scale (1/sqrt of the unpadded head dim).
 // Launches on `stream` and returns cudaGetLastError() after the launch (0
 // on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -477,5 +477,244 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
   return cudaGetLastError();
 }
 
+#ifdef FLASH_WIDE
+// Head dims above 128 (a library built with -DFLASH_WIDE, which holds only
+// these kernels and none of the above). The wrapper zero-pads Dh to Dp, a
+// multiple of kWide = 128. A block owns a query tile (kBM rows) and one
+// kWide-wide slice of the output (blockIdx.y): for each key tile it
+// computes the whole q . k^T over Dp in kWide-wide chunks of q and k, runs
+// the online softmax as the kernel above does, and adds p . v for its own
+// slice of v only. Every slice of a query tile computes the same scores in
+// the same order, so its m and l are the same; K2 writes them from slice 0.
+// One launch per call. Tiles load synchronously (no ring): the scores of a
+// key tile take Dp / 128 loads of q and k, and a simple kernel that is
+// right comes first.
+constexpr int kWide = 128;
+
+template <int W, bool CAUSAL, bool STATS>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_mma_wide(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+                       void* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int H, int Lq, int Lk, int Dp, int n_qtiles,
+                       float scale) {
+  constexpr int kPitch = W + 8;      // 16 bytes of pad: no ldmatrix bank conflicts
+  constexpr int kSteps = W / 16;     // k-steps of one chunk of q . k^T
+  constexpr int kSTiles = kBN / 8;   // 8-key column tiles of the scores
+  constexpr int kOTiles = W / 8;     // 8-wide column tiles of the output slice
+  constexpr int kChunks = W / 8;     // 16-byte chunks in a row of a chunk
+  static_assert(W % 16 == 0, "the chunk width must be a multiple of 16");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = q_s + kBM * kPitch;
+  __nv_bfloat16* v_s = k_s + kBN * kPitch;
+  float* b_s = reinterpret_cast<float*>(v_s + kBN * kPitch);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x / n_qtiles;
+  const int q0 = (blockIdx.x % n_qtiles) * kBM;
+  const int slice = blockIdx.y;
+  const int b = bh / H;
+  const int n_chunks = Dp / W;
+  const __nv_bfloat16* qp = q + static_cast<size_t>(bh) * Lq * Dp;
+  const __nv_bfloat16* kp = k + static_cast<size_t>(bh) * Lk * Dp;
+  const __nv_bfloat16* vp = v + static_cast<size_t>(bh) * Lk * Dp + slice * W;
+  const float* bp = bias + static_cast<size_t>(b) * Lk;
+
+  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kBM) : Lk;
+  const int n_tiles = (kv_end + kBN - 1) / kBN;
+
+  float o[kOTiles][4];
+#pragma unroll
+  for (int d = 0; d < kOTiles; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running max of rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;          // this lane's share of the running sums
+  const int wrow = q0 + warp * 16;
+  const int row0 = wrow + g;
+  const int row1 = row0 + 8;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * kBN;
+    float s[kSTiles][4];
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();  // every warp is done with the last chunk (and tile)
+      for (int i = tid; i < kBM * kChunks; i += kThreads) {
+        const int r = i / kChunks;
+        const int cc = (i % kChunks) * 8;
+        const bool live = q0 + r < Lq;
+        cp_async_16(smem_u32(q_s + r * kPitch + cc),
+                    qp + static_cast<size_t>(live ? q0 + r : 0) * Dp + c * W + cc, live);
+      }
+      for (int i = tid; i < kBN * kChunks; i += kThreads) {
+        const int r = i / kChunks;
+        const int cc = (i % kChunks) * 8;
+        const bool live = kv0 + r < Lk;
+        const size_t src = static_cast<size_t>(live ? kv0 + r : 0) * Dp + cc;
+        cp_async_16(smem_u32(k_s + r * kPitch + cc), kp + src + c * W, live);
+        if (c == 0) cp_async_16(smem_u32(v_s + r * kPitch + cc), vp + src, live);
+      }
+      if (c == 0) {
+        for (int i = tid; i < kBN; i += kThreads)
+          cp_async_4(smem_u32(b_s + i), bp + min(kv0 + i, Lk - 1), kv0 + i < Lk);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t qf[4];
+        ldsm_x4(qf, smem_u32(q_s + (warp * 16 + (lane & 15)) * kPitch + kk * 16 +
+                             (lane >> 4) * 8));
+#pragma unroll
+        for (int p = 0; p < kSTiles / 2; ++p) {
+          uint32_t kb[4];
+          ldsm_x4(kb, smem_u32(k_s + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * kPitch +
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16(s[2 * p], qf, kb[0], kb[1]);
+          mma_bf16(s[2 * p + 1], qf, kb[2], kb[3]);
+        }
+      }
+    }
+    // Natural units: s * 1/sqrt(Dh) + bias; keys past Lk count nothing, a
+    // causal key after the query scores -1e30.
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + 8 * n + 2 * t + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        s[n][e] = fmaf(s[n][e], scale, b_s[8 * n + 2 * t + (e & 1)]);
+        if (key >= Lk) {
+          s[n][e] = -INFINITY;
+        } else if (CAUSAL && key > row) {
+          s[n][e] = kNegInf;
+        }
+      }
+    }
+    // Online softmax, as the kernel above: m in natural units, p = 2^((s -
+    // m) log2 e), the difference first so a row with no valid key yet
+    // (s == m == -1e30) gets p exactly 1.
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float c0 = ex2((m0 - mx0) * kLog2e);
+    const float c1 = ex2((m1 - mx1) * kLog2e);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int d = 0; d < kOTiles; ++d) {
+      o[d][0] *= c0;
+      o[d][1] *= c0;
+      o[d][2] *= c1;
+      o[d][3] *= c1;
+    }
+#pragma unroll
+    for (int n = 0; n < kSTiles; ++n) {
+      s[n][0] = ex2((s[n][0] - m0) * kLog2e);
+      s[n][1] = ex2((s[n][1] - m0) * kLog2e);
+      s[n][2] = ex2((s[n][2] - m1) * kLog2e);
+      s[n][3] = ex2((s[n][3] - m1) * kLog2e);
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+    }
+    // acc += bf16(p) . v over this block's slice of v.
+#pragma unroll
+    for (int kk = 0; kk < kSTiles / 2; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < W / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, smem_u32(v_s + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+                                   dp * 16 + (lane >> 4) * 8));
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const size_t orow0 = static_cast<size_t>(bh) * Lq + row0;
+  const size_t orow1 = orow0 + 8;
+  const int col = slice * W + 2 * t;
+  if constexpr (STATS) {
+    float* acc = static_cast<float*>(out);
+#pragma unroll
+    for (int d = 0; d < kOTiles; ++d) {
+      if (row0 < Lq)
+        *reinterpret_cast<float2*>(acc + orow0 * Dp + col + 8 * d) = make_float2(o[d][0], o[d][1]);
+      if (row1 < Lq)
+        *reinterpret_cast<float2*>(acc + orow1 * Dp + col + 8 * d) = make_float2(o[d][2], o[d][3]);
+    }
+    if (slice == 0 && t == 0) {
+      if (row0 < Lq) {
+        m_out[orow0] = m0;
+        l_out[orow0] = l0;
+      }
+      if (row1 < Lq) {
+        m_out[orow1] = m1;
+        l_out[orow1] = l1;
+      }
+    }
+  } else {
+    __nv_bfloat16* o_ptr = static_cast<__nv_bfloat16*>(out);
+    const float lc0 = fmaxf(l0, 1e-30f);
+    const float lc1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < kOTiles; ++d) {
+      if (row0 < Lq)
+        *reinterpret_cast<uint32_t*>(o_ptr + orow0 * Dp + col + 8 * d) =
+            pack_bf16(o[d][0] / lc0, o[d][1] / lc0);
+      if (row1 < Lq)
+        *reinterpret_cast<uint32_t*>(o_ptr + orow1 * Dp + col + 8 * d) =
+            pack_bf16(o[d][2] / lc1, o[d][3] / lc1);
+    }
+  }
+}
+
+// Dp: the zero-padded head dim, a multiple of kWide; scale: 1/sqrt of the
+// caller's head dim.
+template <bool STATS>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias, void* out,
+                        float* m_out, float* l_out, int B, int H, int Lq, int Lk, int Dp,
+                        int causal, float scale, cudaStream_t stream) {
+  constexpr int kSmem = ((kBM + 2 * kBN) * (kWide + 8)) * 2 + kBN * 4;
+  static_assert(kSmem <= 227 * 1024, "the wide tiles exceed 227 KB of shared memory");
+  const int n_qtiles = (Lq + kBM - 1) / kBM;
+  const long long blocks = static_cast<long long>(B) * H * n_qtiles;
+  if (blocks <= 0 || blocks > INT_MAX || Dp % kWide != 0 || Dp / kWide > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = causal ? flash_fwd_mma_wide<kWide, true, STATS>
+                       : flash_fwd_mma_wide<kWide, false, STATS>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(Dp / kWide));
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias), out, m_out, l_out,
+      H, Lq, Lk, Dp, n_qtiles, scale);
+  return cudaGetLastError();
+}
+#endif  // FLASH_WIDE
+
 }  // namespace mma
 }  // namespace

@@ -32,16 +32,18 @@ library cannot be built or loaded, or the launch fails, it raises. There is
 no fallback from the kernel to the plain version. The library picks its
 kernel by dtype alone: bf16 runs on the tensor cores
 (``csrc/flash_attention_mma.cuh``), fp32 on a scalar walk of the CUDA cores
-(a tensor-core fp32 path would be TF32). The kernel masks its own ragged
-edge instead of padding.
+(a tensor-core fp32 path would be TF32), in the library of the head dim
+(below). The kernel masks its own ragged edge instead of padding.
 
-Head dims. The kernels are compiled for Dh 8, 16, 32, 64 and 128
-(:data:`COMPILED_HEAD_DIMS`). A launch at any other Dh up to 128 zero-pads
-q, k and v to the next compiled width (:func:`kernel_head_dim`), passes
-the softmax scale of the real Dh, and slices the padded output columns
-away: zero columns add nothing to q·kᵀ. The plain versions take any Dh;
-:func:`flash_attention` refuses Dh > 128 on every device, where the JAX
-kernel takes it (no configuration of the repo has one).
+Head dims. Any Dh runs, as in the JAX kernel. The kernels are compiled
+for Dh 8, 16, 32, 64 and 128 (:data:`COMPILED_HEAD_DIMS`). A launch at any
+other Dh zero-pads q, k and v to :func:`kernel_head_dim` (the next compiled
+width up to 128, else the next multiple of 128), passes the softmax scale
+of the real Dh, and slices the padded output columns away: zero columns
+add nothing to q·kᵀ. Above 128 the launch goes to a library of its own
+(``_build.WIDE_DEFINES``) whose kernels walk slices of the output's head
+dim (128 wide in bf16, 64 in fp32) on a second grid axis, in one launch
+per call, at their own fixed tiles (the block table is not read there).
 
 The block table. The bf16 kernel's tiles (query rows by key columns) are
 compile-time constants, so each tile is a library of its own
@@ -95,6 +97,9 @@ NEG_INF = -1e30
 # csrc/flash_attention.cu's dispatch (the module docstring's "Head dims")
 COMPILED_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_HEAD_DIM = COMPILED_HEAD_DIMS[-1]
+# above MAX_HEAD_DIM a launch pads Dh to a multiple of this (the wide
+# library's output slice)
+WIDE_STEP = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset: K1 (normalized) and K2 (stats).
@@ -178,14 +183,14 @@ def launch_tiles(Lq: int, Lk: int, dtype: str) -> tuple:
 
 
 def kernel_head_dim(Dh: int) -> int:
-    """The compiled width a launch at head dim ``Dh`` runs: ``Dh`` itself
-    when compiled, else the next compiled width, with q, k and v
-    zero-padded to it. Raises ``ValueError`` above :data:`MAX_HEAD_DIM`."""
+    """The width a launch at head dim ``Dh`` runs, with q, k and v
+    zero-padded to it: ``Dh`` itself when compiled, else the next compiled
+    width, and above :data:`MAX_HEAD_DIM` the next multiple of
+    :data:`WIDE_STEP` (the wide library)."""
     for width in COMPILED_HEAD_DIMS:
         if Dh <= width:
             return width
-    raise ValueError(f"head dim {Dh} > {MAX_HEAD_DIM}: the flash kernels "
-                     f"are compiled for {COMPILED_HEAD_DIMS}")
+    return -(-Dh // WIDE_STEP) * WIDE_STEP
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -294,18 +299,25 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool,
     the block table's); adds one to its count once the launch is
     accepted, or raises. A head dim that is not compiled runs zero-padded
     to :func:`kernel_head_dim` with its own softmax scale, and the padded
-    output columns are sliced away."""
+    output columns are sliced away; above :data:`MAX_HEAD_DIM` in the wide
+    library, whose tiles are fixed (other ``tiles`` raise)."""
     global launches, stats_launches
-    from ._build import load_library
+    from ._build import WIDE_DEFINES, load_library, tile_defines
 
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     width = kernel_head_dim(Dh)
     q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
     scale = 1.0 / math.sqrt(Dh)
-    if tiles is None:
-        tiles = launch_tiles(Lq, Lk, str(q.dtype).replace("torch.", ""))
-    lib = load_library("flash_attention", tiles=tiles)
+    if width > MAX_HEAD_DIM:
+        if tile_defines(tiles):
+            raise ValueError(f"flash_attention: head dim {Dh} runs the wide "
+                             f"kernels at their own tiles, not {tiles}")
+        lib = load_library("flash_attention", defines=WIDE_DEFINES)
+    else:
+        if tiles is None:
+            tiles = launch_tiles(Lq, Lk, str(q.dtype).replace("torch.", ""))
+        lib = load_library("flash_attention", tiles=tiles)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if return_stats:
@@ -380,11 +392,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_stats`` the tuple ``(acc, m, l)`` (see the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise, at ``block_q`` × ``block_k`` where given and each other side
-    from the block table. Differentiable in q, k and v on both. A head
-    dim above :data:`MAX_HEAD_DIM` raises on every device; any other runs
-    (zero-padded on the card where it is not compiled)."""
+    from the block table. Differentiable in q, k and v on both. Any head
+    dim runs (zero-padded on the card where it is not compiled)."""
     _check(q, k, v, kv_mask, causal)
-    kernel_head_dim(q.shape[-1])
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     tiles = None

@@ -4,8 +4,10 @@ A copy of ``read_json`` and ``write_json_atomic`` from
 ``vainplex_openclaw_tpu/storage/atomic.py`` (with the compact encoder they
 share), kept here so the port imports nothing of the JAX package. Files
 are written byte for byte as the JAX package writes them, so a state file
-written by one package is read by the other. The JAX writer's
-fault-injection hooks (``resilience/faults.py``) are not copied.
+written by one package is read by the other. The fault sites are the JAX
+writer's, at the same places (``resilience/faults.py``): ``file.write``
+(torn-capable), ``file.fsync`` under ``durable`` and ``file.rename``; a
+failed write removes its temporary file.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import json
 import os
 from pathlib import Path
 from typing import Any, Optional
+
+from ..resilience.faults import maybe_fail, write_with_faults
 
 # the tmp-name collision guard reads the pid per write; cache it once and
 # refresh it in a forked child
@@ -63,10 +67,12 @@ def write_json_atomic(path: str | Path, obj: Any, indent: Optional[int] = 2,
             path.parent.mkdir(parents=True, exist_ok=True)
             fh = tmp.open("w", encoding="utf-8")
         with fh:
-            fh.write(data)
+            write_with_faults("file.write", fh.write, data)
             if durable:
                 fh.flush()
+                maybe_fail("file.fsync")
                 os.fsync(fh.fileno())
+        maybe_fail("file.rename")
         os.replace(tmp, path)
     except BaseException:
         # a failed write leaves no tmp file beside the live one
