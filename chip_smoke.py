@@ -32,7 +32,9 @@ non-zero before the last line is printed.
    valid only in the last key tile and masks with holes, L=16384, head
    dim 8 (a compiled width) and 24 (zero-padded to 32 by the wrapper),
    head dims 129, 256 and 384 (``WIDE_CASES``: the wide library, at one
-   launch per call), and the shard shapes the mesh and graft_entry phases
+   launch per call; at 256 also L=2048, causal L=2048 and Lq=1000
+   Lk=1999) and 1000 (Q streamed with K, ``WIDE_STREAMED_Q_CASES``), and
+   the shard shapes the mesh and graft_entry phases
    launch (16-21, 29); at 2048 keys or more the
    plain version without its first key tile must fail the same check
    (``CONTROL_MIN_LK``); each bf16 case runs the tile the committed block
@@ -58,16 +60,17 @@ is driven after it:
 7. kernels (K2): K2 against its plain version on the card in bf16 and
    fp32 at the ring's shapes (Dh 16 and 32, causal, Lq != Lk, L=100,
    L=16384), head dim 8 and 24, the dryrun's ring+flash shard (Dh 8), the
-   ``WIDE_CASES`` and the tile-edge and mask cases of phase 3, at one
-   launch per call, over rows with a valid key: m
+   ``WIDE_CASES``, ``WIDE_STREAMED_Q_CASES`` and the tile-edge and mask
+   cases of phase 3, at one launch per call, over rows with a valid key: m
    as an absolute difference, l and the unnormalized acc relative to the
    plain l and, in bf16, acc per row relative to the row's largest value;
    every value finite, and a row with no valid key has m = -1e30 and l =
    its key count; at 2048 keys or more the plain version without its
    first key tile must fail the same check;
 7a. timing_wide: K1 and K2 at each non-causal ``WIDE_CASES`` shape in
-    bf16 and fp32 beside the bound, the plain version and SDPA on the same
-    inputs (no main path runs a head dim above 128);
+    bf16 and fp32, and the narrow fp32 walk at B=2 H=2 L=2048 with Dh 64
+    and 128, beside the bound, the plain version and SDPA on the same
+    inputs (no main path runs these shapes);
 8. ring: ``forward_long`` at ``long_context_config(16384)`` on a (1, 4)
    grid laid over one card against the same call at (1, 1): fp32 logits
    within 1e-4, bf16 severity argmax identical;
@@ -341,16 +344,26 @@ TRAIN_STEPS = 600  # the JAX recipe, pretrained.py:train_and_ship
 MOE_STEPS = 100
 
 # head dims above 128, which run in the wide library (Dh zero-padded to a
-# multiple of 128 and walked in 128-wide output slices): 129 and 384 padded,
-# 256 exact, a ragged and a causal one, and B=2 H=2 L=2048 at 256. The
-# prefix masks give masked rows and fully masked ones (the last quarter of
-# the batch). No main path runs them: the timing_wide phase times them.
+# multiple of 128 and walked in 256-wide output slices): 129 and 384 padded,
+# 256 exact, a ragged and a causal one, B=2 H=2 L=2048 at 256, and at 256
+# a long causal walk and a ragged last key tile (Lk=1999) with Lq off the
+# query tile. The prefix masks give masked rows and fully masked ones (the
+# last quarter of the batch). No main path runs them: the timing_wide
+# phase times the non-causal ones.
 WIDE_CASES = [
     ("head_dim_129_wide", 4, 2, 100, 100, 129, False, "prefix"),
     ("head_dim_256_wide", 4, 2, 96, 130, 256, False, "prefix"),
     ("head_dim_384_wide", 4, 2, 70, 65, 384, False, "prefix"),
     ("head_dim_256_causal", 2, 2, 130, 130, 256, True, "prefix"),
     ("head_dim_256_long", 2, 2, 2048, 2048, 256, False, "prefix"),
+    ("head_dim_256_causal_long", 2, 2, 2048, 2048, 256, True, "prefix"),
+    ("head_dim_256_ragged", 2, 2, 1000, 1999, 256, False, "prefix"),
+]
+# a head dim whose padded width (1024) is above both wide kernels'
+# kWideQResMax, so each K unit carries its chunk of Q instead of a Q tile
+# resident in shared memory
+WIDE_STREAMED_Q_CASES = [
+    ("head_dim_1000_q_streamed", 2, 2, 70, 130, 1000, False, "prefix"),
 ]
 
 # (name, B, H, Lq, Lk, Dh, causal, mask) for K2 and, below, K1. mask is
@@ -386,7 +399,7 @@ STATS_CASES = [
     # heads on one of 4 sp shards (8 devices) or of 2 (4 devices)
     ("dryrun_ring_shard_sp4", 1, 8, 16, 16, 16, False, False),
     ("dryrun_ring_shard_sp2", 1, 8, 32, 32, 16, False, False),
-] + WIDE_CASES
+] + WIDE_CASES + WIDE_STREAMED_Q_CASES
 
 # the trace_analyzer phase's triage forwards: the pow2 bucket of each
 # run's findings (8949 in run 1, 879 in run 2); the phase fails if a run's
@@ -448,7 +461,7 @@ KERNEL_CASES = [
     ("dryrun_pp_microbatch", 1, 4, 32, 32, 16, False, False),
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
-] + WIDE_CASES + TRACE_TRIAGE_CASES
+] + WIDE_CASES + WIDE_STREAMED_Q_CASES + TRACE_TRIAGE_CASES
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -1213,11 +1226,18 @@ def phase_kernels_stats() -> float:
     return worst
 
 
+# the narrow fp32 walk (flash_fwd_fp32, one thread per query row) where it
+# does work: B=2 H=2 L=2048 at Dh 64 and 128, K1 and K2
+FP32_WALK_SHAPES = [("fp32_walk_dh64", 2, 2, 2048, 2048, 64),
+                    ("fp32_walk_dh128", 2, 2, 2048, 2048, 128)]
+
+
 def phase_timing_wide(smi: str) -> dict:
     """K1 and K2 at every non-causal ``WIDE_CASES`` shape (head dims 129,
-    256 and 384, and L=2048 at 256) in bf16 and fp32, each timed by
-    :func:`time_attention` beside its bound, its plain version and SDPA on
-    the same inputs. No main path runs a head dim above 128."""
+    256 and 384, B=2 H=2 L=2048 at 256 and the ragged Lq=1000 Lk=1999) in
+    bf16 and fp32, and the narrow fp32 walk at ``FP32_WALK_SHAPES``, each
+    timed by :func:`time_attention` beside its bound, its plain version and
+    SDPA on the same inputs. No main path runs these shapes."""
     t0 = time.perf_counter()
     timed = []
     for i, (name, B, H, Lq, Lk, Dh, causal, _) in enumerate(WIDE_CASES):
@@ -1228,23 +1248,29 @@ def phase_timing_wide(smi: str) -> dict:
                 timed.append({"name": name, **time_attention(
                     B, H, Lq, Lk, Dh, dt_name, stats, seed=300 + i, n=20,
                     reps=5)})
+    walk = [{"name": name, **time_attention(B, H, Lq, Lk, Dh, "float32",
+                                            stats, seed=320 + i, n=20,
+                                            reps=5)}
+            for i, (name, B, H, Lq, Lk, Dh) in enumerate(FP32_WALK_SHAPES)
+            for stats in (False, True)]
     record = {"phase": "timing_wide", "nvidia_smi": smi, "shapes": timed,
-              "seconds": time.perf_counter() - t0}
+              "fp32_walk": walk, "seconds": time.perf_counter() - t0}
     emit(record)
     return record
 
 
-def wide_line(wide: dict, stats: bool) -> list:
-    """The kernels line's head dims above 128 for K1 or K2: measured ms
-    beside the bound, the plain version and SDPA (for K2
-    ``sdpa_normalized_ms``); no main path launches them."""
+def wide_line(wide: dict, stats: bool, key: str = "shapes") -> list:
+    """The kernels line's shapes of ``phase_timing_wide`` under ``key``
+    (the head dims above 128, or the narrow fp32 walk's ``fp32_walk``) for
+    K1 or K2: measured ms beside the bound, the plain version and SDPA (for
+    K2 ``sdpa_normalized_ms``); no main path launches them."""
     return [{"name": t["name"], "shape": t["shape"], "dtype": t["dtype"],
              "path": None, "launches": None, "ms": t["kernel_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
              **({"sdpa_normalized_ms": t["sdpa_normalized_ms"]}
                 if stats else {})}
-            for t in wide["shapes"] if t["stats"] == stats]
+            for t in wide[key] if t["stats"] == stats]
 
 
 _WORDS = tuple(sorted({w for t in _TEMPLATES + _SUBJECTS
@@ -4756,12 +4782,12 @@ def served_cases(lengths) -> list:
     ``TRACE_TRIAGE_CASES``: they differ from ``serve_path`` only in the
     batch, which a tile does not see, and the search's check walks one
     (batch, head) slice at a time (65,536 of them at B=16384). Nor the
-    ``WIDE_CASES``: the wide library has its own tiles."""
+    wide cases: the wide library has its own tiles."""
     from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
 
     buckets = {pow2_bucket(L) for L in lengths}
     cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
-             and c not in WIDE_CASES
+             and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
              and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
     if pow2_bucket(L) in buckets:
@@ -5327,6 +5353,7 @@ def main() -> int:
         "trace_analyzer_shape": trace_k1_line(traced),
         "dh8_shapes": dh8_line(graft, stats=False),
         "wide_shapes": wide_line(wide, stats=False),
+        "fp32_walk_shapes": wide_line(wide, stats=False, key="fp32_walk"),
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
@@ -5374,7 +5401,8 @@ def main() -> int:
                               "long_moe": long_moe["k2_launches"],
                               **dryrun_launches(graft, "k2")},
          "dh8_shapes": dh8_line(graft, stats=True),
-         "wide_shapes": wide_line(wide, stats=True)},
+         "wide_shapes": wide_line(wide, stats=True),
+         "fp32_walk_shapes": wide_line(wide, stats=True, key="fp32_walk")},
         {"name": "levenshtein", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": similarity["k3_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in

@@ -253,6 +253,79 @@ def test_wide_line_lists_every_timed_shape_without_a_path():
     assert k2[0]["sdpa_normalized_ms"] == 0.02 and k1[0]["library_ms"] == 0.02
 
 
+def test_wide_cases_meet_a_long_causal_walk_and_a_ragged_last_tile():
+    """At head dim 256 both kernel phases hold a causal walk over 2048
+    keys and Lk = 1999 (a ragged last key tile) with Lq = 1000 (off the
+    64-row query tile), prefix-masked."""
+    new = [("head_dim_256_causal_long", 2, 2, 2048, 2048, 256, True,
+            "prefix"),
+           ("head_dim_256_ragged", 2, 2, 1000, 1999, 256, False, "prefix")]
+    for case in new:
+        assert case in chip_smoke.WIDE_CASES
+        assert case in chip_smoke.KERNEL_CASES
+        assert case in chip_smoke.STATS_CASES
+    assert 1999 % 64 and 1000 % 64
+
+
+def _kernel_constant(source: str, name: str) -> int:
+    """``constexpr int <name> = <n>;`` of one of the port's CUDA sources."""
+    import re
+
+    path = os.path.join(REPO, "vainplex_openclaw_tpu_torch", "ops", "csrc",
+                        source)
+    with open(path, encoding="utf-8") as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+def test_streamed_q_case_is_past_both_wide_kernels_resident_q():
+    """Each wide kernel keeps Q in shared memory up to its kWideQResMax
+    and streams it with K above it: every ``WIDE_CASES`` width stays
+    resident in both, the streamed case's width (1024) is past both, and
+    both kernel phases hold it."""
+    limits = [_kernel_constant("flash_attention.cu", "kWideQResMax"),
+              _kernel_constant("flash_attention_mma.cuh", "kWideQResMax")]
+    assert all(kernel_head_dim(c[5]) <= min(limits)
+               for c in chip_smoke.WIDE_CASES)
+    (case,) = chip_smoke.WIDE_STREAMED_Q_CASES
+    assert kernel_head_dim(case[5]) > max(limits)
+    assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.STATS_CASES
+    assert case not in chip_smoke.served_cases((64, 128, 256, 2048, 16384))
+
+
+def test_timing_wide_times_every_non_causal_wide_case_and_the_fp32_walk(
+        monkeypatch, capsys):
+    """``phase_timing_wide`` times K1 and K2 in bf16 and fp32 at every
+    non-causal ``WIDE_CASES`` shape, and the narrow fp32 walk (K1 and K2)
+    at B=2 H=2 L=2048 with Dh 64 and 128; the kernels line carries both."""
+    calls = []
+
+    def time_attention(B, H, Lq, Lk, Dh, dt_name, stats, seed, n, reps):
+        calls.append(((B, H, Lq, Lk, Dh), dt_name, stats))
+        return {"shape": [B, H, Lq, Lk, Dh], "dtype": dt_name,
+                "stats": stats, "kernel_ms": 1.0, "bound_ms": 0.5,
+                "bound_by": "operations", "plain_ms": 2.0,
+                "library_ms": None if stats else 1.5,
+                "sdpa_normalized_ms": 1.5 if stats else None}
+
+    monkeypatch.setattr(chip_smoke, "time_attention", time_attention)
+    record = chip_smoke.phase_timing_wide("card, 700 W")
+    capsys.readouterr()
+    wide = {tuple(c[1:6]) for c in chip_smoke.WIDE_CASES if not c[6]}
+    assert {(2, 2, 1000, 1999, 256), (2, 2, 2048, 2048, 256)} <= wide
+    want = {(s, dt, st) for s in wide for dt in ("bfloat16", "float32")
+            for st in (False, True)}
+    want |= {((2, 2, 2048, 2048, dh), "float32", st) for dh in (64, 128)
+             for st in (False, True)}
+    assert sorted(calls) == sorted(want)
+    for stats in (False, True):
+        walk = chip_smoke.wide_line(record, stats, key="fp32_walk")
+        assert sorted(t["shape"][4] for t in walk) == [64, 128]
+        assert all(t["dtype"] == "float32" for t in walk)
+        assert len(chip_smoke.wide_line(record, stats)) == 2 * len(wide)
+
+
 def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch):
     """Every shape at which ``dryrun_multichip(8)`` and ``(4)`` launch K1
     or K2 (the legs, the pipeline microbatch and the single-device

@@ -67,12 +67,14 @@
 // Dh > 128 runs in a library of its own, built with -DFLASH_WIDE (the
 // compiled widths above are then left out, and the kernel search never
 // builds it): the wrapper zero-pads Dh to Dp, a multiple of 128, and a
-// second grid axis walks slices of the output's head dim. Each block
-// computes the whole q . k^T of its key tile over Dp in chunks and adds p . v
-// for its own slice, so every slice of a query tile sees the same scores,
-// m and l (K2 writes m and l from slice 0), in one launch per call. Those
-// kernels (flash_fwd_fp32_wide below, flash_fwd_mma_wide in the header) load
-// their tiles without a ring: right first, not yet fast.
+// second grid axis walks 256-wide slices of the output's head dim, one for
+// Dp = 256. A block computes the whole q . k^T of its key tile over Dp
+// once and adds p . v for up to 256 output columns, so every slice of a
+// query tile sees the same scores, m and l (K2 writes m and l from slice
+// 0), in one launch per call. Both wide kernels keep Q in shared memory
+// and stream K and V through a ring: flash_fwd_fp32_wide below on
+// register-tiled FMA fed by cp.async, flash_fwd_mma_wide in the header on
+// wgmma fed by TMA. Their notes give the bounds.
 //
 // fp32 inputs (the parity paths: no served configuration runs them) take
 // the scalar walk below: one thread per query row, the dot products on the
@@ -223,132 +225,322 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
 }
 
 #ifdef FLASH_WIDE
-constexpr int kWideBN = 32;  // keys per tile
-constexpr int kWideW = 64;   // head-dim chunk of q . k^T and output slice
+// Head dims above 128 in fp32: register-tiled FMA on the CUDA cores (no
+// TF32). Replaces _flash_kernel in both modes, as the kernels above.
+//
+// Bound at B=2 H=2 L=2048 Dh=256: 1.72e10 operations at the CUDA cores'
+// 67 TFLOP/s, 0.256 ms, against K1's 33.6 MB of q, k, v and out (0.010
+// ms): operations.
+//
+// Design. A block of 256 threads (16 x 16) owns a 64-row query tile and up
+// to kWideSlice = 256 output columns (blockIdx.y walks ceil(Dp / 256)
+// slices). Thread (ty, tx) owns rows 4ty .. 4ty+3: of the 64 x 64 score
+// tile, keys tx + 16 jj (a 4 x 4 micro-tile); of the output, 16 columns
+// (four float4 groups, 64 apart, so that a half-warp reads 256 contiguous
+// bytes of a V row).
+// - Q lands in shared memory once per block (up to kWideQResMax; above it
+//   each K unit carries its Q chunk).
+// - K and V stream through one cp.async ring of kWideStages stages of
+//   128-column units: per key tile the Dp / 128 K chunks, then the slice's
+//   one or two V chunks. The next units load while this one is multiplied.
+// - q . k^T is computed once per (query tile, key tile) for Dp <= 256, once
+//   per slice above it: eight float4 reads of q and k from shared memory
+//   feed 64 FMAs of the micro-tile.
+// - The online softmax runs on the micro-tile: the row max over the 16
+//   threads of a row by warp shuffles; p goes through shared memory (64 x
+//   64) to the P . V product, where twelve float4 reads of p and v feed
+//   128 FMAs.
+// Why one block takes all 256 columns: with a slice of columns a block,
+// each slice would recompute q . k^T over all of Dp (2.5x the FMA work at
+// Dp=256 for 64-wide slices), and one query row a thread would read
+// shared memory once an FMA and leave the card idle at small Lq.
+constexpr int kWideThreads = 256;
+constexpr int kWideBM = 64;      // query rows per block
+constexpr int kWideBN = 64;      // keys per tile
+constexpr int kWideUnit = 128;   // columns of a ring unit
+constexpr int kWideSlice = 256;  // output columns per block
+constexpr int kWideStages = 3;
+constexpr int kWidePitch = kWideUnit + 4;  // floats per row of a unit
+constexpr int kWidePPitch = kWideBN + 4;   // floats per row of p
+constexpr int kWideQResMax = 384;          // Dp up to which Q stays resident
 
-// One thread per query row as above, a slice of kWideW output columns per
-// block (blockIdx.y): acc holds the slice only, and q . k^T sums over Dp in
-// kWideW-wide chunks of q (from global memory) and k (in shared memory),
-// so no row of Dp values sits in registers.
+__host__ __device__ constexpr bool wide_q_resident(int Dp) { return Dp <= kWideQResMax; }
+__host__ __device__ constexpr int wide_q_floats(int Dp) {
+  return wide_q_resident(Dp) ? kWideBM * (Dp + 4) : 0;
+}
+__host__ __device__ constexpr int wide_stage_rows(int Dp) {
+  return kWideBN + (wide_q_resident(Dp) ? 0 : kWideBM);
+}
+__host__ __device__ constexpr int wide_stage_floats(int Dp) {
+  return wide_stage_rows(Dp) * kWidePitch + kWideBN;  // rows, bias
+}
+__host__ __device__ constexpr int wide_smem_bytes(int Dp) {
+  return 4 * (wide_q_floats(Dp) + kWideBM * kWidePPitch + kWideStages * wide_stage_floats(Dp));
+}
+static_assert(wide_smem_bytes(kWideQResMax) <= 227 * 1024 &&
+                  wide_smem_bytes(kWideQResMax + 128) <= 227 * 1024,
+              "the wide tiles exceed 227 KB of shared memory");
+
+__device__ __forceinline__ float row_max16(float x) {  // over the 16 lanes of a row
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, const float4& x) {
+  acc.x = fmaf(p, x.x, acc.x);
+  acc.y = fmaf(p, x.y, acc.y);
+  acc.z = fmaf(p, x.z, acc.z);
+  acc.w = fmaf(p, x.w, acc.w);
+}
+
 template <int W, bool CAUSAL, bool STATS>
-__global__ void __launch_bounds__(kBlockM)
+__global__ void __launch_bounds__(kWideThreads, 1)
     flash_fwd_fp32_wide(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
                         float* __restrict__ out, float* __restrict__ m_out,
                         float* __restrict__ l_out, int H, int Lq, int Lk, int Dp,
                         int n_qtiles, float scale) {
-  constexpr int kRowVecs = W / 4;  // float4 per row of a chunk
+  static_assert(W == kWideSlice, "the output slice is two units wide");
+  constexpr int kGroups = W / 64;  // float4 column groups a thread owns
 
-  __shared__ __align__(16) float k_s[kWideBN * W];
-  __shared__ __align__(16) float v_s[kWideBN * W];
-  __shared__ float b_s[kWideBN];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + wide_q_floats(Dp);
+  float* ring = p_s + kWideBM * kWidePPitch;
 
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
+  const int q0 = (blockIdx.x % n_qtiles) * kWideBM;
   const int slice = blockIdx.y;
   const int b = bh / H;
-  const int row = q0 + threadIdx.x;
-  const bool active = row < Lq;
-  const int n_chunks = Dp / W;
-
+  const bool q_res = wide_q_resident(Dp);
+  const int q_pitch = q_res ? Dp + 4 : kWidePitch;
+  const int stage_rows = wide_stage_rows(Dp);
+  const int stage_floats = wide_stage_floats(Dp);
+  const int n_k = Dp / kWideUnit;                           // K units per key tile
+  const int n_v = min(W, Dp - slice * W) / kWideUnit;       // V units: 1 or 2
+  const int units = n_k + n_v;
+  const float* qp = q + static_cast<size_t>(bh) * Lq * Dp;
   const float* kp = k + static_cast<size_t>(bh) * Lk * Dp;
   const float* vp = v + static_cast<size_t>(bh) * Lk * Dp + slice * W;
   const float* bp = bias + static_cast<size_t>(b) * Lk;
-  const float* qrow = q + (static_cast<size_t>(bh) * Lq + (active ? row : 0)) * Dp;
 
-  float acc[W];
-#pragma unroll
-  for (int d = 0; d < W; ++d) acc[d] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
+  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kWideBM) : Lk;
+  const int n_tiles = (kv_end + kWideBN - 1) / kWideBN;
+  const int total = n_tiles * units;
 
-  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kBlockM) : Lk;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // n_rows rows of kWideUnit columns from a [*, Dp] source, rows from row0;
+  // a row at or past live_rows is zero-filled.
+  auto copy_rows = [&](float* dst, const float* src, int row0, int live_rows, int n_rows) {
+    for (int i = tid; i < n_rows * (kWideUnit / 4); i += kWideThreads) {
+      const int r = i / (kWideUnit / 4);
+      const int c = (i % (kWideUnit / 4)) * 4;
+      const bool live = row0 + r < live_rows;
+      mma::cp_async_16(mma::smem_u32(dst + r * kWidePitch + c),
+                       src + static_cast<size_t>(live ? row0 + r : 0) * Dp + c, live);
+    }
+  };
+  // Unit u of key tile j: K chunk u (with its Q chunk when Q is not
+  // resident; the tile's bias rides with its last K chunk), else V chunk
+  // u - n_k of the slice.
+  auto load_unit = [&](int gu) {
+    const int j = gu / units;
+    const int u = gu - j * units;
+    const int kv0 = j * kWideBN;
+    float* st = ring + (gu % kWideStages) * stage_floats;
+    if (u < n_k) {
+      copy_rows(st, kp + u * kWideUnit, kv0, Lk, kWideBN);
+      if (!q_res) copy_rows(st + kWideBN * kWidePitch, qp + u * kWideUnit, q0, Lq, kWideBM);
+      if (u == n_k - 1) {
+        float* bs = st + stage_rows * kWidePitch;
+        for (int i = tid; i < kWideBN; i += kWideThreads)
+          mma::cp_async_4(mma::smem_u32(bs + i), bp + min(kv0 + i, Lk - 1), kv0 + i < Lk);
+      }
+    } else {
+      copy_rows(st, vp + (u - n_k) * kWideUnit, kv0, Lk, kWideBN);
+    }
+  };
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kWideBN) {
-    const int n = min(kWideBN, kv_end - kv0);
-    float s[kWideBN];
-#pragma unroll
-    for (int j = 0; j < kWideBN; ++j) s[j] = 0.f;
-    for (int c = 0; c < n_chunks; ++c) {
-      __syncthreads();  // every thread is done with the last chunk (and tile)
-      float4* ks4 = reinterpret_cast<float4*>(k_s);
-      float4* vs4 = reinterpret_cast<float4*>(v_s);
-      for (int i = threadIdx.x; i < kWideBN * kRowVecs; i += kBlockM) {
-        const int r = i / kRowVecs;
-        const size_t src = static_cast<size_t>(kv0 + r) * Dp + (i % kRowVecs) * 4;
-        ks4[i] = r < n ? *reinterpret_cast<const float4*>(kp + src + c * W) : zero;
-        if (c == 0) vs4[i] = r < n ? *reinterpret_cast<const float4*>(vp + src) : zero;
-      }
-      if (c == 0) {
-        for (int j = threadIdx.x; j < kWideBN; j += kBlockM) b_s[j] = j < n ? bp[kv0 + j] : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        float qr[W];
-        const float4* qsrc = reinterpret_cast<const float4*>(qrow + c * W);
-#pragma unroll
-        for (int i = 0; i < kRowVecs; ++i) {
-          const float4 x = qsrc[i];
-          qr[4 * i] = x.x;
-          qr[4 * i + 1] = x.y;
-          qr[4 * i + 2] = x.z;
-          qr[4 * i + 3] = x.w;
-        }
-#pragma unroll
-        for (int j = 0; j < kWideBN; ++j) {  // unrolled: s stays in registers
-          const float* kr = k_s + j * W;
-          float dot = s[j];
-#pragma unroll
-          for (int d = 0; d < W; ++d) dot = fmaf(qr[d], kr[d], dot);
-          s[j] = dot;
-        }
-      }
+  // Prologue: the resident Q and unit 0 in the first group, then unit 1.
+  if (q_res) {
+    const int chunks = Dp / 4;
+    for (int i = tid; i < kWideBM * chunks; i += kWideThreads) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * 4;
+      const bool live = q0 + r < Lq;
+      mma::cp_async_16(mma::smem_u32(q_s + r * q_pitch + c),
+                       qp + static_cast<size_t>(live ? q0 + r : 0) * Dp + c, live);
     }
-    if (!active) continue;  // the next tile's loads wait at __syncthreads above
-    float cmax = -INFINITY;
+  }
 #pragma unroll
-    for (int j = 0; j < kWideBN; ++j) {
-      float sv = -INFINITY;  // past the tile's end: p is exactly 0
-      if (j < n) {
-        sv = s[j] * scale + b_s[j];
-        if (CAUSAL && kv0 + j > row) sv = kNegInf;
-      }
-      s[j] = sv;
-      cmax = fmaxf(cmax, sv);
-    }
-    // n >= 1, so the tile holds a live key and m_new is finite.
-    const float m_new = fmaxf(m, cmax);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < W; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kWideBN; ++j) {
-      if (j < n) {
-        const float p = expf(s[j] - m_new);
-        l += p;
-        const float* vr = v_s + j * W;
-#pragma unroll
-        for (int d = 0; d < W; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
-      }
-    }
-    m = m_new;
+  for (int i = 0; i < kWideStages - 1; ++i) {
+    if (i < total) load_unit(i);
+    mma::cp_async_commit();
   }
 
-  if (!active) return;
-  const size_t orow = static_cast<size_t>(bh) * Lq + row;
-  float4* dst = reinterpret_cast<float4*>(out + orow * Dp + slice * W);
-  const float lc = STATS ? 1.f : fmaxf(l, 1e-30f);
+  float4 acc[4][kGroups];
 #pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
-    dst[i] = make_float4(acc[4 * i] / lc, acc[4 * i + 1] / lc, acc[4 * i + 2] / lc,
-                         acc[4 * i + 3] / lc);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float s[4][4];
+  float m[4], l[4];  // per row: the running max, and this thread's share of the sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
   }
-  if constexpr (STATS) {
-    if (slice == 0) {
-      m_out[orow] = m;
-      l_out[orow] = l;
+
+  int gu = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * kWideBN;
+    for (int u = 0; u < units; ++u, ++gu) {
+      mma::cp_async_wait<kWideStages - 2>();  // unit gu has landed
+      __syncthreads();                        // all are done with unit gu-1 (and p)
+      if (gu + kWideStages - 1 < total) load_unit(gu + kWideStages - 1);
+      mma::cp_async_commit();
+      const float* st = ring + (gu % kWideStages) * stage_floats;
+      if (u < n_k) {
+        if (u == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+        }
+        // s += q . k^T over this chunk's 128 columns
+        const float* qr = (q_res ? q_s + u * kWideUnit : st + kWideBN * kWidePitch) +
+                          4 * ty * q_pitch;
+        const float* kr = st + tx * kWidePitch;
+#pragma unroll 4
+        for (int d = 0; d < kWideUnit; d += 4) {
+          float4 a[4], c[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(qr + i * q_pitch + d);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            c[jj] = *reinterpret_cast<const float4*>(kr + 16 * jj * kWidePitch + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              float x = s[i][jj];
+              x = fmaf(a[i].x, c[jj].x, x);
+              x = fmaf(a[i].y, c[jj].y, x);
+              x = fmaf(a[i].z, c[jj].z, x);
+              s[i][jj] = fmaf(a[i].w, c[jj].w, x);
+            }
+          }
+        }
+        if (u < n_k - 1) continue;
+        // The tile's scores are whole: s * scale + bias, keys past Lk count
+        // nothing, a causal key after the query scores -1e30; then the
+        // online softmax, and p into shared memory.
+        const float* bs = st + stage_rows * kWidePitch;
+        float bb[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) bb[jj] = bs[tx + 16 * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + 4 * ty + i;
+          float mx = -INFINITY;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int key = kv0 + tx + 16 * jj;
+            float sv = s[i][jj] * scale + bb[jj];
+            if (key >= Lk) {
+              sv = -INFINITY;  // p is exactly 0
+            } else if (CAUSAL && key > row) {
+              sv = kNegInf;
+            }
+            s[i][jj] = sv;
+            mx = fmaxf(mx, sv);
+          }
+          // the tile holds a key before Lk, so m_new is finite
+          const float m_new = fmaxf(m[i], row_max16(mx));
+          const float corr = expf(m[i] - m_new);
+          m[i] = m_new;
+          l[i] *= corr;
+#pragma unroll
+          for (int c = 0; c < kGroups; ++c) {
+            acc[i][c].x *= corr;
+            acc[i][c].y *= corr;
+            acc[i][c].z *= corr;
+            acc[i][c].w *= corr;
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float p = expf(s[i][jj] - m_new);
+            l[i] += p;
+            p_s[(4 * ty + i) * kWidePPitch + tx + 16 * jj] = p;
+          }
+        }
+      } else {
+        // acc += p . v over V chunk u - n_k of the slice: the thread's
+        // columns tx * 4 + 64 ci of it, groups 2 (u - n_k) + ci.
+        const int vu = u - n_k;
+        const float* pr = p_s + 4 * ty * kWidePPitch;
+        const float* vr = st + 4 * tx;
+#pragma unroll
+        for (int h = 0; h < W / kWideUnit; ++h) {
+          if (h != vu) continue;  // h is a constant: acc stays in registers
+#pragma unroll 2
+          for (int j0 = 0; j0 < kWideBN; j0 += 4) {
+            float p[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float4 x = *reinterpret_cast<const float4*>(pr + i * kWidePPitch + j0);
+              p[i][0] = x.x;
+              p[i][1] = x.y;
+              p[i][2] = x.z;
+              p[i][3] = x.w;
+            }
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+              for (int ci = 0; ci < 2; ++ci) {
+                const float4 x =
+                    *reinterpret_cast<const float4*>(vr + (j0 + jj) * kWidePitch + 64 * ci);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) fma4(acc[i][2 * h + ci], p[i][jj], x);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();  // only empty groups remain
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float li = row_sum16(l[i]);
+    const int row = q0 + 4 * ty + i;
+    if (row >= Lq) continue;
+    const size_t orow = static_cast<size_t>(bh) * Lq + row;
+    const float lc = STATS ? 1.f : fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kGroups; ++c) {
+      if (c / 2 >= n_v) continue;
+      const int col = slice * W + (c / 2) * kWideUnit + (c % 2) * 64 + 4 * tx;
+      const float4 a = acc[i][c];
+      *reinterpret_cast<float4*>(out + orow * Dp + col) =
+          STATS ? a : make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc);
+    }
+    if constexpr (STATS) {
+      if (slice == 0 && tx == 0) {
+        m_out[orow] = m[i];
+        l_out[orow] = li;
+      }
     }
   }
 }
@@ -357,14 +549,19 @@ template <bool STATS>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* bias, void* out,
                         float* m_out, float* l_out, int B, int H, int Lq, int Lk, int Dp,
                         int causal, float scale, cudaStream_t stream) {
-  const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
+  const int n_qtiles = (Lq + kWideBM - 1) / kWideBM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
-  if (blocks <= 0 || blocks > INT_MAX || Dp % kWideW != 0 || Dp / kWideW > 65535)
+  const int slices = (Dp + kWideSlice - 1) / kWideSlice;
+  if (blocks <= 0 || blocks > INT_MAX || Dp % kWideUnit != 0 || slices > 65535)
     return cudaErrorInvalidValue;
-  auto kernel = causal ? flash_fwd_fp32_wide<kWideW, true, STATS>
-                       : flash_fwd_fp32_wide<kWideW, false, STATS>;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(Dp / kWideW));
-  kernel<<<grid, kBlockM, 0, stream>>>(
+  auto kernel = causal ? flash_fwd_fp32_wide<kWideSlice, true, STATS>
+                       : flash_fwd_fp32_wide<kWideSlice, false, STATS>;
+  const int smem = wide_smem_bytes(Dp);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(slices));
+  kernel<<<grid, kWideThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias), static_cast<float*>(out), m_out, l_out, H, Lq, Lk, Dp,
       n_qtiles, scale);

@@ -41,9 +41,11 @@ other Dh zero-pads q, k and v to :func:`kernel_head_dim` (the next compiled
 width up to 128, else the next multiple of 128), passes the softmax scale
 of the real Dh, and slices the padded output columns away: zero columns
 add nothing to q·kᵀ. Above 128 the launch goes to a library of its own
-(``_build.WIDE_DEFINES``) whose kernels walk slices of the output's head
-dim (128 wide in bf16, 64 in fp32) on a second grid axis, in one launch
-per call, at their own fixed tiles (the block table is not read there).
+(``_build.WIDE_DEFINES``) whose kernels walk 256-wide slices of the
+output's head dim on a second grid axis (one slice at Dh 129–256), in one
+launch per call, at their own fixed tiles (the block table is not read
+there): a block computes q·kᵀ once per key tile for its slice, on wgmma
+fed by TMA in bf16 and on register-tiled FMA in fp32.
 
 The block table. The bf16 kernel's tiles (query rows by key columns) are
 compile-time constants, so each tile is a library of its own
