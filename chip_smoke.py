@@ -382,6 +382,13 @@ STATS_CASES = [
     ("keys_129", 3, 2, 100, 129, 32, False, "prefix"),
     ("causal_130", 4, 2, 130, 130, 16, True, "prefix"),
     ("causal_130_dh128", 4, 2, 130, 130, 128, True, "prefix"),
+    # the fp32 walk's timed shapes (FP32_WALK_SHAPES) at 2048 keys, with the
+    # dropped-first-tile control, and causal at Dh 128
+    ("head_dim_64_long", 2, 2, 2048, 2048, 64, False, "prefix"),
+    ("head_dim_128_long", 2, 2, 2048, 2048, 128, False, "prefix"),
+    ("head_dim_128_causal_long", 2, 2, 2048, 2048, 128, True, "prefix"),
+    # the fp32 legs' shape (FP32_WALK_SHAPES), the serve path's
+    ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
     ("last_tile_only", 4, 2, 96, 200, 16, False, "last_tile"),
     ("holes", 4, 2, 150, 150, 16, False, "holes"),
     ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
@@ -427,6 +434,12 @@ KERNEL_CASES = [
     ("rows_not_tile_multiple", 3, 2, 77, 64, 16, False, "prefix"),
     ("causal_130", 4, 2, 130, 130, 16, True, "prefix"),
     ("causal_130_dh128", 4, 2, 130, 130, 128, True, "prefix"),
+    # the fp32 walk's timed shapes (FP32_WALK_SHAPES) at 2048 keys, with the
+    # dropped-first-tile control, and causal at Dh 128; the ring's shard
+    ("head_dim_64_long", 2, 2, 2048, 2048, 64, False, "prefix"),
+    ("head_dim_128_long", 2, 2, 2048, 2048, 128, False, "prefix"),
+    ("head_dim_128_causal_long", 2, 2, 2048, 2048, 128, True, "prefix"),
+    ("ring_shard_sp4", 8, 2, 4096, 4096, 16, False, "prefix"),
     ("last_tile_only", 4, 2, 96, 200, 16, False, "last_tile"),
     ("holes", 4, 2, 150, 150, 32, False, "holes"),
     ("long_16384", 1, 2, LONG_L, LONG_L, 16, False, False),
@@ -685,9 +698,13 @@ def phase_build() -> None:
 
 
 def check_spills(name: str, report: list) -> None:
-    spills = [e for e in report if e["kernel"] == "flash_fwd_mma"
-              and e["dh"] <= 64 and (e["spill_stores"] or e["spill_loads"])]
-    check(not spills, f"{name}: bf16 kernels at Dh <= 64 spill: {spills}")
+    """Fails on a spill of the bf16 kernel at Dh <= 64 or of the fp32
+    kernel at any compiled width."""
+    spills = [e for e in report if (e["kernel"] == "flash_fwd_fp32" or (
+        e["kernel"] == "flash_fwd_mma" and e["dh"] <= 64))
+        and (e["spill_stores"] or e["spill_loads"])]
+    check(not spills, f"{name}: bf16 kernels at Dh <= 64 or fp32 kernels "
+                      f"spill: {spills}")
 
 
 def table_tiles() -> list:
@@ -719,7 +736,7 @@ def phase_kernels() -> float:
             q, k, v, mask = make_qkv(rng, B, H, Lq, Lk, Dh, dtype, mask_kind,
                                      "cuda")
             # the block table's tile for this shape, as a launch reads it
-            # (the fp32 scalar walk and the wide library keep their own)
+            # (fp32 and the wide library keep their own)
             tile = launch_tiles(Lq, Lk, dt_name) \
                 if Dh <= fa.MAX_HEAD_DIM else (None, None)
             before = fa.launches
@@ -811,7 +828,7 @@ def compare_outputs(a: dict, b: dict) -> float:
                for h in ("severity", "keep", "mood", "embedding"))
 
 
-def phase_forward() -> None:
+def phase_forward() -> dict:
     import dataclasses
 
     import numpy as np
@@ -820,6 +837,7 @@ def phase_forward() -> None:
     from vainplex_openclaw_tpu_torch.models import (
         EncoderConfig, encode_texts, forward, params_from_numpy)
     from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
 
     record = {"phase": "forward"}
     cfg, p_gpu = load_pretrained()
@@ -849,16 +867,27 @@ def phase_forward() -> None:
     for dt_name, tol in (("float32", 1e-4), ("bfloat16", 5e-2)):
         c = dataclasses.replace(wide, dtype=dt_name)
         with torch.inference_mode():
-            gpu = forward(params_from_numpy(tree, c, "cuda"), tok.cuda(), c)
+            p_card = params_from_numpy(tree, c, "cuda")
+            torch.cuda.synchronize()
+            fa.launches = 0
+            gpu = forward(p_card, tok.cuda(), c)
+            torch.cuda.synchronize()
+            launches = fa.launches
             cpu = forward(params_from_numpy(tree, c, "cpu"), tok, c)
+        check(launches == c.n_layers, f"random weights {dt_name}: K1 "
+                                      f"launches {launches} != {c.n_layers}")
         err = compare_outputs(gpu, cpu)
         check(all(bool(torch.isfinite(gpu[h]).all()) for h in gpu),
               f"random weights {dt_name}: non-finite output")
         check(err <= tol, f"random weights {dt_name}: outputs differ by "
                           f"{err} > {tol}")
-        record[f"random_{dt_name}"] = {"batch": 32, "max_abs_err": err,
-                                       "tol": tol}
+        record[f"random_{dt_name}"] = {
+            "batch": 32, "max_abs_err": err, "tol": tol,
+            "k1_launches": launches,
+            "k1_shape": [32, c.n_heads, c.seq_len, c.seq_len,
+                         c.d_model // c.n_heads]}
     emit(record)
+    return record
 
 
 def serve_round(call, prompts: list, n_threads: int):
@@ -1226,18 +1255,26 @@ def phase_kernels_stats() -> float:
     return worst
 
 
-# the narrow fp32 walk (flash_fwd_fp32, one thread per query row) where it
-# does work: B=2 H=2 L=2048 at Dh 64 and 128, K1 and K2
+# the fp32 kernel at the compiled widths (flash_fwd_fp32), K1 and K2: B=2
+# H=2 L=2048 at Dh 64 and 128; the ring phase's fp32 shard (B=8 H=2
+# L=4096 Dh 16, K2 32 times there); the long_16384 case (B=1 H=2 L=16384,
+# whose plain version fits where B=8's does not); the fp32 legs' shape
+# (B=32 H=4 L=64 Dh 16). Each is a KERNEL_CASES and a STATS_CASES shape.
 FP32_WALK_SHAPES = [("fp32_walk_dh64", 2, 2, 2048, 2048, 64),
-                    ("fp32_walk_dh128", 2, 2, 2048, 2048, 128)]
+                    ("fp32_walk_dh128", 2, 2, 2048, 2048, 128),
+                    ("fp32_walk_ring_shard", 8, 2, 4096, 4096, 16),
+                    ("fp32_walk_long_16384", 1, 2, LONG_L, LONG_L, 16),
+                    ("fp32_walk_legs", 32, 4, 64, 64, 16)]
 
 
 def phase_timing_wide(smi: str) -> dict:
     """K1 and K2 at every non-causal ``WIDE_CASES`` shape (head dims 129,
     256 and 384, B=2 H=2 L=2048 at 256 and the ragged Lq=1000 Lk=1999) in
-    bf16 and fp32, and the narrow fp32 walk at ``FP32_WALK_SHAPES``, each
-    timed by :func:`time_attention` beside its bound, its plain version and
-    SDPA on the same inputs. No main path runs these shapes."""
+    bf16 and fp32, and the fp32 kernel at the compiled widths at
+    ``FP32_WALK_SHAPES``, each timed by :func:`time_attention` beside its
+    bound, its plain version and SDPA on the same inputs. Of these only
+    the fp32 ones that the ring phase and the fp32 legs launch (but for
+    the batch) are main-path shapes (:func:`walk_line`)."""
     t0 = time.perf_counter()
     timed = []
     for i, (name, B, H, Lq, Lk, Dh, causal, _) in enumerate(WIDE_CASES):
@@ -1261,9 +1298,10 @@ def phase_timing_wide(smi: str) -> dict:
 
 def wide_line(wide: dict, stats: bool, key: str = "shapes") -> list:
     """The kernels line's shapes of ``phase_timing_wide`` under ``key``
-    (the head dims above 128, or the narrow fp32 walk's ``fp32_walk``) for
-    K1 or K2: measured ms beside the bound, the plain version and SDPA (for
-    K2 ``sdpa_normalized_ms``); no main path launches them."""
+    (the head dims above 128, or the fp32 kernel's ``fp32_walk``) for K1
+    or K2: measured ms beside the bound, the plain version and SDPA (for
+    K2 ``sdpa_normalized_ms``), with no path or launches (:func:`walk_line`
+    adds them where a main path runs the shape)."""
     return [{"name": t["name"], "shape": t["shape"], "dtype": t["dtype"],
              "path": None, "launches": None, "ms": t["kernel_ms"],
              "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1271,6 +1309,56 @@ def wide_line(wide: dict, stats: bool, key: str = "shapes") -> list:
              **({"sdpa_normalized_ms": t["sdpa_normalized_ms"]}
                 if stats else {})}
             for t in wide[key] if t["stats"] == stats]
+
+
+def fp32_launches(forwarded: dict, grad: dict, mesh: dict, ring: dict,
+                  graft: dict) -> dict:
+    """The fp32 kernel's launches on the paths that run it, from each
+    phase's own record: ``{"k1"|"k2": [(path, shape, launches)]}``, the
+    shape [B, H, Lq, Lk, Dh] of every launch the entry counts (None where
+    a path launches at several: the mesh legs' shards, the dryrun's)."""
+    k1 = [("forward", forwarded["random_float32"]["k1_shape"],
+           forwarded["random_float32"]["k1_launches"]),
+          ("grad", grad["float32"]["k1_shape"],
+           grad["float32"]["k1_launches"])]
+    for path, shapes in (("mesh_tp", [v for v in mesh["tp"]["record"].values()
+                                      if isinstance(v, dict)
+                                      and "float32" in v]),
+                         ("mesh_pp", [mesh["pp"]["record"]])):
+        for entry in shapes:
+            leg = entry["float32"]
+            k1.append((path, leg["reference_k1_shape"],
+                       leg["reference_k1_launches"]))
+            k1.append((path, None, leg["k1_per_forward"]["counted"]))
+    sp4, sp1 = ring["float32"]["k2_shapes"]
+    k2 = [("ring", sp4, ring["float32"]["k2_launches"]),
+          ("ring", sp1, ring["float32"]["k2_launches_sp1"])]
+    k2 += [(path, None, n) for path, n in dryrun_launches(graft, "k2").items()
+           if path == "dryrun_ring_flash"]
+    return {"k1": k1, "k2": k2}
+
+
+def fp32_by_path(launched: list) -> dict:
+    """``{path: launches}`` of :func:`fp32_launches`' entries."""
+    out: dict = {}
+    for path, _, n in launched:
+        out[path] = out.get(path, 0) + n
+    return out
+
+
+def walk_line(wide: dict, stats: bool, launched: list) -> list:
+    """:func:`wide_line` of the fp32 kernel's timed shapes, each with the
+    launches of the paths that run its shape but for the batch (which
+    only multiplies the blocks), and those paths' shapes."""
+    line = wide_line(wide, stats, key="fp32_walk")
+    for row in line:
+        hits = [(path, shape, n) for path, shape, n in launched
+                if shape is not None and shape[1:] == row["shape"][1:]]
+        if hits:
+            row["path"] = "+".join(dict.fromkeys(p for p, _, _ in hits))
+            row["launches"] = sum(n for _, _, n in hits)
+            row["launched_shapes"] = [[p, shape, n] for p, shape, n in hits]
+    return line
 
 
 _WORDS = tuple(sorted({w for t in _TEMPLATES + _SUBJECTS
@@ -1295,7 +1383,7 @@ def long_params(cfg, device):
     return params_from_numpy(tree, cfg, device, cast=True)
 
 
-def phase_ring() -> None:
+def phase_ring() -> dict:
     import dataclasses
 
     import numpy as np
@@ -1328,11 +1416,16 @@ def phase_ring() -> None:
             sp4 = forward_long(params, tokens, cfg, ring)
             torch.cuda.synchronize()
             launches = fa.stats_launches
+            fa.stats_launches = 0
             sp1 = forward_long(params, tokens, cfg, whole)
             torch.cuda.synchronize()
+            launches_sp1 = fa.stats_launches
         check(launches == cfg.n_layers * 16,
               f"ring {dt_name}: K2 launches {launches} != "
               f"{cfg.n_layers} layers × 4 shards × 4 rotations")
+        check(launches_sp1 == cfg.n_layers,
+              f"ring {dt_name}: sp=1 K2 launches {launches_sp1} != "
+              f"{cfg.n_layers} layers")
         check(all(bool(torch.isfinite(sp4[h].float()).all())
                   for h in ("severity", "keep", "mood", "embedding")),
               f"ring {dt_name}: non-finite output")
@@ -1346,8 +1439,14 @@ def phase_ring() -> None:
             check(same, "ring bf16: severity argmax differs sp=4 vs sp=1")
         record[dt_name] = {"max_abs_err": err, "argmax_equal": same,
                            "k2_launches": launches,
+                           "k2_launches_sp1": launches_sp1,
+                           "k2_shapes": [[8, cfg.n_heads, LONG_L // sp,
+                                          LONG_L // sp,
+                                          cfg.d_model // cfg.n_heads]
+                                         for sp in (4, 1)],
                            "tol": 1e-4 if dt_name == "float32" else "argmax"}
     emit(record)
+    return record
 
 
 def phase_serve_long(smi: str) -> dict:
@@ -1636,7 +1735,9 @@ def phase_grad() -> dict:
               f"grad {dt_name}: {worst_key} differs by {worst} of its max "
               f"|g| > {GRAD_TOL[dt_name]}")
         record[dt_name] = {"loss": loss, "cpu_loss": ref_loss,
-                           "k1_launches": launches, "worst_leaf": worst_key,
+                           "k1_launches": launches,
+                           "k1_shape": reference_shape(cfg, 64),
+                           "worst_leaf": worst_key,
                            "worst_rel_err": worst,
                            "attn_qkv_min_max_abs_grad": min(attn.values()),
                            "rel_err": errors}
@@ -2101,6 +2202,30 @@ def mesh_logits(params, tokens, cfg, mesh, family):
         return out, fa.launches
 
 
+def counted_forward(params, tokens, cfg) -> tuple:
+    """The single-device card forward a mesh leg is held against, and the
+    K1 launches it made (one a layer)."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import forward
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        fa.launches = 0
+        want = forward(params, tokens.cuda(), cfg)
+        torch.cuda.synchronize()
+    check(fa.launches == cfg.n_layers, f"reference forward: K1 launches "
+                                       f"{fa.launches} != {cfg.n_layers}")
+    return want, fa.launches
+
+
+def reference_shape(cfg, batch: int) -> list:
+    """[B, H, L, L, Dh] of K1 in a single-device forward of ``batch``."""
+    return [batch, cfg.n_heads, cfg.seq_len, cfg.seq_len,
+            cfg.d_model // cfg.n_heads]
+
+
 def shipped_params(dtype: str):
     """(cfg, params on the card) of the shipped checkpoint, bf16 as it
     ships or cast to fp32."""
@@ -2225,8 +2350,7 @@ def phase_mesh_tp(smi: str, base: dict) -> dict:
             cfg, params = shipped_params(dt_name)
             tokens = torch.from_numpy(encode_texts(texts, cfg.seq_len,
                                                    cfg.vocab_size))
-            with torch.inference_mode():
-                want = forward(params, tokens.cuda(), cfg)
+            want, reference = counted_forward(params, tokens, cfg)
             out, counted = mesh_logits(params, tokens, cfg, mesh,
                                        "encoder_validator")
             err = compare_outputs(out, want)
@@ -2239,7 +2363,10 @@ def phase_mesh_tp(smi: str, base: dict) -> dict:
                               "tol": tol,
                               "k1_per_forward": k1_per_forward(
                                   counted, n_layers=cfg.n_layers,
-                                  dp=shape[0], tp=shape[1])}
+                                  dp=shape[0], tp=shape[1]),
+                              "reference_k1_launches": reference,
+                              "reference_k1_shape": reference_shape(
+                                  cfg, len(texts))}
         record[name] = entry
     # negative control: the attn/o psum replaced by one column's partial
     cfg, params = shipped_params("float32")
@@ -2264,14 +2391,14 @@ def phase_mesh_tp(smi: str, base: dict) -> dict:
                                                 "check_fails": True}
     emit(record)
     return {"launches": sum(served_launches.values()),
-            "by_shape": served_launches}
+            "by_shape": served_launches, "record": record}
 
 
 def phase_mesh_pp(smi: str, base: dict) -> dict:
     """The GPipe validator on two stages over one card, 4 microbatches."""
     import torch
 
-    from vainplex_openclaw_tpu_torch.models import encode_texts, forward
+    from vainplex_openclaw_tpu_torch.models import encode_texts
     from vainplex_openclaw_tpu_torch.models.batching import ContinuousBatcher
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
     from vainplex_openclaw_tpu_torch.parallel.plan import PLAN_TABLE
@@ -2316,8 +2443,7 @@ def phase_mesh_pp(smi: str, base: dict) -> dict:
         cfg, params = shipped_params(dt_name)
         tokens = torch.from_numpy(encode_texts(texts, cfg.seq_len,
                                                cfg.vocab_size))
-        with torch.inference_mode():
-            want = forward(params, tokens.cuda(), cfg)
+        want, reference = counted_forward(params, tokens, cfg)
         out, counted = mesh_logits(params, tokens, cfg, mesh,
                                    "encoder_validator_pp")
         err = compare_outputs(out, want)
@@ -2328,9 +2454,12 @@ def phase_mesh_pp(smi: str, base: dict) -> dict:
         record[dt_name] = {"max_abs_err": err, "argmax_equal": same,
                            "tol": tol,
                            "k1_per_forward": k1_per_forward(
-                               counted, n_layers=cfg.n_layers, M=M)}
+                               counted, n_layers=cfg.n_layers, M=M),
+                           "reference_k1_launches": reference,
+                           "reference_k1_shape": reference_shape(
+                               cfg, len(texts))}
     emit(record)
-    return {"launches": launches}
+    return {"launches": launches, "record": record}
 
 
 def moe_checkpoint(ckpt: str, dtype: str) -> tuple:
@@ -5269,12 +5398,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         phase_build()
         worst = phase_kernels()
-        phase_forward()
+        forwarded = phase_forward()
         served = phase_serve()
         timing = phase_timing()
         worst_stats = phase_kernels_stats()
         wide = phase_timing_wide(info["nvidia_smi"])
-        phase_ring()
+        ring = phase_ring()
         served_long = phase_serve_long(info["nvidia_smi"])
         timing_stats = phase_timing_stats()
         grad = phase_grad()
@@ -5310,6 +5439,7 @@ def main() -> int:
           "train_ms": timing_train["exponentials"] / ex2_per_s * 1e3})
     from vainplex_openclaw_tpu_torch.ops.flash_attention import launch_tiles
 
+    fp32 = fp32_launches(forwarded, grad, mesh, ring, graft)
     tiles = {"serve": list(launch_tiles(64, 64, "bfloat16")),
              "long": list(launch_tiles(LONG_L, LONG_L, "bfloat16"))}
     emit({"kernels": [{
@@ -5353,7 +5483,8 @@ def main() -> int:
         "trace_analyzer_shape": trace_k1_line(traced),
         "dh8_shapes": dh8_line(graft, stats=False),
         "wide_shapes": wide_line(wide, stats=False),
-        "fp32_walk_shapes": wide_line(wide, stats=False, key="fp32_walk"),
+        "fp32_walk_shapes": walk_line(wide, False, fp32["k1"]),
+        "fp32_launches_by_path": fp32_by_path(fp32["k1"]),
         "shard_shapes": [
             {"path": path, "shape": t["shape"], "launches": launches,
              "ms": t["kernel_ms"], "bound_ms": t["bound_ms"],
@@ -5402,7 +5533,8 @@ def main() -> int:
                               **dryrun_launches(graft, "k2")},
          "dh8_shapes": dh8_line(graft, stats=True),
          "wide_shapes": wide_line(wide, stats=True),
-         "fp32_walk_shapes": wide_line(wide, stats=True, key="fp32_walk")},
+         "fp32_walk_shapes": walk_line(wide, True, fp32["k2"]),
+         "fp32_launches_by_path": fp32_by_path(fp32["k2"])},
         {"name": "levenshtein", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": similarity["k3_launches"],
          "max_abs_err": max(r["max_abs_err"] for r in

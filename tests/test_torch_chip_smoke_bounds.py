@@ -297,8 +297,10 @@ def test_streamed_q_case_is_past_both_wide_kernels_resident_q():
 def test_timing_wide_times_every_non_causal_wide_case_and_the_fp32_walk(
         monkeypatch, capsys):
     """``phase_timing_wide`` times K1 and K2 in bf16 and fp32 at every
-    non-causal ``WIDE_CASES`` shape, and the narrow fp32 walk (K1 and K2)
-    at B=2 H=2 L=2048 with Dh 64 and 128; the kernels line carries both."""
+    non-causal ``WIDE_CASES`` shape, and the fp32 kernel at the compiled
+    widths (K1 and K2) at every ``FP32_WALK_SHAPES`` shape: B=2 H=2 L=2048
+    with Dh 64 and 128, the ring's shard, B=1 at 16384 and the fp32 legs'
+    shape; the kernels line carries both."""
     calls = []
 
     def time_attention(B, H, Lq, Lk, Dh, dt_name, stats, seed, n, reps):
@@ -316,14 +318,163 @@ def test_timing_wide_times_every_non_causal_wide_case_and_the_fp32_walk(
     assert {(2, 2, 1000, 1999, 256), (2, 2, 2048, 2048, 256)} <= wide
     want = {(s, dt, st) for s in wide for dt in ("bfloat16", "float32")
             for st in (False, True)}
-    want |= {((2, 2, 2048, 2048, dh), "float32", st) for dh in (64, 128)
+    walk_shapes = {(2, 2, 2048, 2048, 64), (2, 2, 2048, 2048, 128),
+                   (8, 2, 4096, 4096, 16), (1, 2, 16384, 16384, 16),
+                   (32, 4, 64, 64, 16)}
+    assert {tuple(c[1:]) for c in chip_smoke.FP32_WALK_SHAPES} == walk_shapes
+    want |= {(shape, "float32", st) for shape in walk_shapes
              for st in (False, True)}
     assert sorted(calls) == sorted(want)
     for stats in (False, True):
         walk = chip_smoke.wide_line(record, stats, key="fp32_walk")
-        assert sorted(t["shape"][4] for t in walk) == [64, 128]
+        assert sorted(tuple(t["shape"]) for t in walk) == sorted(walk_shapes)
         assert all(t["dtype"] == "float32" for t in walk)
         assert len(chip_smoke.wide_line(record, stats)) == 2 * len(wide)
+
+
+@pytest.mark.parametrize("shape,ms", [
+    ((2, 2, 2048, 2048, 64), 0.0641), ((2, 2, 2048, 2048, 128), 0.1282),
+    ((8, 2, 4096, 4096, 16), 0.2564), ((1, 2, 16384, 16384, 16), 0.5128)])
+@pytest.mark.parametrize("stats", [False, True])
+def test_fp32_walk_bounds_at_the_cuda_core_rate(shape, ms, stats):
+    """The fp32 kernel's shapes are bound by operations at 67 TFLOP/s:
+    4·B·H·Lq·Lk·Dh of them, by hand."""
+    B, H, Lq, Lk, Dh = shape
+    b = chip_smoke.attention_bound(B, H, Lq, Lk, Dh, 4, stats,
+                                   ops_per_s=chip_smoke.CUDA_CORE_OPS_PER_S)
+    assert chip_smoke.CUDA_CORE_OPS_PER_S == 67e12
+    assert b["operations"] == 4 * B * H * Lq * Lk * Dh
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(ms, abs=5e-5)
+    assert b["bound_ms"] == b["operations"] / 67e12 * 1e3
+
+
+def test_fp32_walk_shapes_are_kernel_cases_with_the_control():
+    """Every shape the fp32 kernel is timed at is held against the plain
+    version in both kernel phases (in fp32 among both dtypes), and at
+    2048 keys or more by a non-causal case that carries the
+    dropped-first-tile control; Dh 128 is also held causal at 2048."""
+    for cases in (chip_smoke.KERNEL_CASES, chip_smoke.STATS_CASES):
+        by_shape: dict = {}
+        for c in cases:
+            by_shape.setdefault(tuple(c[1:6]), []).append(c)
+        for name, *shape in chip_smoke.FP32_WALK_SHAPES:
+            held = by_shape.get(tuple(shape))
+            assert held, (name, shape)
+            if shape[3] >= chip_smoke.CONTROL_MIN_LK:
+                assert any(not c[6] for c in held), (name, shape)
+        assert ("head_dim_128_long", 2, 2, 2048, 2048, 128, False,
+                "prefix") in cases
+        assert any(c[1:7] == (2, 2, 2048, 2048, 128, True) for c in cases)
+
+
+def test_fp32_launches_take_the_default_library():
+    """The block table has no ``cuda:float32`` row, so every fp32 launch
+    runs the default tiles (the library built without defines) at every
+    length the committed table names a bucket for."""
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops._build import DEFAULT_TILES
+
+    rows = fa.load_block_table(fa.TABLE_PATH)["entries"]
+    assert not any(k.startswith("cuda:float32:") for k in rows)
+    buckets = {int(k.rsplit(":", 1)[1]) for k in rows}
+    assert buckets
+    for L in sorted(buckets):
+        assert fa.launch_tiles(L, L, "float32") == DEFAULT_TILES
+
+
+def _ptxas_entry(kernel, dh, stores):
+    return {"kernel": kernel, "dh": dh, "causal": False, "stats": False,
+            "registers": 128, "smem_bytes": None, "spill_stores": stores,
+            "spill_loads": stores}
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
+def test_check_spills_fails_any_spill_of_the_fp32_kernel(dh):
+    """The build phase fails on a spill of the fp32 kernel at every
+    compiled width, and of the bf16 kernel at Dh <= 64 (not at 128)."""
+    chip_smoke.check_spills("lib", [_ptxas_entry("flash_fwd_fp32", dh, 0),
+                                    _ptxas_entry("flash_fwd_mma", 128, 8)])
+    with pytest.raises(chip_smoke.SmokeFailure, match="spill"):
+        chip_smoke.check_spills("lib", [_ptxas_entry("flash_fwd_fp32", dh,
+                                                     4)])
+    if dh <= 64:
+        with pytest.raises(chip_smoke.SmokeFailure, match="spill"):
+            chip_smoke.check_spills("lib", [_ptxas_entry("flash_fwd_mma",
+                                                         dh, 4)])
+
+
+def test_walk_line_books_each_paths_fp32_launches():
+    """The kernels line's fp32 rows take the launches of every path whose
+    shape is the row's but for the batch: the ring's shard (sp=4) and its
+    whole sequence (sp=1, B=8) in K2; the legs' single-device forwards in
+    K1. A path that launches at several shapes adds to the totals only."""
+    rows = [{"name": name, "shape": list(shape), "dtype": "float32",
+             "stats": stats, "kernel_ms": 1.0, "bound_ms": 0.5,
+             "bound_by": "operations", "plain_ms": 2.0,
+             "library_ms": None if stats else 1.5,
+             "sdpa_normalized_ms": 1.5}
+            for name, *shape in chip_smoke.FP32_WALK_SHAPES
+            for stats in (False, True)]
+    wide = {"fp32_walk": rows}
+    k2 = [("ring", [8, 2, 4096, 4096, 16], 32),
+          ("ring", [8, 2, 16384, 16384, 16], 2),
+          ("dryrun_ring_flash", None, 40)]
+    k1 = [("grad", [64, 4, 64, 64, 16], 2),
+          ("mesh_pp", [32, 4, 64, 64, 16], 2), ("mesh_pp", None, 16),
+          ("forward", [32, 8, 128, 128, 32], 2)]
+    line2 = {r["name"]: r for r in chip_smoke.walk_line(wide, True, k2)}
+    assert line2["fp32_walk_ring_shard"]["launches"] == 32
+    assert line2["fp32_walk_long_16384"]["launches"] == 2
+    assert line2["fp32_walk_long_16384"]["path"] == "ring"
+    assert line2["fp32_walk_dh64"]["launches"] is None
+    line1 = {r["name"]: r for r in chip_smoke.walk_line(wide, False, k1)}
+    assert line1["fp32_walk_legs"]["launches"] == 4
+    assert line1["fp32_walk_legs"]["path"] == "grad+mesh_pp"
+    assert line1["fp32_walk_ring_shard"]["launches"] is None
+    assert chip_smoke.fp32_by_path(k2) == {"ring": 34,
+                                           "dryrun_ring_flash": 40}
+    assert chip_smoke.fp32_by_path(k1) == {"grad": 2, "mesh_pp": 18,
+                                           "forward": 2}
+
+
+def test_fp32_launches_read_each_phases_record():
+    """The kernels line's fp32 launches come from the records the phases
+    return: the forward and grad legs, each mesh_tp grid's and mesh_pp's
+    single-device reference and mesh forward, the ring at sp=4 and 1, and
+    the dryrun's ring+flash leg (Dh 8, fp32)."""
+    leg = {"k1_per_forward": {"counted": 8},
+           "reference_k1_launches": 2,
+           "reference_k1_shape": [64, 4, 64, 64, 16]}
+    pp = {"phase": "mesh_pp", "float32": dict(
+        leg, reference_k1_shape=[32, 4, 64, 64, 16]), "bfloat16": leg}
+    mesh = {"tp": {"record": {"phase": "mesh_tp", "2x2": {"float32": leg},
+                              "1x4": {"float32": leg}}},
+            "pp": {"record": pp}}
+    forwarded = {"random_float32": {"k1_launches": 2,
+                                    "k1_shape": [32, 8, 128, 128, 32]}}
+    grad = {"float32": {"k1_launches": 2, "k1_shape": [64, 4, 64, 64, 16]}}
+    ring = {"float32": {"k2_launches": 32, "k2_launches_sp1": 2,
+                        "k2_shapes": [[8, 2, 4096, 4096, 16],
+                                      [8, 2, 16384, 16384, 16]]}}
+    graft = {f"dryrun_{n}": {"legs": {
+        "ring_flash": {"k1_launches": 0, "k2_launches": 4 * n},
+        "serve_plan": {"k1_launches": 10, "k2_launches": 0}}}
+        for n in chip_smoke.GRAFT_DRYRUN_SIZES}
+    got = chip_smoke.fp32_launches(forwarded, grad, mesh, ring, graft)
+    assert chip_smoke.fp32_by_path(got["k1"]) == {
+        "forward": 2, "grad": 2, "mesh_tp": 2 * (8 + 2), "mesh_pp": 8 + 2}
+    assert chip_smoke.fp32_by_path(got["k2"]) == {
+        "ring": 34, "dryrun_ring_flash": 4 * sum(
+            chip_smoke.GRAFT_DRYRUN_SIZES)}
+    legs = [s for s in chip_smoke.FP32_WALK_SHAPES if s[0] == "fp32_walk_legs"]
+    rows = [{"name": name, "shape": list(shape), "dtype": "float32",
+             "stats": False, "kernel_ms": 1.0, "bound_ms": 0.5,
+             "bound_by": "bytes", "plain_ms": 2.0, "library_ms": 1.5}
+            for name, *shape in legs]
+    (row,) = chip_smoke.walk_line({"fp32_walk": rows}, False, got["k1"])
+    assert row["launches"] == 2 + 2 + 2 + 2  # grad, both tp grids, pp
+    assert row["path"] == "grad+mesh_tp+mesh_pp"
 
 
 def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch):

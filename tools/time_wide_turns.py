@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
-"""Time two builds of the wide flash library (K1 and K2 at head dims above
-128) in turns on one CUDA card: a baseline built from another checkout's
-``vainplex_openclaw_tpu_torch/ops/csrc`` and this checkout's own.
+"""Time two builds of a flash library in turns on one CUDA card: a baseline
+built from another checkout's ``vainplex_openclaw_tpu_torch/ops/csrc`` and
+this checkout's own. By default the wide library (K1 and K2 at head dims
+above 128); with ``--narrow`` the default library (no defines: the
+compiled widths 8 to 128, whose fp32 instances every fp32 launch runs).
 
 Run from the repository root::
 
-    python3 tools/time_wide_turns.py --baseline-csrc DIR [--out FILE]
+    python3 tools/time_wide_turns.py --baseline-csrc DIR [--narrow] [--out FILE]
 
 DIR holds the baseline's ``flash_attention.cu`` and its headers, for
 example an older commit's sources unpacked with ``git archive <commit>
 vainplex_openclaw_tpu_torch/ops/csrc | tar -x -C build/baseline`` (DIR is
 then ``build/baseline/vainplex_openclaw_tpu_torch/ops/csrc``). Both
-libraries are built with the flags and ``-DFLASH_WIDE`` of
-``ops/_build.py``, in parallel, under ``build/wide_turns/``. At every
-shape the ``timing_wide`` phase of ``chip_smoke.py`` times (the non-causal
-``WIDE_CASES``), in bf16 and fp32, K1 and K2, on the inputs
-``chip_smoke.time_attention`` makes, the calls run in turns: baseline,
-new, SDPA, plain, plain, SDPA, new, baseline (``chip_smoke.time_ms``, CUDA
-events); both builds' outputs are held against the plain version at
-``chip_smoke.TOL``. One JSON line per shape;
-FILE (default ``chiprun_out/wide_turns.json``) gets every line, each
-build's ptxas registers and spills, and the card's name and power limit.
-Exits 1 if a build fails or an output is out of tolerance.
+libraries are built with the flags of ``ops/_build.py`` (and
+``-DFLASH_WIDE`` without ``--narrow``), in parallel, under
+``build/wide_turns/``. The shapes: the non-causal ``WIDE_CASES`` that the
+``timing_wide`` phase of ``chip_smoke.py`` times, in bf16 and fp32; with
+``--narrow`` its ``FP32_WALK_SHAPES`` in fp32. At every shape, K1 and K2,
+on the inputs ``chip_smoke.time_attention`` makes, the calls run in turns:
+baseline, new, SDPA, plain, plain, SDPA, new, baseline
+(``chip_smoke.time_ms``, CUDA events; ten times the calls where the
+fp32 bound is under 0.01 ms, the launch); both builds' outputs are held
+against the plain version at ``chip_smoke.TOL``. With ``--narrow`` each
+shape also names the kernels SDPA launched and gives each build's device
+time a call, from the profiler. One JSON
+line per shape; FILE (default ``chiprun_out/wide_turns.json``, with
+``--narrow`` ``chiprun_out/narrow_turns.json``) gets every line, each
+build's seconds and ptxas registers and spills, and the card's name and
+power limit. Exits 1 if a build fails or an output is out of tolerance.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -42,18 +51,20 @@ if REPO not in sys.path:
 import chip_smoke as cs  # noqa: E402
 
 
-def start_build(csrc: str, name: str):
-    """``nvcc`` of the wide library from ``csrc``, started: (process,
-    path of the library it writes)."""
+def start_build(csrc: str, name: str, defines: tuple):
+    """``nvcc`` of the flash library from ``csrc`` with ``defines``,
+    started: (process, path of the library it writes, start time)."""
     from vainplex_openclaw_tpu_torch.ops import _build
 
     out_dir = os.path.join(REPO, "build", "wide_turns")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"libflash_attention_{name}_wide.so")
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *_build.WIDE_DEFINES,
+    kind = "wide" if defines else "default"
+    path = os.path.join(out_dir, f"libflash_attention_{name}_{kind}.so")
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines,
            "-o", path, os.path.join(csrc, "flash_attention.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), path
+                            stderr=subprocess.STDOUT, text=True), path, \
+        time.perf_counter()
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -67,10 +78,30 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
+def sdpa_kernels(fn, n: int = 5) -> list:
+    """The CUDA kernels ``n`` calls of ``fn`` launched, from the profiler:
+    name (first 120 characters), device ms per call and records, the
+    longest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [{"name": name[:120], "ms_per_call": t / 1e3 / n,
+             "records": count}
+            for t, name, count in sorted(cs.device_rows(prof), reverse=True)]
+
+
 def time_shape(libs: dict, B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
-               seed: int, n: int, reps: int) -> dict:
+               seed: int, n: int, reps: int, name_sdpa: bool = False) -> dict:
     """One shape, dtype and mode: each build, SDPA and the plain version in
-    turns, and each build's error against the plain version."""
+    turns, and each build's error against the plain version; with
+    ``name_sdpa`` the kernels SDPA launched and each build's device time
+    a call."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -132,17 +163,39 @@ def time_shape(libs: dict, B, H, Lq, Lk, Dh, dt_name: str, stats: bool,
         else cs.CUDA_CORE_OPS_PER_S
     bound = cs.attention_bound(B, H, Lq, Lk, Dh, q.element_size(), stats,
                                ops_per_s=ops)
+    named = {}
+    if name_sdpa:
+        # the kernels SDPA ran, and each build's device time a call (the
+        # host's launch rate sets the turns at the smallest shapes)
+        named = {"sdpa_kernels": sdpa_kernels(sdpa),
+                 "device_ms": {name: cs.device_kernel_ms(fn, n=20)[
+                     "ms_per_call"] for name, fn in calls.items()}}
     return {"shape": [B, H, Lq, Lk, Dh], "dtype": dt_name, "stats": stats,
             **{f"{name}_ms": statistics.median(r) for name, r in runs.items()},
             "runs": runs, "err": errors, "tol": cs.TOL[dt_name],
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "exp_floor_ms": bound["exp_floor_ms"], **named}
+
+
+def shapes(narrow: bool) -> list:
+    """(name, B, H, Lq, Lk, Dh, dtypes, seed) of every shape timed: the
+    non-causal ``WIDE_CASES`` in both dtypes, or with ``narrow`` the
+    ``FP32_WALK_SHAPES`` in fp32, on ``timing_wide``'s seeds."""
+    if narrow:
+        return [(name, B, H, Lq, Lk, Dh, ("float32",), 320 + i)
+                for i, (name, B, H, Lq, Lk, Dh)
+                in enumerate(cs.FP32_WALK_SHAPES)]
+    return [(name, B, H, Lq, Lk, Dh, ("bfloat16", "float32"), 300 + i)
+            for i, (name, B, H, Lq, Lk, Dh, causal, _)
+            in enumerate(cs.WIDE_CASES) if not causal]
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline-csrc", required=True)
-    parser.add_argument("--out", default=os.path.join(
-        REPO, "chiprun_out", "wide_turns.json"))
+    parser.add_argument("--narrow", action="store_true",
+                        help="the default library at FP32_WALK_SHAPES")
+    parser.add_argument("--out")
     parser.add_argument("--n", type=int, default=20)
     parser.add_argument("--reps", type=int, default=5)
     args = parser.parse_args()
@@ -153,35 +206,55 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    defines = () if args.narrow else _build.WIDE_DEFINES
+    out = args.out or os.path.join(
+        REPO, "chiprun_out",
+        "narrow_turns.json" if args.narrow else "wide_turns.json")
     builds = {"baseline": start_build(os.path.abspath(args.baseline_csrc),
-                                      "baseline"),
-              "new": start_build(_build.CSRC_DIR, "new")}
+                                      "baseline", defines),
+              "new": start_build(_build.CSRC_DIR, "new", defines)}
     record = {"nvidia_smi": info["nvidia_smi"], "kind": info["kind"],
-              "ptxas": {}, "shapes": []}
+              "library": "default" if args.narrow else "wide",
+              "build_seconds": {}, "ptxas": {}, "shapes": []}
+    logs = {}
+
+    def wait(name, proc, t0):  # each build's seconds end with its own nvcc
+        logs[name] = proc.communicate()[0]
+        record["build_seconds"][name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc, t0))
+               for name, (proc, _, t0) in builds.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     libs = {}
-    for name, (proc, path) in builds.items():
-        log, _ = proc.communicate()
+    for name, (proc, path, _) in builds.items():
         if proc.returncode != 0:
-            print(f"{name} build failed:\n{log}", file=sys.stderr)
+            print(f"{name} build failed:\n{logs[name]}", file=sys.stderr)
             return 1
-        record["ptxas"][name] = cs.ptxas_report(log)
+        record["ptxas"][name] = cs.ptxas_report(logs[name])
         libs[name] = load(path)
-    cs.emit({"ptxas": record["ptxas"]})
+    cs.emit({"build_seconds": record["build_seconds"],
+             "ptxas": record["ptxas"]})
     failed = []
-    for i, (name, B, H, Lq, Lk, Dh, causal, _) in enumerate(cs.WIDE_CASES):
-        if causal:
-            continue
-        for dt_name in ("bfloat16", "float32"):
+    for name, B, H, Lq, Lk, Dh, dtypes, seed in shapes(args.narrow):
+        # a shape the launch bounds takes ten times the calls a turn
+        small = cs.attention_bound(
+            B, H, Lq, Lk, Dh, 4, False,
+            ops_per_s=cs.CUDA_CORE_OPS_PER_S)["bound_ms"] < 0.01
+        for dt_name in dtypes:
             for stats in (False, True):
                 r = {"name": name, **time_shape(
-                    libs, B, H, Lq, Lk, Dh, dt_name, stats, seed=300 + i,
-                    n=args.n, reps=args.reps)}
+                    libs, B, H, Lq, Lk, Dh, dt_name, stats, seed=seed,
+                    n=args.n * (10 if small else 1), reps=args.reps,
+                    name_sdpa=args.narrow)}
                 cs.emit({k: v for k, v in r.items() if k != "runs"})
                 record["shapes"].append(r)
                 failed += [(name, dt_name, stats, lib) for lib, e in
                            r["err"].items() if not e <= r["tol"]]
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w", encoding="utf-8") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w", encoding="utf-8") as f:
         json.dump(record, f, indent=1)
     if failed:
         print(f"out of tolerance: {failed}", file=sys.stderr)

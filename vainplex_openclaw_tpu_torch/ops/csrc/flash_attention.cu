@@ -76,136 +76,330 @@
 // register-tiled FMA fed by cp.async, flash_fwd_mma_wide in the header on
 // wgmma fed by TMA. Their notes give the bounds.
 //
-// fp32 inputs (the parity paths: no served configuration runs them) take
-// the scalar walk below: one thread per query row, the dot products on the
-// CUDA cores, since a tensor-core fp32 path would be TF32. The dispatch
-// chooses by dtype alone. At Dh=128 in fp32, q and acc take 256 registers
-// and spill; no path of the repo runs that shape.
+// fp32 inputs at the compiled widths (the fp32 parity legs: no served
+// configuration runs them) take flash_fwd_fp32 below: register-tiled FMA
+// on the CUDA cores, since a tensor-core fp32 path would be TF32. The
+// dispatch chooses by dtype alone.
 
 #include "flash_attention_mma.cuh"
 
 namespace {
 
-namespace scalar {
+namespace simt {  // fp32 on the CUDA cores
 
-constexpr int kBlockM = 64;  // query rows per block, one per thread
-constexpr int kChunk = 16;   // keys per online-softmax step
+// Head dims 8 to 128 in fp32. Replaces _flash_kernel in both modes, as the
+// bf16 kernel does.
+//
+// Bound at B=2 H=2 L=2048: 4 * B*H*L^2 * Dh operations at the CUDA cores'
+// 67 TFLOP/s, 0.128 ms at Dh=128 and 0.064 ms at Dh=64, against K1's 33.6
+// and 16.8 MB of q, k, v and out (0.010 and 0.005 ms): operations. At Dh=16
+// (the ring's shard B=8 H=2 L=4096: 0.256 ms) a score's 32 FMAs come with
+// about 8 more instructions of softmax (scale and bias, max, the
+// exponential, its sum and the store of p).
+//
+// Design. A block of 256 threads (16 row groups x 16 lanes) owns a 64-row
+// query tile; lane tx of row group ty owns rows 4ty .. 4ty+3.
+// - Q lands in shared memory once per block. K, V and the tile's bias row
+//   stream through a cp.async ring of key tiles (kStages, kBN keys each),
+//   so the next tile loads while this one is multiplied. 128-key tiles at
+//   Dh=16 and 64 halve the barriers, row maxima and corrections a key;
+//   at Dh=64 that takes 191 KB, one block an SM (at B=2 H=2 L=2048 the
+//   grid is 128 blocks, one an SM either way). Dh=128 keeps 64 keys and
+//   2 stages (186 KB; 3 would take 254).
+// - q . k^T: the thread's 4 x kKeys micro-tile of the score tile, keys
+//   tx + 16 jj; per 4 columns, four float4 reads of q (a broadcast across
+//   the row group) and kKeys of k from shared memory feed 16 kKeys FMAs.
+// - The online softmax runs once per key tile on the micro-tile: the row
+//   max over the 16 lanes of a row by warp shuffles, one expf correction a
+//   row and tile, p = __expf(s - m) (exactly 1 where s == m == -1e30, 0 past
+//   Lk); p goes through shared memory to the P . V product. A tile with no
+//   key past Lk and no causal mask skips the per-key tests.
+// - P . V: the thread keeps its 4 rows and 4 * kCols output columns (four
+//   float4 reads of p and 4 * kCols of v feed 64 * kCols FMAs). Below Dh=64
+//   a row group's 16 lanes outnumber the float4 column groups, so the lanes
+//   also split the tile's keys into kKeyGroups interleaved 4-key chunks;
+//   their partial sums share m and are added by warp shuffles once, at the
+//   end. At Dh=8 that is 8 key groups of 2 columns.
+// - Both products are unrolled whole (Dh=128: 166-182 registers, no
+//   spill); below Dh=64 two blocks fit an SM at 128 registers.
+// The wide fp32 kernel below has the same micro-tiles but its own body: its
+// 128-column ring units, 256-wide output slices and streamed Q have no use
+// at these widths, and the key groups none above them.
+constexpr int kFp32Threads = 256;
+constexpr int kFp32BM = 64;  // query rows per block
+
+template <int DH>
+struct Fp32Tiles {
+  static constexpr int kBN = DH == 16 || DH == 64 ? 128 : 64;  // keys per tile
+  static constexpr int kKeys = kBN / 16;     // keys of a tile a lane scores
+  static constexpr int kPPitch = kBN + 4;    // floats per row of p
+  static constexpr int kPitch = DH + 4;  // floats per row of Q, K and V: no bank conflicts
+  static constexpr int kStages = DH >= 64 ? 2 : 3;
+  static constexpr int kCols = DH >= 64 ? DH / 64 : 1;  // float4 column groups a thread owns
+  static constexpr int kColLanes = DH / (4 * kCols);    // lanes of a row across the columns
+  static constexpr int kKeyGroups = 16 / kColLanes;     // lanes of a row across a tile's keys
+  static constexpr int kChunks = kBN / (4 * kKeyGroups);  // 4-key chunks a key group takes
+  static constexpr int kStageFloats = 2 * kBN * kPitch + kBN;  // K, V, bias
+  static constexpr int kSmemBytes =
+      4 * (kFp32BM * kPitch + kFp32BM * kPPitch + kStages * kStageFloats);
+  static_assert(DH % 8 == 0 && DH <= 128 && kColLanes * kKeyGroups == 16,
+                "a compiled fp32 width is 8, 16, 32, 64 or 128");
+  static_assert(kBN % 16 == 0 && kChunks >= 1, "a tile is whole 4-key chunks of each key group");
+  static_assert(kSmemBytes <= 227 * 1024, "the fp32 tiles exceed 227 KB of shared memory");
+};
+
+__device__ __forceinline__ float row_max16(float x) {  // over the 16 lanes of a row
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, const float4& x) {
+  acc.x = fmaf(p, x.x, acc.x);
+  acc.y = fmaf(p, x.y, acc.y);
+  acc.z = fmaf(p, x.z, acc.z);
+  acc.w = fmaf(p, x.w, acc.w);
+}
 
 // out is fp32 [B,H,Lq,Dh], normalized (K1) or the unnormalized acc (K2);
 // m_out and l_out are fp32 [B,H,Lq] in K2 and unused in K1.
 template <int DH, bool CAUSAL, bool STATS>
-__global__ void __launch_bounds__(kBlockM)
+__global__ void __launch_bounds__(kFp32Threads, DH < 64 ? 2 : 1)
     flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ bias,
                    float* __restrict__ out, float* __restrict__ m_out,
                    float* __restrict__ l_out, int H, int Lq, int Lk, int n_qtiles,
                    float scale) {
-  constexpr int BN = DH <= 64 ? 64 : 32;  // keys per tile: K and V stay at 32 KB
+  using T = Fp32Tiles<DH>;
+  constexpr int P = T::kPitch;
+  constexpr int BN = T::kBN;
+  constexpr int PP = T::kPPitch;
+  constexpr int JJ = T::kKeys;
   constexpr int kRowVecs = DH / 4;  // float4 per row
 
-  __shared__ __align__(16) float k_s[BN * DH];
-  __shared__ __align__(16) float v_s[BN * DH];
-  __shared__ float b_s[BN];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + kFp32BM * P;
+  float* ring = p_s + kFp32BM * PP;
 
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int kg = tx / T::kColLanes;  // key group in P . V
+  const int cg = tx % T::kColLanes;  // column group in P . V
   const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
+  const int q0 = (blockIdx.x % n_qtiles) * kFp32BM;
   const int b = bh / H;
-  const int row = q0 + threadIdx.x;
-  const bool active = row < Lq;
-
+  const float* qp = q + static_cast<size_t>(bh) * Lq * DH;
   const float* kp = k + static_cast<size_t>(bh) * Lk * DH;
   const float* vp = v + static_cast<size_t>(bh) * Lk * DH;
   const float* bp = bias + static_cast<size_t>(b) * Lk;
 
-  float qr[DH];
-  float acc[DH];
-  {
-    const float* src = q + (static_cast<size_t>(bh) * Lq + (active ? row : 0)) * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qr[d] = active ? src[d] : 0.f;
-      acc[d] = 0.f;
+  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kFp32BM) : Lk;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+
+  // K, V and bias of key tile j into its stage; keys at or past Lk are
+  // zero-filled.
+  auto load_tile = [&](int j) {
+    const int kv0 = j * BN;
+    float* ks = ring + (j % T::kStages) * T::kStageFloats;
+    float* vs = ks + BN * P;
+    float* bs = vs + BN * P;
+    for (int i = tid; i < BN * kRowVecs; i += kFp32Threads) {
+      const int r = i / kRowVecs;
+      const int c = (i - r * kRowVecs) * 4;
+      const bool live = kv0 + r < Lk;
+      const size_t src = static_cast<size_t>(live ? kv0 + r : 0) * DH + c;
+      mma::cp_async_16(mma::smem_u32(ks + r * P + c), kp + src, live);
+      mma::cp_async_16(mma::smem_u32(vs + r * P + c), vp + src, live);
     }
+    for (int i = tid; i < BN; i += kFp32Threads)
+      mma::cp_async_4(mma::smem_u32(bs + i), bp + min(kv0 + i, Lk - 1), kv0 + i < Lk);
+  };
+
+  // Prologue: Q and tile 0 in the first group, then the next stages'.
+  for (int i = tid; i < kFp32BM * kRowVecs; i += kFp32Threads) {
+    const int r = i / kRowVecs;
+    const int c = (i - r * kRowVecs) * 4;
+    const bool live = q0 + r < Lq;
+    mma::cp_async_16(mma::smem_u32(q_s + r * P + c),
+                     qp + static_cast<size_t>(live ? q0 + r : 0) * DH + c, live);
   }
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int kv_end = CAUSAL ? causal_kv_end(bp, Lk, q0, kBlockM) : Lk;
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
-    const int n = min(BN, kv_end - kv0);
-    __syncthreads();  // every thread is done with the previous tile
-    {
-      const float4* kg = reinterpret_cast<const float4*>(kp + static_cast<size_t>(kv0) * DH);
-      const float4* vg = reinterpret_cast<const float4*>(vp + static_cast<size_t>(kv0) * DH);
-      float4* ks4 = reinterpret_cast<float4*>(k_s);
-      float4* vs4 = reinterpret_cast<float4*>(v_s);
-      const int live = n * kRowVecs;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int i = threadIdx.x; i < BN * kRowVecs; i += kBlockM) {
-        ks4[i] = i < live ? kg[i] : zero;
-        vs4[i] = i < live ? vg[i] : zero;
-      }
-      for (int j = threadIdx.x; j < BN; j += kBlockM) b_s[j] = j < n ? bp[kv0 + j] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    for (int c = 0; c < n; c += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = c + jj;
-        float sv = -INFINITY;  // past the tile's end: p is exactly 0
-        if (j < n) {
-          const float* kr = k_s + j * DH;
-          float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
-          sv = dot * scale + b_s[j];
-          if (CAUSAL && kv0 + j > row) sv = kNegInf;
-        }
-        s[jj] = sv;
-        cmax = fmaxf(cmax, sv);
-      }
-      // c < n, so the chunk holds a live key and m_new is finite.
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = c + jj;
-        if (j < n) {
-          const float p = expf(s[jj] - m_new);
-          l += p;
-          const float* vr = v_s + j * DH;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
-        }
-      }
-      m = m_new;
-    }
+  for (int i = 0; i < T::kStages - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    mma::cp_async_commit();
   }
 
-  if (!active) return;
-  const size_t orow = static_cast<size_t>(bh) * Lq + row;
-  float4* dst = reinterpret_cast<float4*>(out + orow * DH);
-  const float lc = STATS ? 1.f : fmaxf(l, 1e-30f);
+  float4 acc[4][T::kCols];
 #pragma unroll
-  for (int i = 0; i < kRowVecs; ++i) {
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < T::kCols; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m[4], l[4];  // per row: the running max, and this lane's share of the sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * BN;
+    mma::cp_async_wait<T::kStages - 2>();  // tile j has landed
+    __syncthreads();                       // all are done with tile j-1 and its p
+    if (j + T::kStages - 1 < n_tiles) load_tile(j + T::kStages - 1);
+    mma::cp_async_commit();
+    const float* ks = ring + (j % T::kStages) * T::kStageFloats;
+    const float* vs = ks + BN * P;
+    const float* bs = vs + BN * P;
+
+    // s = q . k^T on the micro-tile
+    float s[4][JJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) s[i][jj] = 0.f;
+    const float* qr = q_s + 4 * ty * P;
+    const float* kr = ks + tx * P;
+#pragma unroll
+    for (int d = 0; d < DH; d += 4) {
+      float4 a[4], c[JJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qr + i * P + d);
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj)
+        c[jj] = *reinterpret_cast<const float4*>(kr + 16 * jj * P + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < JJ; ++jj) {
+          float x = s[i][jj];
+          x = fmaf(a[i].x, c[jj].x, x);
+          x = fmaf(a[i].y, c[jj].y, x);
+          x = fmaf(a[i].z, c[jj].z, x);
+          s[i][jj] = fmaf(a[i].w, c[jj].w, x);
+        }
+      }
+    }
+    // s * scale + bias, keys past Lk count nothing, a causal key after the
+    // query scores -1e30; then the online softmax, and p into shared memory.
+    float bb[JJ];
+#pragma unroll
+    for (int jj = 0; jj < JJ; ++jj) bb[jj] = bs[tx + 16 * jj];
+    // a tile with no key past Lk and, causal, none after its first row's
+    // skips the per-key tests (the same for every thread of the block)
+    const bool edge = kv0 + BN > Lk || (CAUSAL && kv0 + BN - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) {
+        float sv = s[i][jj] * scale + bb[jj];
+        if (edge) {
+          const int key = kv0 + tx + 16 * jj;
+          if (key >= Lk) {
+            sv = -INFINITY;  // p is exactly 0
+          } else if (CAUSAL && key > row) {
+            sv = kNegInf;
+          }
+        }
+        s[i][jj] = sv;
+        mx = fmaxf(mx, sv);
+      }
+      // the tile holds a key before Lk, so m_new is finite
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      const float corr = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int c = 0; c < T::kCols; ++c) {
+        acc[i][c].x *= corr;
+        acc[i][c].y *= corr;
+        acc[i][c].z *= corr;
+        acc[i][c].w *= corr;
+      }
+#pragma unroll
+      for (int jj = 0; jj < JJ; ++jj) {
+        const float p = __expf(s[i][jj] - m_new);
+        l[i] += p;
+        p_s[(4 * ty + i) * PP + tx + 16 * jj] = p;
+      }
+    }
+    __syncthreads();  // the tile's p is whole
+
+    // acc += p . v over this key group's chunks: keys 4 (kg + kKeyGroups ch)
+    // .. +3, columns 4 cg + 64 c
+    const float* pr = p_s + 4 * ty * PP;
+#pragma unroll
+    for (int ch = 0; ch < T::kChunks; ++ch) {
+      const int key0 = 4 * (kg + T::kKeyGroups * ch);
+      float pv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(pr + i * PP + key0);
+        pv[i][0] = x.x;
+        pv[i][1] = x.y;
+        pv[i][2] = x.z;
+        pv[i][3] = x.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < T::kCols; ++c) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(vs + (key0 + e) * P + 4 * cg + 64 * c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fma4(acc[i][c], pv[i][e], x);
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();  // only empty groups remain
+
+  // Every lane takes part in the shuffles before any row is left out: a
+  // warp holds two row groups, and rows past Lq may be in one of them.
+  float lr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lr[i] = row_sum16(l[i]);
+#pragma unroll
+    for (int o = T::kColLanes; o < 16; o <<= 1) {  // add the key groups' sums
+#pragma unroll
+      for (int c = 0; c < T::kCols; ++c) {
+        acc[i][c].x += __shfl_xor_sync(0xffffffffu, acc[i][c].x, o);
+        acc[i][c].y += __shfl_xor_sync(0xffffffffu, acc[i][c].y, o);
+        acc[i][c].z += __shfl_xor_sync(0xffffffffu, acc[i][c].z, o);
+        acc[i][c].w += __shfl_xor_sync(0xffffffffu, acc[i][c].w, o);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= Lq) continue;
+    const size_t orow = static_cast<size_t>(bh) * Lq + row;
+    if (kg == 0) {
+      const float lc = STATS ? 1.f : fmaxf(lr[i], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < T::kCols; ++c) {
+        const float4 a = acc[i][c];
+        *reinterpret_cast<float4*>(out + orow * DH + 4 * cg + 64 * c) =
+            STATS ? a : make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc);
+      }
+    }
     if constexpr (STATS) {
-      dst[i] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
-    } else {
-      dst[i] = make_float4(acc[4 * i] / lc, acc[4 * i + 1] / lc, acc[4 * i + 2] / lc,
-                           acc[4 * i + 3] / lc);
+      if (tx == 0) {
+        m_out[orow] = m[i];
+        l_out[orow] = lr[i];
+      }
     }
-  }
-  if constexpr (STATS) {
-    m_out[orow] = m;
-    l_out[orow] = l;
   }
 }
 
@@ -213,11 +407,17 @@ template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int causal,
                    float scale, cudaStream_t stream) {
-  const int n_qtiles = (Lq + kBlockM - 1) / kBlockM;
+  using T = Fp32Tiles<DH>;
+  const int n_qtiles = (Lq + kFp32BM - 1) / kFp32BM;
   const long long blocks = static_cast<long long>(B) * H * n_qtiles;
   if (blocks <= 0 || blocks > INT_MAX) return cudaErrorInvalidValue;
   auto kernel = causal ? flash_fwd_fp32<DH, true, STATS> : flash_fwd_fp32<DH, false, STATS>;
-  kernel<<<static_cast<unsigned>(blocks), kBlockM, 0, stream>>>(
+  if (T::kSmemBytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kFp32Threads, T::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias), static_cast<float*>(out), m_out, l_out, H, Lq, Lk,
       n_qtiles, scale);
@@ -280,25 +480,6 @@ __host__ __device__ constexpr int wide_smem_bytes(int Dp) {
 static_assert(wide_smem_bytes(kWideQResMax) <= 227 * 1024 &&
                   wide_smem_bytes(kWideQResMax + 128) <= 227 * 1024,
               "the wide tiles exceed 227 KB of shared memory");
-
-__device__ __forceinline__ float row_max16(float x) {  // over the 16 lanes of a row
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float p, const float4& x) {
-  acc.x = fmaf(p, x.x, acc.x);
-  acc.y = fmaf(p, x.y, acc.y);
-  acc.z = fmaf(p, x.z, acc.z);
-  acc.w = fmaf(p, x.w, acc.w);
-}
 
 template <int W, bool CAUSAL, bool STATS>
 __global__ void __launch_bounds__(kWideThreads, 1)
@@ -569,16 +750,16 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 }
 #endif  // FLASH_WIDE
 
-}  // namespace scalar
+}  // namespace simt
 
-// dtype 0 = fp32 (the scalar walk), 1 = bf16 (the tensor-core kernel).
+// dtype 0 = fp32 (register-tiled FMA), 1 = bf16 (the tensor-core kernel).
 template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int dtype,
                    int causal, float scale, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return scalar::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
+      return simt::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
                                        scale, stream);
     case 1:
       return mma::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
@@ -605,7 +786,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias, void
   if (Dh <= 128 || Dh % 128 != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return scalar::launch_wide<STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal,
+      return simt::launch_wide<STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal,
                                         scale, s);
     case 1:
       return mma::launch_wide<STATS>(q, k, v, bias, out, m, l, B, H, Lq, Lk, Dh, causal, scale,

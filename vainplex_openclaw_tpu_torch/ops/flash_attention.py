@@ -31,8 +31,8 @@ adds one to :data:`launches` (K1) or :data:`stats_launches` (K2); if the
 library cannot be built or loaded, or the launch fails, it raises. There is
 no fallback from the kernel to the plain version. The library picks its
 kernel by dtype alone: bf16 runs on the tensor cores
-(``csrc/flash_attention_mma.cuh``), fp32 on a scalar walk of the CUDA cores
-(a tensor-core fp32 path would be TF32), in the library of the head dim
+(``csrc/flash_attention_mma.cuh``), fp32 on register-tiled FMA of the CUDA
+cores (a tensor-core fp32 path would be TF32), in the library of the head dim
 (below). The kernel masks its own ragged edge instead of padding.
 
 Head dims. Any Dh runs, as in the JAX kernel. The kernels are compiled
