@@ -158,11 +158,12 @@ def test_make_qkv_without_a_mask():
                          ids=lambda c: c[0])
 def test_kernel_cases_are_shapes_the_kernel_takes(case):
     _, B, H, Lq, Lk, Dh, causal, kind = case
-    # a compiled width, a Dh <= 128 the wrapper zero-pads to one, or above
-    # 128 a multiple of 128 the wide library runs
-    width = kernel_head_dim(Dh)
-    assert min(B, H, Lq, Lk, Dh) >= 1 and (
-        width in COMPILED_HEAD_DIMS or (width > 128 and width % 128 == 0))
+    # in each dtype a compiled width, a Dh <= 128 the wrapper zero-pads to
+    # one, or above 128 a multiple of 128 the wide library runs
+    assert min(B, H, Lq, Lk, Dh) >= 1
+    for dtype, widths in COMPILED_HEAD_DIMS.items():
+        width = kernel_head_dim(Dh, dtype)
+        assert width in widths or (width > 128 and width % 128 == 0)
     assert Lq == Lk or not causal
     assert kind in (False, "prefix", "last_tile", "holes")
 
@@ -208,12 +209,16 @@ def test_k1_check_fails_a_dropped_key_tile_at_16384_keys(dtype):
 
 
 def test_head_dim_cases_cover_the_compiled_and_padded_routes():
-    """Both kernels' cases reach Dh 8 (a compiled width) at a short and a
-    controlled long length, and Dh 24 (the padded route); K2's include
-    the dryrun's ring+flash shard."""
+    """Both kernels' cases reach Dh 8 (a compiled width in fp32, padded to
+    16 in bf16) at a short and a controlled long length, and Dh 24 (the
+    padded route in both dtypes); K2's include the dryrun's ring+flash
+    shard."""
+    assert 8 in COMPILED_HEAD_DIMS["float32"]
+    assert 8 not in COMPILED_HEAD_DIMS["bfloat16"]
     for cases in (chip_smoke.KERNEL_CASES, chip_smoke.STATS_CASES):
         dhs = {c[5] for c in cases}
-        assert {8, 24} <= dhs and 24 not in COMPILED_HEAD_DIMS
+        assert {8, 24} <= dhs
+        assert all(24 not in widths for widths in COMPILED_HEAD_DIMS.values())
         assert any(c[5] == 8 and c[4] >= chip_smoke.CONTROL_MIN_LK
                    and not c[6] for c in cases)
     assert ("dryrun_ring_shard_dh8", 1, 2, 16, 16, 8, False, False) in \
@@ -286,10 +291,12 @@ def test_streamed_q_case_is_past_both_wide_kernels_resident_q():
     both kernel phases hold it."""
     limits = [_kernel_constant("flash_attention.cu", "kWideQResMax"),
               _kernel_constant("flash_attention_mma.cuh", "kWideQResMax")]
-    assert all(kernel_head_dim(c[5]) <= min(limits)
-               for c in chip_smoke.WIDE_CASES)
+    for dtype in COMPILED_HEAD_DIMS:
+        assert all(kernel_head_dim(c[5], dtype) <= min(limits)
+                   for c in chip_smoke.WIDE_CASES)
     (case,) = chip_smoke.WIDE_STREAMED_Q_CASES
-    assert kernel_head_dim(case[5]) > max(limits)
+    assert all(kernel_head_dim(case[5], dtype) > max(limits)
+               for dtype in COMPILED_HEAD_DIMS)
     assert case in chip_smoke.KERNEL_CASES and case in chip_smoke.STATS_CASES
     assert case not in chip_smoke.served_cases((64, 128, 256, 2048, 16384))
 
@@ -402,6 +409,49 @@ def test_check_spills_fails_any_spill_of_the_fp32_kernel(dh):
         with pytest.raises(chip_smoke.SmokeFailure, match="spill"):
             chip_smoke.check_spills("lib", [_ptxas_entry("flash_fwd_mma",
                                                          dh, 4)])
+
+
+# the bf16 body at Dh 16 as ptxas names it (a wgmma/TMA kernel taking
+# three tensor maps), spilling
+PTXAS_BF16_BODY_SPILL = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__3f0e2a11_18_flash_attention_cu_6c1a07d13mma13flash_fwd_mmaILi16ELb0ELb1EEEv14CUtensorMap_stS3_S3_PKfPvPfS7_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__3f0e2a11_18_flash_attention_cu_6c1a07d13mma13flash_fwd_mmaILi16ELb0ELb1EEEv14CUtensorMap_stS3_S3_PKfPvPfS7_iiiif
+    24 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 1152 bytes cmem[0]
+"""
+
+
+def test_check_spills_fails_a_spilling_bf16_body_at_head_dim_16():
+    """A sample ptxas log of the bf16 body at Dh 16 that spills fails the
+    build phase's gate; the same body without a spill passes."""
+    report = chip_smoke.ptxas_report(PTXAS_BF16_BODY_SPILL)
+    assert [(e["kernel"], e["dh"], e["stats"], e["spill_stores"])
+            for e in report] == [("flash_fwd_mma", 16, True, 24)]
+    with pytest.raises(chip_smoke.SmokeFailure, match="spill"):
+        chip_smoke.check_spills("lib", report)
+    chip_smoke.check_spills("lib", chip_smoke.ptxas_report(
+        PTXAS_BF16_BODY_SPILL.replace("24 bytes spill stores, 24 bytes spill "
+                                      "loads", "0 bytes spill stores, 0 "
+                                      "bytes spill loads")))
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd_bf16", "flash_fwd_wgmma"])
+def test_check_spills_holds_a_body_under_another_name(kernel):
+    """A flash kernel under a name the gate does not know is held at every
+    width, Dh 128 included; the two wide kernels are not held."""
+    chip_smoke.check_spills("lib", [_ptxas_entry("flash_fwd_mma_wide", 256, 8),
+                                    _ptxas_entry("flash_fwd_fp32_wide", 256,
+                                                 8)])
+    for dh in (16, 128):
+        with pytest.raises(chip_smoke.SmokeFailure, match="spill"):
+            chip_smoke.check_spills("lib", [_ptxas_entry(kernel, dh, 4)])
+
+
+def test_instantiation_cap_is_the_default_librarys_count():
+    """The build phase's cap: 4 bf16 and 5 fp32 head dims, causal or not,
+    stats or not."""
+    n = sum(len(w) for w in COMPILED_HEAD_DIMS.values()) * 2 * 2
+    assert chip_smoke.MAX_INSTANTIATIONS == n == 36
 
 
 def test_walk_line_books_each_paths_fp32_launches():
@@ -918,7 +968,8 @@ def test_served_cases_are_the_searched_buckets_shapes():
     assert not {c[0] for c in chip_smoke.TRACE_TRIAGE_CASES} & set(names)
     for c in cases:
         assert {pow2_bucket(c[3]), pow2_bucket(c[4])} & {64, 16384}
-        assert kernel_head_dim(c[5]) in COMPILED_HEAD_DIMS
+        assert kernel_head_dim(c[5], "bfloat16") in \
+            COMPILED_HEAD_DIMS["bfloat16"]
     assert cases[-1] == ("long_serve", *chip_smoke.LONG_SERVE[:3],
                          chip_smoke.LONG_L, 16, False, False)
     assert [c[0] for c in chip_smoke.served_cases((64,))] == \

@@ -13,6 +13,7 @@ is held against the same plain version on the card by ``chip_smoke.py``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 import types
 
@@ -334,14 +335,22 @@ def test_stats_fully_masked_row_counts_real_keys(no_kernel_build):
 
 
 def test_kernel_head_dim_is_the_next_compiled_width():
-    """Up to 128 the next compiled width; above it the next multiple of
-    128, the width the wide library runs."""
-    assert fa.COMPILED_HEAD_DIMS == (8, 16, 32, 64, 128)
-    assert [fa.kernel_head_dim(d) for d in (1, 7, 8, 9, 16, 24, 33, 100,
-                                            128)] == \
+    """Up to 128 the next compiled width of the dtype (bf16 compiles no
+    Dh 8: wgmma's k-depth is 16); above it the next multiple of 128, the
+    width the wide library runs, in both."""
+    assert fa.COMPILED_HEAD_DIMS == {"bfloat16": (16, 32, 64, 128),
+                                     "float32": (8, 16, 32, 64, 128)}
+    small = (1, 7, 8, 9, 16, 24, 33, 100, 128)
+    assert [fa.kernel_head_dim(d, torch.float32) for d in small] == \
         [8, 8, 8, 16, 16, 32, 64, 128, 128]
-    assert [fa.kernel_head_dim(d) for d in (129, 200, 256, 257, 300, 384)] \
-        == [256, 256, 256, 384, 384, 384]
+    assert [fa.kernel_head_dim(d, torch.bfloat16) for d in small] == \
+        [16, 16, 16, 16, 16, 32, 64, 128, 128]
+    assert fa.kernel_head_dim(8, "bfloat16") == 16
+    assert fa.kernel_head_dim(8, "float32") == 8
+    for dtype in (torch.float32, torch.bfloat16):
+        assert [fa.kernel_head_dim(d, dtype)
+                for d in (129, 200, 256, 257, 300, 384)] \
+            == [256, 256, 256, 384, 384, 384]
 
 
 @pytest.mark.parametrize("Dh", [3, 8, 12, 24, 48, 96])
@@ -355,7 +364,7 @@ def test_padded_route_leaves_every_output_unchanged(Dh, dtype):
     tdt = DTYPES[dtype][0]
     args = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
     bias = fa._bias(torch.from_numpy(mask), 2, 56, torch.device("cpu"))
-    width = fa.kernel_head_dim(Dh)
+    width = fa.kernel_head_dim(Dh, tdt)
     padded = [fa._pad_head_dim(t, width) for t in args]
     assert all(t.shape[-1] == width and t.is_contiguous() for t in padded)
     acc, m, l = fa._stats(*args, bias, False)
@@ -471,6 +480,93 @@ def test_wide_launch_is_one_launch_of_the_wide_library(monkeypatch,
     assert first.shape[-1] == 129
     with pytest.raises(ValueError, match="own tiles"):
         fa._launch(*args, bias, False, return_stats, tiles=(128, 64))
+
+
+def _host_tensor(ptr: int, shape: tuple, dtype) -> torch.Tensor:
+    """A CPU tensor over the memory at ``ptr`` (a launch's argument)."""
+    n = math.prod(shape)
+    nbytes = n * torch.tensor([], dtype=dtype).element_size()
+    buf = (ctypes.c_char * nbytes).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype, count=n).view(shape)
+
+
+class _PlainLib:
+    """The default library's C entry points computing the kernel's
+    function with the plain version on the memory they are handed: q, k
+    and v at the head dim and scale the launch passes, as the card's
+    kernel reads them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _inputs(self, args):
+        q, k, v, bias = args[:4]
+        B, H, Lq, Lk, Dh, dtype, causal, scale = args[-9:-1]
+        tdt = {0: torch.float32, 1: torch.bfloat16}[dtype]
+        self.calls.append((Dh, dtype, scale))
+        return ([_host_tensor(q, (B, H, Lq, Dh), tdt),
+                 _host_tensor(k, (B, H, Lk, Dh), tdt),
+                 _host_tensor(v, (B, H, Lk, Dh), tdt),
+                 _host_tensor(bias, (B, Lk), torch.float32)],
+                (B, H, Lq, Dh), tdt, bool(causal), scale)
+
+    def flash_attention_fwd(self, *args):
+        (q, k, v, bias), shape, tdt, causal, scale = self._inputs(args)
+        acc, _, l = fa._stats(q, k, v, bias, causal, scale=scale)
+        _host_tensor(args[4], shape, tdt).copy_(
+            (acc / l.clamp_min(1e-30)).to(tdt))
+        return 0
+
+    def flash_attention_stats_fwd(self, *args):
+        (q, k, v, bias), shape, _, causal, scale = self._inputs(args)
+        acc, m, l = fa._stats(q, k, v, bias, causal, scale=scale)
+        _host_tensor(args[4], shape, torch.float32).copy_(acc)
+        _host_tensor(args[5], shape[:3], torch.float32).copy_(m[..., 0])
+        _host_tensor(args[6], shape[:3], torch.float32).copy_(l[..., 0])
+        return 0
+
+
+@pytest.mark.parametrize("return_stats", [False, True],
+                         ids=["normalized", "stats"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_8_launch_matches_pallas_interpreter(monkeypatch, dtype,
+                                                      return_stats):
+    """A launch at Dh 8 runs at 16 in bf16 (q, k and v zero-padded, the
+    scale of 8, the padded columns sliced away) and at 8 in fp32. Its
+    output, computed from the memory the launch hands the library, equals
+    JAX's ``flash_attention(..., interpret=True)`` on every row, a masked
+    and a fully masked one included (L a multiple of the JAX block, so no
+    padded key counts in JAX's l): fp32 within 1e-5, bf16 within 5e-2."""
+    lib = _PlainLib()
+    monkeypatch.setattr(_build, "load_library",
+                        lambda name, tiles=None, defines=(): lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fa, "launch_tiles", lambda Lq, Lk, dt: (64, 64))
+    B, H, L = 3, 2, 64
+    q, k, v, mask = make_inputs(808, B, H, L, L, 8, [64, 23, 0])
+    tdt, jdt = DTYPES[dtype]
+    bias = fa._bias(torch.from_numpy(mask), B, L, torch.device("cpu"))
+    got = fa._launch(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                     bias, False, return_stats)
+    want = jax_flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), jnp.asarray(mask),
+        interpret=True, return_stats=return_stats)
+    width = 16 if dtype == "bfloat16" else 8
+    assert lib.calls == [(width, fa._DTYPE_CODES[tdt],
+                          pytest.approx(1 / math.sqrt(8)))]
+    got, want = (got, want) if return_stats else ((got,), (want,))
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        g = g.float().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(w.astype(jnp.float32)),
+                                   atol=WIDE_TOL[dtype], rtol=0)
+    if return_stats:  # the fully masked row: m = -1e30, l = the L keys
+        assert (got[1][-1].numpy() == np.float32(-1e30)).all()
+        assert (got[2][-1].numpy() == L).all()
 
 
 @pytest.mark.parametrize("return_stats", [False, True])

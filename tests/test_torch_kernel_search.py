@@ -89,7 +89,7 @@ class TestCandidateEnumeration:
 
     def test_port_sides_and_the_long_bucket(self, no_table):
         pairs = ks.candidate_pairs(16384, family="cuda")
-        assert pairs[0] == (64, 64) and len(pairs) == 9
+        assert pairs[0] == (64, 64) and len(pairs) == 4
         assert {b for p in pairs for b in p} == set(ks.DEFAULT_CANDIDATES)
         assert all(_build.tile_defines(p) is not None for p in pairs)
 
@@ -402,6 +402,51 @@ class TestTilesAndLibraries:
                                                   "-DFLASH_BN=32")
         assert _build.label("flash_attention", ("-DFLASH_BN=32",)) == \
             "flash_attention[-DFLASH_BN=32]"
+
+    def test_every_candidate_is_a_tile_the_body_compiles(self):
+        """The search's candidate pairs at every length it is run at are
+        tiles the bf16 body compiles (block_q one or two warpgroups,
+        block_k a multiple of 16 up to 128), and both committed table
+        rows' tiles are among the candidates of their length."""
+        for L in (64, 2048, 16384):
+            for bq, bk in ks.candidate_pairs(L, family="cuda"):
+                assert bq in _build.BLOCK_Q_SIDES
+                assert bk in _build.BLOCK_K_SIDES
+                _build.tile_defines((bq, bk))
+        with open(fa.TABLE_PATH, encoding="utf-8") as f:
+            rows = json.load(f)["entries"]
+        assert {"cuda:bfloat16:64", "cuda:bfloat16:16384"} <= set(rows)
+        for key, ent in rows.items():
+            L = int(key.rsplit(":", 1)[1])
+            assert (ent["block_q"], ent["block_k"]) in \
+                ks.candidate_pairs(L, family="cuda")
+
+    @pytest.mark.parametrize("dh", [16, 32, 64, 128])
+    def test_shared_memory_of_every_tile_fits_a_block(self, dh):
+        """The body's shared memory (``_build.flash_smem_bytes``, the
+        mirror of ``Tiles<DH>``) stays within the 227 KB a block may opt
+        in to at every tile it compiles; at the default 64 x 64 two blocks
+        share an SM at every head dim."""
+        for bq in _build.BLOCK_Q_SIDES:
+            for bk in _build.BLOCK_K_SIDES:
+                assert _build.flash_smem_bytes((bq, bk), dh) <= \
+                    _build.SMEM_LIMIT
+        assert 2 * (_build.flash_smem_bytes(_build.DEFAULT_TILES, dh)
+                    + 1024) <= 228 * 1024
+
+    def test_shared_memory_mirror_follows_the_header(self):
+        """The mirror's constants are the header's: the stage budget and
+        its bounds, the alignment slack and the barriers."""
+        with open(os.path.join(_build.CSRC_DIR, "flash_attention_mma.cuh"),
+                  encoding="utf-8") as f:
+            src = f.read()
+        assert "kFit = (100 * 1024 - kQBytes) / kStageBytes" in src
+        assert "kStages = kFit > 4 ? 4 : (kFit < 2 ? 2 : kFit)" in src
+        assert ("1024 + kQBytes + kStages * (kStageBytes + kBN * 4) + "
+                "8 * (2 * kStages + 1)") in src
+        # Dh 16 at 64 x 64: 2 KB of Q and four 4 KB stages of K and V
+        assert _build.flash_smem_bytes((64, 64), 16) == \
+            1024 + 2048 + 4 * (4096 + 256) + 8 * 9
 
     @pytest.mark.parametrize("tiles", [(24, 64), (64, 40), (8, 8), (0, 64)])
     def test_a_tile_the_kernel_cannot_take_raises(self, tiles):

@@ -48,7 +48,7 @@ def test_a_fake_build_fails_assert_no_retrace(fake_nvcc):
     base = witness.baseline()
     witness.assert_no_retrace()
     witness.assert_no_retrace("builds")
-    out = _build.build([("flash_attention", _build.tile_defines((32, 128)))])
+    out = _build.build([("flash_attention", _build.tile_defines((128, 128)))])
     (entry,) = out.values()
     assert not entry["cached"] and os.path.isfile(entry["path"])
     assert witness.traces("builds") == base["builds"] + 1
@@ -58,7 +58,7 @@ def test_a_fake_build_fails_assert_no_retrace(fake_nvcc):
     # the same library again is cached: no new build
     witness.baseline()
     assert next(iter(_build.build(
-        [("flash_attention", _build.tile_defines((32, 128)))]).values()
+        [("flash_attention", _build.tile_defines((128, 128)))]).values()
     ))["cached"]
     witness.assert_no_retrace()
 

@@ -13,8 +13,8 @@ Nothing here runs at import: the CPU tests import every module, and a CPU
 tensor never reaches :func:`load_library`.
 
 A build may add ``-D`` defines: the flash kernels' tiles are compile-time
-constants (``FLASH_WARPS`` query warps of 16 rows, ``FLASH_BN`` keys per
-tile; :func:`tile_defines`), so each (block_q, block_k) the kernel search
+constants (``FLASH_WARPS`` consumer warps of 16 query rows, four to a
+warpgroup, ``FLASH_BN`` keys per tile; :func:`tile_defines`), so each (block_q, block_k) the kernel search
 tries or the block table names is a library of its own, keyed by its
 defines too. The default tiles add no define, and their library keeps the
 path it has without one. The flash kernels above head dim 128 are one more
@@ -66,9 +66,15 @@ SIGNATURES = {
     },
 }
 
-# The bf16 flash kernels' compiled default (block_q, block_k): 4 warps of
-# 16 query rows, 64 keys per tile (csrc/flash_attention_mma.cuh).
+# The bf16 flash kernels' compiled default (block_q, block_k): one consumer
+# warpgroup of 64 query rows, 64 keys per tile (csrc/flash_attention_mma.cuh).
 DEFAULT_TILES = (64, 64)
+# The tiles that body compiles: block_q one or two warpgroups of 64 rows,
+# block_k a multiple of 16 (wgmma's k-step of P . V) up to 128 (wgmma's N
+# of q . k^T, as far as the registers take it).
+BLOCK_Q_SIDES = (64, 128)
+BLOCK_K_SIDES = tuple(range(16, 129, 16))
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may opt in to
 # The flash library of head dims above 128 (csrc/flash_attention.cu).
 WIDE_DEFINES = ("-DFLASH_WIDE=1",)
 
@@ -97,16 +103,30 @@ def nvcc_path() -> str:
 def tile_defines(tiles=None) -> tuple:
     """The ``-D`` flags of the flash kernels' tiles ``(block_q, block_k)``:
     () for None or :data:`DEFAULT_TILES`, else ``FLASH_WARPS`` =
-    block_q / 16 and ``FLASH_BN`` = block_k. Both must be positive
-    multiples of 16 (the kernel's row and key steps); anything else raises
-    ``ValueError`` (the header checks its shared memory itself)."""
+    block_q / 16 and ``FLASH_BN`` = block_k. block_q must be one of
+    :data:`BLOCK_Q_SIDES` and block_k one of :data:`BLOCK_K_SIDES`;
+    anything else raises ``ValueError``."""
     if tiles is None or tuple(tiles) == DEFAULT_TILES:
         return ()
     bq, bk = (int(t) for t in tiles)
-    if bq < 16 or bk < 16 or bq % 16 or bk % 16:
-        raise ValueError(f"flash tiles {tuple(tiles)}: block_q and block_k "
-                         "must be positive multiples of 16")
+    if bq not in BLOCK_Q_SIDES or bk not in BLOCK_K_SIDES:
+        raise ValueError(f"flash tiles {tuple(tiles)}: block_q must be 64 or "
+                         "128 and block_k one of the multiples of 16 up to "
+                         "128")
     return (f"-DFLASH_WARPS={bq // 16}", f"-DFLASH_BN={bk}")
+
+
+def flash_smem_bytes(tiles, dh: int) -> int:
+    """Dynamic shared memory of the bf16 flash body at ``tiles``
+    ``(block_q, block_k)`` and compiled head dim ``dh``, as ``Tiles<DH>``
+    in ``csrc/flash_attention_mma.cuh`` lays it out: 1024 bytes of
+    alignment, Q, 2 to 4 stages of K, V and a bias row (as many as fit in
+    100 KB beside Q), and two mbarriers a stage and Q's."""
+    bq, bk = tiles
+    q_bytes = bq * dh * 2
+    stage = 2 * bk * dh * 2
+    stages = max(2, min(4, (100 * 1024 - q_bytes) // stage))
+    return 1024 + q_bytes + stages * (stage + bk * 4) + 8 * (2 * stages + 1)
 
 
 def label(name: str, defines: tuple = ()) -> str:

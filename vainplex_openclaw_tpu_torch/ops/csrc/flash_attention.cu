@@ -1,8 +1,8 @@
 // Exact attention forward on Hopper (sm_90a): the normalized output (K1)
 // and the stats mode that ring attention merges (K2).
 //
-// Replaces the TPU kernel vainplex_openclaw_tpu/ops/flash_attention.py::
-// _flash_kernel in both of its modes. Same arithmetic: per key tile,
+// Replaces the TPU kernel vainplex_openclaw_tpu/ops/flash_attention.py:130
+// (_flash_kernel) in both of its modes. Same arithmetic: per key tile,
 // s = (q . k^T in fp32) * 1/sqrt(Dh) + bias[b, key], a causal key after
 // the query gets -1e30 in place of its score, an online softmax keeps m, l
 // and acc in fp32, and p is rounded to the input dtype before the PV
@@ -26,44 +26,68 @@
 // al. (FlashAttention-3, 2024) give it: 1.10 ms, four times the
 // tensor-core bound. sfu_probe.cu measures the card's own rate: 4.20e12 a
 // second on an H100 80GB HBM3 at 700 W (1.02 ms), with cvt.rn.bf16x2 at
-// four times that on a unit of its own. At Dh=16 the exponentials, and the
-// fp32 softmax arithmetic around them on the CUDA cores, set the floor,
-// not the products. At the short serve shape
-// (B=32, H=4, L=64) the ~1.06 MB of bytes bound it (0.3 us), in practice
-// the launch.
+// four times that on a unit of its own. So at Dh=16 the exponentials set
+// the floor, and what keeps a kernel above it is the issue and latency of
+// the instructions around each one on the same warps: the scale and bias,
+// the max, the ex2's argument, the sum, the bf16 pack, and a chain per
+// key tile (wait for the tile, q . k^T, the row max across the quad, the
+// correction, p . v) that nothing overlaps when the tile's steps run one
+// after another on synchronized warps. At the short serve shape (B=32,
+// H=4, L=64) the ~1.06 MB of bytes bound it (0.3 us), in practice the
+// launch.
 //
-// What the bf16 design (flash_attention_mma.cuh) does about each.
-// - Products: both run on mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-//   Each warp owns 16 query rows; its q fragments are loaded once with
-//   ldmatrix, k fragments with ldmatrix and v fragments with ldmatrix.trans.
-//   The fp32 score fragment is rounded to bf16 in registers and is the A
-//   fragment of the PV product: scores never touch shared memory. At
-//   Dh=16 a key tile's q . k^T is one k-step, so mma.sync is enough to
-//   keep the products under the exponential floor; wgmma is not needed.
-// - Bytes: K, V and the tile's bias row move by cp.async (16-byte copies,
-//   zero-filled past Lk) into a ring of 3 shared-memory stages (2 at
-//   Dh=128), so the next tiles load while this one computes; rows are
-//   padded by 16 bytes so that ldmatrix has no bank conflicts. Each input
-//   byte is read once per query tile and each output written once.
-//   The tiles (64 query rows, 64 keys) are -D defines; the block table
-//   (ops/flash_block_table.json) may name others per length bucket.
-// - Exponentials: one fused multiply-add and one ex2.approx per score,
-//   p = 2^(s * log2 e - m * log2 e), and one ex2 per row and tile for the
-//   correction. The row max is taken over s in natural units across the
-//   quad of lanes that shares a row, so m is the plain version's max of
-//   the same scores. A warp holding a row with no valid key yet (s == m ==
-//   -1e30, where p must be exactly 1 and the rounding of m * log2 e would
-//   break that) takes the difference s - m first: one fp32 op more.
+// What the bf16 design (flash_attention_mma.cuh, head dims 16 to 128) does
+// about each.
+// - A producer warp and consumer warpgroups. One thread of the producer
+//   warp loads Q once and K and V of each key tile with TMA into a ring of
+//   stages (rows past L zero-filled by the tensor map), its lanes the
+//   tile's bias row by cp.async; each stage completes on an mbarrier and
+//   is released by the consumers' arrivals on another. No barrier of the
+//   block sits in the key loop, and the consumers issue no load.
+// - Products on wgmma: s (64 x block_k) = Q . K^T with both operands in
+//   shared memory, acc (64 x Dh) += P . V with P from registers (the score
+//   fragment rounded to bf16) and V read N-major. Rows of 32, 64 or 128
+//   bytes carry the TMA swizzle of that width (Dh 128: two 64-column
+//   regions), which the descriptors name.
+// - Overlap: a warpgroup issues tile j+1's Q . K^T, then tile j's P . V,
+//   and runs tile j+1's softmax while P . V runs on the tensor cores;
+//   block_q 128 puts two warpgroups on one stream of K/V tiles. The ring
+//   is 2 to 4 stages deep (as fits 100 KB beside Q).
+// - Fewer instructions per score: a tile that ends before Lk, has no
+//   causal key after the warp's rows and whose bias row is all zero (the
+//   producer's row, one vote a warp) takes its row max over the raw q . k
+//   (times the scale after the max: rounding is monotone, so m is the
+//   plain version's max) and p = 2^(s * scale * log2 e - m * log2 e), one
+//   FMA and one ex2.approx. Other tiles add the bias and the masks in
+//   natural units first. o and l are rescaled only when a row max of the
+//   warp moved (exact: the correction is 2^0 = 1 otherwise). A warp
+//   holding a row with no valid key yet (s == m == -1e30, where p must be
+//   exactly 1 and the rounding of m * log2 e would break that) takes the
+//   difference s - m first.
 // - Causal: key tiles wholly after a query tile are skipped, unless a row
 //   of the tile sees no valid key (causal_kv_end).
+// What the card then shows (H100, PERF.md §6): at Dh 64 and 128 this body
+// is 1.3-1.6x the mma.sync one it replaced and faster than SDPA; at Dh 16
+// and L=16384 it is 6-9% faster and still ~2.1x the exponential floor. A
+// consumer warp's 64-key tile there takes ~1,600 cycles, ~1,160 of them
+// the softmax: the blocks of an SM run in step, so the four warps of a
+// scheduler take their 32 ex2 each at once (4 x 256 cycles of the unit)
+// and leave it idle through the ~450 cycles of loads, wgmma issue and
+// bf16 pack. None of 8 stages, 128- or 256-row tiles, FlashAttention-3's
+// ping-pong or a share of the exponentials on the FMA pipe made it more
+// than 6% faster (the last two were slower and are not kept).
+// One 64-key tile a block (L=64, B*H = 65,536) runs slower than in the
+// old body, cause not isolated: there the barriers' set-up and the first
+// TMA round trip are paid once for a single tile.
 //
-// Head dims. The JAX kernel takes any Dh. The compiled widths here are 8,
-// 16, 32, 64 and 128 in both dtypes and both modes; at Dh=8 the bf16
-// kernel takes q . k^T on mma.sync m16n8k8 and P . V on one n8 tile. The
-// wrapper (ops/flash_attention.py) zero-pads any other Dh <= 128 to the
-// next compiled width: zero columns add nothing to q . k^T, and the output
-// columns that v's zero columns give are sliced away. So the softmax scale
-// is an argument (1/sqrt of the caller's Dh), not the template's width.
+// Head dims. The JAX kernel takes any Dh. The compiled widths here are 16,
+// 32, 64 and 128 in both dtypes and both modes, and 8 in fp32 (wgmma's
+// k-depth is 16 bf16 values, so a bf16 launch at Dh 8 runs padded to 16).
+// The wrapper (ops/flash_attention.py) zero-pads any other Dh <= 128 to the
+// next compiled width of its dtype: zero columns add nothing to q . k^T,
+// and the output columns that v's zero columns give are sliced away. So
+// the softmax scale is an argument (1/sqrt of the caller's Dh), not the
+// template's width.
 // Dh > 128 runs in a library of its own, built with -DFLASH_WIDE (the
 // compiled widths above are then left out, and the kernel search never
 // builds it): the wrapper zero-pads Dh to Dp, a multiple of 128, and a
@@ -752,7 +776,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 
 }  // namespace simt
 
-// dtype 0 = fp32 (register-tiled FMA), 1 = bf16 (the tensor-core kernel).
+// dtype 0 = fp32 (register-tiled FMA), 1 = bf16 (the tensor-core kernel,
+// which compiles no Dh 8: the wrapper pads bf16 Dh 8 to 16).
 template <int DH, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
                    float* m_out, float* l_out, int B, int H, int Lq, int Lk, int dtype,
@@ -762,15 +787,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
       return simt::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
                                        scale, stream);
     case 1:
-      return mma::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
-                                    scale, stream);
+      if constexpr (DH == 8) {
+        return cudaErrorInvalidValue;
+      } else {
+        return mma::launch<DH, STATS>(q, k, v, bias, out, m_out, l_out, B, H, Lq, Lk, causal,
+                                      scale, stream);
+      }
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The compiled head dims: 8, 16, 32, 64 and 128. The wrapper zero-pads any
-// other Dh <= 128 to the next of them and passes the real Dh's scale.
+// The compiled head dims: 16, 32, 64 and 128 in both dtypes, and 8 in fp32.
+// The wrapper zero-pads any other Dh <= 128 to the next of them and passes
+// the real Dh's scale.
 template <bool STATS>
 int dispatch(const void* q, const void* k, const void* v, const void* bias, void* out,
              void* m_out, void* l_out, int B, int H, int Lq, int Lk, int Dh, int dtype,

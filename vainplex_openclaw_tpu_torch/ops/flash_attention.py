@@ -30,17 +30,19 @@ On a CUDA tensor it launches the kernel in ``csrc/flash_attention.cu`` and
 adds one to :data:`launches` (K1) or :data:`stats_launches` (K2); if the
 library cannot be built or loaded, or the launch fails, it raises. There is
 no fallback from the kernel to the plain version. The library picks its
-kernel by dtype alone: bf16 runs on the tensor cores
-(``csrc/flash_attention_mma.cuh``), fp32 on register-tiled FMA of the CUDA
+kernel by dtype alone: bf16 runs on the tensor cores (``wgmma`` fed by
+TMA, ``csrc/flash_attention_mma.cuh``), fp32 on register-tiled FMA of the CUDA
 cores (a tensor-core fp32 path would be TF32), in the library of the head dim
 (below). The kernel masks its own ragged edge instead of padding.
 
 Head dims. Any Dh runs, as in the JAX kernel. The kernels are compiled
-for Dh 8, 16, 32, 64 and 128 (:data:`COMPILED_HEAD_DIMS`). A launch at any
-other Dh zero-pads q, k and v to :func:`kernel_head_dim` (the next compiled
-width up to 128, else the next multiple of 128), passes the softmax scale
-of the real Dh, and slices the padded output columns away: zero columns
-add nothing to q·kᵀ. Above 128 the launch goes to a library of its own
+per dtype (:data:`COMPILED_HEAD_DIMS`): Dh 16, 32, 64 and 128 in bf16
+(``wgmma``'s k-depth is 16 bf16 values) and those and 8 in fp32. A launch
+at any other Dh zero-pads q, k and v to :func:`kernel_head_dim` (the next
+compiled width of its dtype up to 128, else the next multiple of 128),
+passes the softmax scale of the real Dh, and slices the padded output
+columns away: zero columns add nothing to q·kᵀ. So a bf16 launch at Dh 8
+runs at 16 with the scale of 8. Above 128 the launch goes to a library of its own
 (``_build.WIDE_DEFINES``) whose kernels walk 256-wide slices of the
 output's head dim on a second grid axis (one slice at Dh 129–256), in one
 launch per call, at their own fixed tiles (the block table is not read
@@ -96,9 +98,11 @@ from ._build import DEFAULT_TILES
 from .similarity import pow2_bucket
 
 NEG_INF = -1e30
-# csrc/flash_attention.cu's dispatch (the module docstring's "Head dims")
-COMPILED_HEAD_DIMS = (8, 16, 32, 64, 128)
-MAX_HEAD_DIM = COMPILED_HEAD_DIMS[-1]
+# csrc/flash_attention.cu's dispatch per dtype (the module docstring's
+# "Head dims")
+COMPILED_HEAD_DIMS = {"bfloat16": (16, 32, 64, 128),
+                      "float32": (8, 16, 32, 64, 128)}
+MAX_HEAD_DIM = 128
 # above MAX_HEAD_DIM a launch pads Dh to a multiple of this (the wide
 # library's output slice)
 WIDE_STEP = 128
@@ -184,12 +188,15 @@ def launch_tiles(Lq: int, Lk: int, dtype: str) -> tuple:
             default_block(Lk, dtype, "k", "cuda"))
 
 
-def kernel_head_dim(Dh: int) -> int:
-    """The width a launch at head dim ``Dh`` runs, with q, k and v
-    zero-padded to it: ``Dh`` itself when compiled, else the next compiled
-    width, and above :data:`MAX_HEAD_DIM` the next multiple of
-    :data:`WIDE_STEP` (the wide library)."""
-    for width in COMPILED_HEAD_DIMS:
+def kernel_head_dim(Dh: int, dtype) -> int:
+    """The width a launch at head dim ``Dh`` in ``dtype`` (a torch dtype or
+    its name) runs, with q, k and v zero-padded to it: ``Dh`` itself when
+    compiled for that dtype, else its next compiled width, and above
+    :data:`MAX_HEAD_DIM` the next multiple of :data:`WIDE_STEP` (the wide
+    library)."""
+    name = dtype if isinstance(dtype, str) \
+        else str(dtype).replace("torch.", "")
+    for width in COMPILED_HEAD_DIMS[name]:
         if Dh <= width:
             return width
     return -(-Dh // WIDE_STEP) * WIDE_STEP
@@ -308,7 +315,7 @@ def _launch(q, k, v, bias, causal: bool, return_stats: bool,
 
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
-    width = kernel_head_dim(Dh)
+    width = kernel_head_dim(Dh, q.dtype)
     q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
     scale = 1.0 / math.sqrt(Dh)
     if width > MAX_HEAD_DIM:

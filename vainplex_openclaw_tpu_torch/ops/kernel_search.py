@@ -24,8 +24,9 @@ control from ``CONTROL_MIN_L`` keys: the same measure must fail the plain
 version without its first key tile. Then it times the candidate. A
 candidate that fails to build, to launch or to agree becomes an
 ``{"error": …}`` record, and the sweep goes on: a failed candidate is
-data. The candidate sides are (32, 64, 128), clamped to the padded length
-as JAX clamps them; the kernel takes multiples of 16 only. The compiled
+data. The candidate sides are (64, 128), clamped to the padded length
+as JAX clamps them; the kernel takes block_q 64 or 128 and block_k a
+multiple of 16 up to 128. The compiled
 default 64×64 is the incumbent wherever the table has no row.
 
 Seeded and resumable (``ops/search_common.py``): inputs come from a
@@ -51,9 +52,10 @@ from .flash_attention import default_block, table_key
 from .search_common import SweepState, config_key
 from .similarity import pow2_bucket
 
-#: candidate sides on the H100: block_q = 16 · warps, block_k in steps of
-#: 16 keys (``csrc/flash_attention_mma.cuh``).
-DEFAULT_CANDIDATES = (32, 64, 128)
+#: candidate sides on the H100, for block_q and block_k alike: one or two
+#: consumer warpgroups of 64 query rows, and 64 or 128 keys a tile
+#: (``csrc/flash_attention_mma.cuh``; ``_build.tile_defines`` takes them).
+DEFAULT_CANDIDATES = (64, 128)
 #: (B, H, Dh) of the point a candidate is timed at (JAX ``_point_runner``).
 POINT_SHAPE = (4, 8, 64)
 #: K1/K2 against their plain versions at the point shape, per dtype (bf16
