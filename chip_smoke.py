@@ -3738,7 +3738,7 @@ def phase_lifecycle(smi: str) -> dict:
         restore_checkpoint)
     from vainplex_openclaw_tpu_torch.models.pretrained import DEFAULT_DIR
     from vainplex_openclaw_tpu_torch.models.registry import (
-        ModelRegistry, clear_registries)
+        BENCH_REPEATS, ModelRegistry, clear_registries)
     from vainplex_openclaw_tpu_torch.ops import _build
     from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
     from vainplex_openclaw_tpu_torch.parallel import plan
@@ -3834,7 +3834,8 @@ def phase_lifecycle(smi: str) -> dict:
         except RuntimeError:
             refused = True
         check(refused, "lifecycle: promote() did not refuse the negated head")
-        scores = 2 * 2 * (1 + PROMOTION_SETTINGS["benchRounds"])
+        scores = 2 * 2 * (1 + PROMOTION_SETTINGS["benchRounds"]
+                          * BENCH_REPEATS)
         check(promo_launches == cfg.n_layers * scores,
               f"lifecycle: promotion K1 launches {promo_launches} != "
               f"{cfg.n_layers} layers x {scores} replays")
@@ -4021,6 +4022,397 @@ def phase_classify(smi: str) -> dict:
     record = {"phase": "classify", "nvidia_smi": smi,
               "findings": len(findings), "kept": sum(kept),
               "k1_launches": launches, "ms": ms}
+    emit(record)
+    return record
+
+
+# ── the replica fleet (replicas share cuda:0) ────────────────────────────
+
+FLEET_SEED = 17
+FLEET_REPLICA_COUNTS = (1, 2, 4)
+FLEET_OPS_PER_REPLICA = 300
+# offered ops/s per replica at fixed size, bench_fleet_serve's rate
+FLEET_RATE_PER_REPLICA = 900.0
+FLEET_AUTOSCALE_OPS = 2000
+# the diurnal trace's low rate (ops/s); its peak is 4x, past what the
+# replicas together serve on one host, so the autoscaler has to act
+FLEET_AUTOSCALE_RATE = 800.0
+FLEET_CANARY_OPS = 600
+FLEET_FAILOVER_OPS = 400
+FLEET_FAILOVER_AFTER = 200  # ops submitted before the worker fails
+FLEET_WAIT_S = 120.0
+
+
+def fleet_ops(n: int, seed: int, **kw) -> list:
+    from vainplex_openclaw_tpu_torch.slo.workload import (
+        generate_fleet_workload)
+
+    return generate_fleet_workload(seed, n, tenants=4, **kw)
+
+
+def timed_fleet_class():
+    """A ``ReplicaFleet`` whose default factory (the scoped shared batchers
+    on the card) also books every batcher it builds and the host ms of
+    each batcher's first two batches, with the thread that ran them."""
+    from vainplex_openclaw_tpu_torch.cluster.fleet import ReplicaFleet
+
+    class TimedFleet(ReplicaFleet):
+        def _default_batcher_factory(self, rid, worker_id):
+            batcher, scope = super()._default_batcher_factory(rid, worker_id)
+            if not hasattr(self, "built"):
+                self.built, self.first_batches = [], {}
+            self.built.append((rid, batcher))
+            firsts = self.first_batches.setdefault(rid, [])
+            real = batcher._run_batch
+
+            def run(batch, _real=real, _firsts=firsts):
+                t = time.perf_counter()
+                _real(batch)
+                if len(_firsts) < 2:
+                    _firsts.append({
+                        "ms": (time.perf_counter() - t) * 1e3,
+                        "rows": len(batch),
+                        "thread": threading.current_thread().name})
+
+            batcher._run_batch = run
+            return batcher, scope
+
+    return TimedFleet
+
+
+def fleet_reap(fleet) -> None:
+    """One pass of ``pump(now)``: step (and reap) each replica whose window
+    is due, without spinning on a batch a collector thread holds."""
+    now = time.perf_counter()
+    for rid, row in fleet.occupancy().items():
+        if row["alive"] and row["pending"] > 0 and (
+                row["pending"] >= row["maxBatch"]
+                or now - row["oldestAt"] >= fleet._window_s):
+            fleet.step_replica(rid)
+
+
+def fleet_drive(fleet, ops, delivered: dict, on_submitted=None) -> dict:
+    """Open loop on the real clock: each op is submitted at its arrival
+    time (from the start of the run), the replicas are reaped between
+    arrivals, and the run ends with a drain. Latency runs from an op's
+    scheduled arrival to its delivery."""
+    arrival: dict = {}
+    start = time.perf_counter()
+    for n, op in enumerate(ops):
+        due = start + op.arrival
+        while True:
+            now = time.perf_counter()
+            if now >= due:
+                break
+            fleet_reap(fleet)
+            time.sleep(min(0.0002, max(0.0, due - now)))
+        arrival[op.index] = due
+        fleet.submit({"i": op.index, "text": op.content,
+                      "tenant": f"tenant{op.tenant}"})
+        if on_submitted is not None:
+            on_submitted(n + 1)
+    deadline = time.perf_counter() + FLEET_WAIT_S
+    while len(delivered) < len(ops) and time.perf_counter() < deadline:
+        fleet.drain()
+        time.sleep(0.0005)
+    end = max((d["at"] for d in delivered.values()), default=start)
+    lat = [(delivered[i]["at"] - arrival[i]) * 1e3 for i in delivered
+           if i in arrival]
+    return {"wall_s": end - start,
+            "requests_per_s": len(delivered) / max(end - start, 1e-9),
+            "latency_ms": quantiles_ms(lat) if lat else None}
+
+
+def fleet_collect(delivered: dict, counts: dict):
+    """``on_result`` that books each delivery once with its time, and
+    counts every delivery, so a second one shows."""
+    def on_result(op, obs):
+        i = op["i"]
+        counts[i] = counts.get(i, 0) + 1
+        delivered.setdefault(i, dict(obs, at=time.perf_counter()))
+    return on_result
+
+
+def fleet_audit(ops, delivered: dict, counts: dict, oracle: dict) -> dict:
+    """Dropped (never delivered or failed), served twice, and verdicts off
+    the one-shot oracle of the version that served them."""
+    dropped = sum(1 for op in ops if op.index not in delivered
+                  or "verdict" not in delivered[op.index])
+    twice = sum(1 for c in counts.values() if c > 1)
+    wrong = sum(1 for op in ops if op.index in delivered
+                and "verdict" in delivered[op.index]
+                and delivered[op.index]["verdict"] != oracle[
+                    delivered[op.index].get("version") or "v0"][op.content])
+    return {"dropped": dropped, "served_twice": twice,
+            "verdict_mismatches": wrong}
+
+
+def fleet_leg(name: str, cfg: dict, ops: list, oracle: dict, workers,
+              smi: str, warm: bool = True, script=None) -> dict:
+    """One fleet leg on the card: build, warm each initial replica's
+    collector thread outside the counted run, drive ``ops`` (``script``
+    acts on the fleet mid-run), drain, and check every verdict, the
+    delivery counts and K1's launches against the batches fired."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.events.transport import MemoryTransport
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    delivered, counts = {}, {}
+    fleet = timed_fleet_class()(
+        cfg, transport=MemoryTransport(), workers=workers,
+        on_result=fleet_collect(delivered, counts))
+    warm_ms = {}
+    try:
+        if warm:
+            for rid, batcher in fleet.built:
+                t = time.perf_counter()
+                batcher.submit("warm-up request")
+                warm_ms[rid] = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        batches0 = {id(b): b.batches for _, b in fleet.built}
+        fa.launches = 0
+        run = fleet_drive(fleet, ops, delivered,
+                          script(fleet) if script is not None else None)
+        fleet.drain()
+        stats = fleet.stats()
+        built = list(fleet.built)
+    finally:
+        fleet.close()  # joins every collector: the counters are final
+    torch.cuda.synchronize()
+    launches = fa.launches
+    batches = sum(b.batches - batches0.get(id(b), 0) for _, b in built)
+    audit = fleet_audit(ops, delivered, counts, oracle)
+    check(audit == {"dropped": 0, "served_twice": 0,
+                    "verdict_mismatches": 0}, f"fleet {name}: {audit}")
+    check(stats["shed"] == 0 and stats["served"] == len(ops)
+          and stats["routed"] == stats["served"] + stats["redelivered"],
+          f"fleet {name}: routed {stats['routed']}, served "
+          f"{stats['served']}, shed {stats['shed']}, redelivered "
+          f"{stats['redelivered']} of {len(ops)} ops")
+    check(launches == TINY_CONFIG.n_layers * batches,
+          f"fleet {name}: K1 launches {launches} != "
+          f"{TINY_CONFIG.n_layers} layers x {batches} batches")
+    per_replica = {rid: {"batches": row["batches"],
+                         "mean_batch": row["meanBatch"]}
+                   for rid, row in stats["replicas"].items()}
+    return {"leg": name, "nvidia_smi": smi, "ops": len(ops),
+            "offered_ops_s": len(ops) / max(ops[-1].arrival, 1e-9),
+            **run, **audit, "routed": stats["routed"],
+            "served": stats["served"], "shed": stats["shed"],
+            "redelivered": stats["redelivered"],
+            "batches": batches, "k1_launches": launches,
+            "replicas_built": [rid for rid, _ in built],
+            "per_replica": per_replica,
+            "warm_up_ms": warm_ms, "first_batches": fleet.first_batches,
+            "stats": stats}
+
+
+def single_batcher_leg(ops: list, oracle: dict, smi: str) -> dict:
+    """The same ops through the one shared batcher of the serve path (no
+    fleet): enqueued at arrival time, each ticket's delivery booked when
+    the driver sees it done."""
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import TINY_CONFIG
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    batcher = serve.shared_batcher(None, {"admission": None})
+    batcher.submit("warm-up request")
+    torch.cuda.synchronize()
+    batches0 = batcher.batches
+    fa.launches = 0
+    open_tickets, lat, verdicts = [], [], {}
+    start = time.perf_counter()
+
+    def reap():
+        now = time.perf_counter()
+        while open_tickets and open_tickets[0][2].done.is_set():
+            op, due, tk = open_tickets.pop(0)
+            lat.append((now - due) * 1e3)
+            verdicts[op.index] = tk.result
+
+    for op in ops:
+        due = start + op.arrival
+        while time.perf_counter() < due:
+            reap()
+            time.sleep(0.0002)
+        open_tickets.append((op, due, batcher.enqueue(op.content,
+                                                      f"tenant{op.tenant}")))
+    deadline = time.perf_counter() + FLEET_WAIT_S
+    while open_tickets and time.perf_counter() < deadline:
+        reap()
+        time.sleep(0.0002)
+    wall = time.perf_counter() - start
+    serve.close_batchers()
+    torch.cuda.synchronize()
+    batches = batcher.batches - batches0
+    wrong = sum(1 for op in ops if verdicts.get(op.index)
+                != oracle["v0"][op.content])
+    check(len(verdicts) == len(ops) and wrong == 0,
+          f"fleet single batcher: {len(verdicts)} of {len(ops)} served, "
+          f"{wrong} verdicts off the oracle")
+    check(fa.launches == TINY_CONFIG.n_layers * batches,
+          f"fleet single batcher: K1 launches {fa.launches}")
+    return {"leg": "single_batcher", "nvidia_smi": smi, "ops": len(ops),
+            "wall_s": wall, "requests_per_s": len(ops) / wall,
+            "latency_ms": quantiles_ms(lat), "batches": batches,
+            "mean_batch": len(ops) / max(batches, 1),
+            "k1_launches": fa.launches}
+
+
+def one_shot_oracle(texts: set, checkpoint_dir=None) -> dict:
+    """text -> verdict of the one-shot path (one forward a text) on the
+    card, the serve path's equivalence oracle."""
+    from vainplex_openclaw_tpu_torch.models import serve
+
+    call = serve.make_local_call_llm(
+        checkpoint_dir, serve_cfg={"continuousBatching": False})
+    return {t: call(t) for t in sorted(texts)}
+
+
+def phase_fleet(smi: str) -> dict:
+    """The port's ``ReplicaFleet`` on the card, its replicas' batchers and
+    collector threads all on cuda:0, on the real clock: fixed 1, 2 and 4
+    replicas at load proportional to their count (beside the single
+    shared batcher on the same ops), the autoscaler on the diurnal
+    profile, a fleet-wide canary with activate and rollback, and a
+    worker's failover with requests in flight."""
+    import os
+    import tempfile
+
+    from vainplex_openclaw_tpu_torch.cluster.fleet import FLEET_DEFAULTS
+    from vainplex_openclaw_tpu_torch.models.registry import clear_registries
+    from vainplex_openclaw_tpu_torch.sitrep.collectors import (
+        collect_model_registry)
+
+    t_phase = time.perf_counter()
+    record = {"phase": "fleet", "nvidia_smi": smi,
+              "fleet_defaults": dict(FLEET_DEFAULTS)}
+    fixed_ops = {n: fleet_ops(FLEET_OPS_PER_REPLICA * n, FLEET_SEED + n,
+                              profile="diurnal",
+                              base_rate=FLEET_RATE_PER_REPLICA * n,
+                              peak_factor=1.0, period_s=1.0)
+                 for n in FLEET_REPLICA_COUNTS}
+    auto_ops = fleet_ops(FLEET_AUTOSCALE_OPS, FLEET_SEED, profile="diurnal",
+                         base_rate=FLEET_AUTOSCALE_RATE)
+    canary_ops = fleet_ops(FLEET_CANARY_OPS, FLEET_SEED + 10,
+                           profile="diurnal")
+    failover_ops = fleet_ops(FLEET_FAILOVER_OPS, FLEET_SEED + 11,
+                             profile="burst")
+    tmp = tempfile.TemporaryDirectory()
+    neg_dir = os.path.join(tmp.name, "negated")
+    negated_twin(neg_dir)
+    all_ops = [op for ops in fixed_ops.values() for op in ops] + auto_ops \
+        + canary_ops + failover_ops
+    t = time.perf_counter()
+    oracle = {"v0": one_shot_oracle({op.content for op in all_ops})}
+    oracle["v2"] = one_shot_oracle({op.content for op in canary_ops},
+                                   neg_dir)
+    record["oracle_s"] = time.perf_counter() - t
+    check(all(oracle["v0"][op.content] != oracle["v2"][op.content]
+              for op in canary_ops),
+          "fleet: the negated head left a verdict unchanged")
+    legs = {}
+    try:
+        # ── fixed replicas, load proportional to their count ──────────
+        for n in FLEET_REPLICA_COUNTS:
+            legs[f"fixed_{n}"] = fleet_leg(
+                f"fixed_{n}", {"replicas": n, "minReplicas": n,
+                               "maxReplicas": n},
+                fixed_ops[n], oracle, lambda: ["w0", "w1", "w2", "w3"], smi)
+        legs["single_batcher"] = single_batcher_leg(fixed_ops[1], oracle,
+                                                    smi)
+
+        # ── the autoscaler on the diurnal profile ─────────────────────
+        auto = fleet_leg("autoscale", {"autoscale": True}, auto_ops, oracle,
+                         lambda: ["w0", "w1", "w2", "w3"], smi)
+        events = auto["stats"]["autoscaler"]["scaleEvents"]
+        auto["schedule"] = [
+            {k: e.get(k) for k in ("atOp", "action", "reason", "replicas",
+                                   "queued", "rid")} for e in events]
+        auto["decisions"] = auto["stats"]["autoscaler"]["decisions"]
+        auto["spawn_first_batches"] = {
+            e["rid"]: auto["first_batches"].get(e["rid"])
+            for e in events if e["action"] == "spawn"}
+        legs["autoscale"] = auto
+
+        # ── fleet-wide canary, activate and rollback ──────────────────
+        def canary_script(fleet):
+            fleet.registry.register("v2", neg_dir)
+            fleet.set_model_canary("v2", 0.5)
+            third = len(canary_ops) // 3
+
+            def on_submitted(n):
+                if n == third:
+                    fleet.activate_model("v2")
+                elif n == 2 * third:
+                    fleet.activate_model(fleet.registry.rollback_target(),
+                                         reason="rollback")
+            return on_submitted
+
+        canary = fleet_leg("canary", {"replicas": 2, "modelRegistry": True},
+                           canary_ops, oracle, lambda: ["w0", "w1"], smi,
+                           script=canary_script)
+        ops_view = collect_model_registry({}, {})
+        item = next((i for i in ops_view["items"]
+                     if i["registry"] == "fleet:cluster.fleet"), None)
+        check(item is not None and item["active"] == "v0"
+              and item["swaps"] >= 2 and item["rollbacks"] == 1,
+              f"fleet canary: /ops model registry {ops_view['summary']}, "
+              f"{item and {k: item[k] for k in ('active', 'swaps')}}")
+        stamps = canary["stats"]["modelRegistry"]["versions"]
+        check(stamps["v2"]["served"] > 0 and stamps["v0"]["served"] > 0,
+              f"fleet canary: served by version {stamps}")
+        canary["mis_versioned"] = canary["verdict_mismatches"]
+        canary["sitrep"] = {"summary": ops_view["summary"],
+                            **{k: item[k] for k in (
+                                "registry", "active", "swaps", "rollbacks",
+                                "promotions")},
+                            "served": {v: s["served"]
+                                       for v, s in item["versions"].items()}}
+        legs["canary"] = canary
+
+        # ── failover with requests in flight ──────────────────────────
+        live = ["w0", "w1", "w2"]
+        failover_rec = {}
+
+        def failover_script(fleet):
+            def on_submitted(n):
+                if n == FLEET_FAILOVER_AFTER:
+                    occ = fleet.occupancy()
+                    victim = max(sorted(occ), key=lambda r: occ[r]["pending"])
+                    worker = occ[victim]["workerId"]
+                    failover_rec["pending_at_failure"] = {
+                        r: occ[r]["pending"] for r in sorted(occ)}
+                    live.remove(worker)
+                    failover_rec.update(fleet.on_worker_failed(
+                        worker, "killed with requests in flight"))
+            return on_submitted
+
+        failover = fleet_leg("failover", {"replicas": 3, "maxReplicas": 3},
+                             failover_ops, oracle, lambda: list(live), smi,
+                             script=failover_script)
+        check(failover_rec.get("redelivered", 0) > 0,
+              f"fleet failover: nothing in flight was redelivered "
+              f"({failover_rec})")
+        failover["failover"] = {k: failover_rec[k] for k in (
+            "worker", "replicasLost", "respawned", "redelivered",
+            "pending_at_failure")}
+        legs["failover"] = failover
+    finally:
+        clear_registries()
+        tmp.cleanup()
+    for leg in legs.values():
+        leg.pop("stats", None)
+        emit({"phase": "fleet_leg", **leg})
+    record["legs"] = {name: {k: leg[k] for k in (
+        "requests_per_s", "latency_ms", "batches", "k1_launches")}
+        for name, leg in legs.items()}
+    record["k1_launches"] = sum(leg["k1_launches"] for leg in legs.values())
+    record["seconds"] = time.perf_counter() - t_phase
     emit(record)
     return record
 
@@ -5434,6 +5826,7 @@ def main() -> int:
         long_moe = phase_long_moe(info["nvidia_smi"])
         similarity = phase_similarity(info["nvidia_smi"])
         lifecycle = phase_lifecycle(info["nvidia_smi"])
+        fleet = phase_fleet(info["nvidia_smi"])
         classified = phase_classify(info["nvidia_smi"])
         traced = phase_trace_analyzer(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
@@ -5484,6 +5877,7 @@ def main() -> int:
             "embed_mesh": mesh["embed"]["launches"],
             "train_mesh": train_mesh["k1_launches"],
             "lifecycle": lifecycle["k1_launches"],
+            "fleet": fleet["k1_launches"],
             "classify": classified["k1_launches"],
             "trace_analyzer": sum(traced[run]["card"]["k1_launches"]
                                   for run in TRACE_RUNS),

@@ -527,7 +527,18 @@ def test_fp32_launches_read_each_phases_record():
     assert row["path"] == "grad+mesh_tp+mesh_pp"
 
 
-def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch):
+@pytest.fixture
+def one_torch_thread():
+    """Runs a test's torch work on one intra-op thread. The suite's
+    parallel workers oversubscribe the cores, and a contended pool slows
+    small CPU ops 40-150x; no check of these tests depends on the count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_dryrun_launch_shapes_are_kernel_cases(monkeypatch, one_torch_thread):
     """Every shape at which ``dryrun_multichip(8)`` and ``(4)`` launch K1
     or K2 (the legs, the pipeline microbatch and the single-device
     forwards the serve legs are held against) is a case the kernels or

@@ -104,7 +104,20 @@ def test_subprocess_import_leaves_no_jax_module():
                 "vainplex_openclaw_tpu_torch.cortex.trace_analyzer."
                 "nats_source",
                 "vainplex_openclaw_tpu_torch.resilience.faults",
-                "vainplex_openclaw_tpu_torch.models.prng"):
+                "vainplex_openclaw_tpu_torch.models.prng",
+                "vainplex_openclaw_tpu_torch.storage.journal",
+                "vainplex_openclaw_tpu_torch.events.envelope",
+                "vainplex_openclaw_tpu_torch.events.subjects",
+                "vainplex_openclaw_tpu_torch.events.transport",
+                "vainplex_openclaw_tpu_torch.cluster.fleet",
+                "vainplex_openclaw_tpu_torch.slo.workload",
+                "vainplex_openclaw_tpu_torch.slo.harness",
+                "vainplex_openclaw_tpu_torch.slo.adversarial",
+                "vainplex_openclaw_tpu_torch.config.manifest",
+                "vainplex_openclaw_tpu_torch.config.loader",
+                "vainplex_openclaw_tpu_torch.sitrep.collectors",
+                "vainplex_openclaw_tpu_torch.sitrep.aggregator",
+                "vainplex_openclaw_tpu_torch.sitrep.plugin"):
         assert mod in loaded, mod
     assert "chip_smoke" in loaded
     assert [m for m in loaded if forbidden(m)] == []

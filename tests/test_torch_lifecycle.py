@@ -502,13 +502,13 @@ class TestFleetVersioning:
 
 
 def test_canary_promote_swap_rollback_through_the_gateway(
-        tmp_path, openclaw_home, monkeypatch):
+        tmp_path, openclaw_home):
     """The port's call_llm (``serve.modelRegistry`` on) in the real
     GovernancePlugin: bootstrap v0, canary a twin, promote through the
-    gate, hot-swap, roll back; JAX's sitrep collector reads the port's
-    book (``all_registries`` patched for this test only)."""
+    gate, hot-swap, roll back; the port's sitrep collector reads the
+    port's book."""
     from vainplex_openclaw_tpu.governance import GovernancePlugin
-    from vainplex_openclaw_tpu.sitrep.collectors import (
+    from vainplex_openclaw_tpu_torch.sitrep.collectors import (
         collect_model_registry)
 
     meta = {"agent_id": "main", "session_key": "agent:main",
@@ -557,8 +557,6 @@ def test_canary_promote_swap_rollback_through_the_gateway(
                                                   again.content)
         gw.stop()
 
-        monkeypatch.setattr(jax_registry, "all_registries",
-                            registry.all_registries)
         ops = collect_model_registry({}, {})
         assert ops["status"] == "ok"
         item = next(i for i in ops["items"]

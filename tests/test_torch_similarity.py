@@ -39,6 +39,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402  (its top level imports only the standard library)
+from test_torch_chip_smoke_bounds import one_torch_thread  # noqa: E402,F401
 
 
 def bits(a) -> np.ndarray:
@@ -272,7 +273,7 @@ def test_pow2_bucket_and_pad_rows_equal_jax():
 
 
 @pytest.mark.parametrize("length,n", [(512, 32), (512, 45), (2048, 32)])
-def test_levenshtein_past_512_is_bit_identical(length, n):
+def test_levenshtein_past_512_is_bit_identical(length, n, one_torch_thread):
     """At the detector's length (512) and past it (2048: 500 characters of
     4-byte UTF-8 are 2000 bytes), on the pairs of chip_smoke's legs there,
     the port's batched path equals the JAX package's numpy DP bit for bit. At 512 the commands are ASCII, so the

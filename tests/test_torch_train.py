@@ -55,6 +55,7 @@ from vainplex_openclaw_tpu_torch.models.encoder import (
     EncoderConfig, flatten_tree, forward, params_from_numpy, unflatten_tree)
 from vainplex_openclaw_tpu_torch.ops import _build
 from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+from test_torch_chip_smoke_bounds import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 JCFG = JaxConfig(vocab_size=512, seq_len=32, d_model=64, n_heads=4,
@@ -474,7 +475,8 @@ def _dir_digest(path: str) -> dict:
     return out
 
 
-def test_train_and_ship_writes_what_the_jax_loader_reads(tmp_path):
+def test_train_and_ship_writes_what_the_jax_loader_reads(tmp_path,
+                                                        one_torch_thread):
     shipped_before = _dir_digest(port_pretrained.DEFAULT_DIR)
     with pytest.raises(TypeError):
         port_pretrained.train_and_ship()  # out_dir is required

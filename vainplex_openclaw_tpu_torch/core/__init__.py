@@ -1,5 +1,5 @@
 """The plugin API types the port hands to a gateway."""
 
-from .api import PluginCommand, PluginService
+from .api import PluginCommand, PluginService, make_logger
 
-__all__ = ["PluginCommand", "PluginService"]
+__all__ = ["PluginCommand", "PluginService", "make_logger"]

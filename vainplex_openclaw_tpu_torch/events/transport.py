@@ -1,0 +1,653 @@
+"""Event transports.
+
+A copy of ``vainplex_openclaw_tpu/events/transport.py``'s transports under
+the same names, kept here so the port imports nothing of the JAX package:
+
+- ``MemoryTransport``: an in-process JetStream-lite ring with monotonic
+  sequence numbers, retention limits (max msgs/bytes/age) and
+  subject-filtered fetch. It carries the replica fleet's route log.
+- ``FileTransport``: a durable daily-JSONL log with the same interface,
+  replayable history without a broker. A ``journal`` argument takes any
+  object with the JAX package's ``Journal`` interface (the port has no
+  ``Journal`` yet).
+
+The fault sites are the JAX package's, at the same places:
+``transport.publish`` (both transports), ``transport.fetch`` (a file's
+re-read), and the torn-capable day-file writes ``transport.publish`` and
+``transport.compact``.
+
+Every transport swallows publish errors and counts them; publishing must
+never block or crash agent operations. The NATS adapter is not ported, and
+neither is ``create_nats_transport``: the JAX package's returns None
+without the ``nats`` package and lets its caller fall back to a local
+transport, which the port never does silently.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Iterator, Optional, Protocol
+
+from ..resilience.faults import maybe_fail, write_with_faults
+from ..storage.atomic import daily_jsonl_name, jsonl_dumps, repair_torn_tail
+from ..storage.journal import dedup_against_tail
+from .envelope import ClawEvent
+
+
+@dataclass
+class TransportStats:
+    published: int = 0
+    publish_failures: int = 0
+    dropped_retention: int = 0
+    last_error: Optional[str] = None
+    # Resilience counters. reconnects/replayed/outbox_dropped are
+    # written by the NATS adapter's outbox; corrupt_lines/torn_tails/
+    # quarantined_files by FileTransport's recovery paths.
+    reconnects: int = 0
+    replayed: int = 0
+    outbox_dropped: int = 0
+    corrupt_lines: int = 0
+    torn_tails: int = 0
+    quarantined_files: int = 0
+
+    def to_dict(self) -> dict:
+        return {
+            "published": self.published,
+            "publish_failures": self.publish_failures,
+            "dropped_retention": self.dropped_retention,
+            "last_error": self.last_error,
+            "reconnects": self.reconnects,
+            "replayed": self.replayed,
+            "outbox_dropped": self.outbox_dropped,
+            "corrupt_lines": self.corrupt_lines,
+            "torn_tails": self.torn_tails,
+            "quarantined_files": self.quarantined_files,
+        }
+
+    # ``transport.stats`` stays the live counter object every existing caller
+    # reads attributes off; making it *callable* also satisfies the
+    # ``transport.stats()`` dict contract without a second name.
+    def __call__(self) -> dict:
+        return self.to_dict()
+
+
+class EventTransport(Protocol):
+    stats: TransportStats
+
+    def publish(self, subject: str, event: ClawEvent) -> bool: ...
+    def healthy(self) -> bool: ...
+    def drain(self) -> None: ...
+
+
+def _match_tokens(p_tokens: list[str], s_tokens: list[str]) -> bool:
+    for i, pt in enumerate(p_tokens):
+        if pt == ">":
+            return True
+        if i >= len(s_tokens):
+            return False
+        if pt != "*" and pt != s_tokens[i]:
+            return False
+    return len(p_tokens) == len(s_tokens)
+
+
+def _subject_matches(pattern: str, subject: str) -> bool:
+    """NATS-style matching: ``*`` = one token, ``>`` = rest-of-subject."""
+    if pattern in ("", ">"):
+        return True
+    return _match_tokens(pattern.split("."), subject.split("."))
+
+
+class _SubjectFilter:
+    """A subject filter pre-split once per fetch, with a per-distinct-subject
+    verdict memo: consumers fetch thousands of events spread over a handful
+    of subjects, and the seed re-split pattern AND subject on every event."""
+
+    __slots__ = ("match_all", "p_tokens", "verdicts")
+
+    def __init__(self, pattern: str):
+        self.match_all = pattern in ("", ">")
+        self.p_tokens = None if self.match_all else pattern.split(".")
+        self.verdicts: dict[str, bool] = {}
+
+    def matches(self, subject: str) -> bool:
+        if self.match_all:
+            return True
+        verdict = self.verdicts.get(subject)
+        if verdict is None:
+            if len(self.verdicts) > 65536:  # attacker-influencable key space
+                self.verdicts.clear()
+            verdict = self.verdicts[subject] = _match_tokens(
+                self.p_tokens, subject.split("."))
+        return verdict
+
+
+class MemoryTransport:
+    """In-process JetStream-lite ring with retention limits."""
+
+    def __init__(
+        self,
+        max_msgs: int = 100_000,
+        max_bytes: int = 256 * 1024 * 1024,
+        max_age_s: Optional[float] = None,
+        clock: Callable[[], float] = time.time,
+    ):
+        self.max_msgs = max_msgs
+        self.max_bytes = max_bytes
+        self.max_age_s = max_age_s
+        self.clock = clock
+        self.stats = TransportStats()
+        self._events: deque[tuple[str, ClawEvent, int]] = deque()
+        self._bytes = 0
+        self._seq = 0
+        self._subscribers: list[Callable[[str, ClawEvent], None]] = []
+
+    def publish(self, subject: str, event: ClawEvent) -> bool:
+        try:
+            maybe_fail("transport.publish")
+            self._seq += 1
+            event.seq = self._seq
+            # repr is ~3x cheaper than json.dumps and retention accounting
+            # only needs an approximate byte size
+            size = len(repr(event.payload)) + len(subject) + 64
+            self._events.append((subject, event, size))
+            self._bytes += size
+            self._enforce_retention()
+            self.stats.published += 1
+            for sub in self._subscribers:
+                try:
+                    sub(subject, event)
+                except Exception:  # noqa: BLE001 — a bad subscriber must not block publish
+                    pass
+            return True
+        except Exception as exc:  # noqa: BLE001
+            self.stats.publish_failures += 1
+            self.stats.last_error = str(exc)
+            return False
+
+    def _enforce_retention(self) -> None:
+        now = self.clock()
+        while self._events and (
+            len(self._events) > self.max_msgs
+            or self._bytes > self.max_bytes
+            or (self.max_age_s is not None and now - self._events[0][1].ts / 1000.0 > self.max_age_s)
+        ):
+            _, _, size = self._events.popleft()
+            self._bytes -= size
+            self.stats.dropped_retention += 1
+
+    def subscribe(self, fn: Callable[[str, ClawEvent], None]) -> None:
+        self._subscribers.append(fn)
+
+    def fetch(self, subject_filter: str = ">", start_seq: int = 0,
+              batch: Optional[int] = None) -> Iterator[ClawEvent]:
+        # snapshot: consumers iterate while the gateway keeps publishing
+        snapshot = list(self._events)
+        if start_seq > 0:
+            # events sit in seq order (assigned monotonically at publish,
+            # evicted from the left) — binary-search past the consumed prefix
+            # instead of testing every event.
+            lo, hi = 0, len(snapshot)
+            while lo < hi:
+                mid = (lo + hi) // 2
+                seq = snapshot[mid][1].seq
+                if seq is not None and seq <= start_seq:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            snapshot = snapshot[lo:]
+        if subject_filter in ("", ">"):
+            if batch is not None:
+                snapshot = snapshot[:batch]
+            yield from (event for _, event, _ in snapshot)
+            return
+        filt = _SubjectFilter(subject_filter)
+        matches = filt.matches
+        if batch is None:
+            yield from (event for subject, event, _ in snapshot if matches(subject))
+            return
+        n = 0
+        # paging consumers must not pay a full-ring scan per page
+        for subject, event, _ in snapshot:
+            if matches(subject):
+                yield event
+                n += 1
+                if n >= batch:
+                    return
+
+    def last_sequence(self) -> int:
+        return self._seq
+
+    def event_count(self) -> int:
+        return len(self._events)
+
+    def healthy(self) -> bool:
+        return True
+
+    def drain(self) -> None:
+        pass
+
+
+class _FileEntry:
+    """Incremental parse state for one daily JSONL file.
+
+    ``offset`` is the byte position up to which complete lines have been
+    parsed — a re-stat that shows the same size means the file needs no work
+    at all, and growth parses only the appended tail. ``records`` holds
+    (seq, subject, raw_record) tuples; ClawEvents are materialized per fetch
+    so callers never share mutable envelope objects. When the cache cap
+    evicts an old file's rows, ``records`` becomes None: count/max_seq/offset
+    stay incrementally maintained and fetch streams that file from disk
+    (the seed's behavior) instead of holding history in memory forever.
+    """
+
+    __slots__ = ("mtime", "size", "offset", "count", "max_seq", "records",
+                 "corrupt", "parsed_any", "tail_len")
+
+    def __init__(self) -> None:
+        self.mtime = 0.0
+        self.size = 0
+        self.offset = 0
+        self.count = 0  # records with a positive seq (what fetch/count see)
+        self.max_seq = 0
+        self.records: Optional[list[tuple[int, str, dict]]] = []
+        self.corrupt = 0      # complete-but-unparseable lines seen in this file
+        self.parsed_any = False
+        self.tail_len = 0     # bytes past the last newline (torn/in-flight tail)
+
+
+def _parse_jsonl_record(line: bytes) -> Optional[tuple[int, str, dict]]:
+    if not line.strip():
+        return None
+    try:
+        rec = json.loads(line)
+    except (json.JSONDecodeError, UnicodeDecodeError):
+        return None
+    if not isinstance(rec, dict):
+        return None
+    seq = rec.get("seq") or 0
+    if not isinstance(seq, int):
+        try:
+            seq = int(seq)
+        except (TypeError, ValueError):
+            seq = 0
+    return seq, rec.get("subject", ""), rec
+
+
+def _last_seq_in_file(path: Path, block: int = 65536) -> int:
+    """Max seq over the LAST block of parseable records, reading backwards
+    from EOF — daily logs are append-ordered, so the tail carries the file's
+    max seq without re-parsing every line (the seed's startup recovery did
+    exactly that). Taking the block max rather than the last line's seq also
+    tolerates interleaved multi-writer appends whose seqs are locally
+    non-monotone within the tail."""
+    try:
+        with path.open("rb") as fh:
+            fh.seek(0, 2)
+            end = fh.tell()
+            buf = b""
+            pos = end
+            while pos > 0:
+                step = min(block, pos)
+                pos -= step
+                fh.seek(pos)
+                buf = fh.read(step) + buf
+                # Complete lines only — the partial first line of the buffer
+                # is resolved once the next block is prepended (or pos hits 0).
+                lines = buf.split(b"\n")
+                start = 0 if pos == 0 else 1
+                best = 0
+                for line in lines[start:]:
+                    if not line.strip():
+                        continue
+                    try:
+                        rec = json.loads(line)
+                        seq = int(rec.get("seq") or 0) if isinstance(rec, dict) else 0
+                    except (json.JSONDecodeError, TypeError, ValueError,
+                            UnicodeDecodeError):
+                        continue
+                    if seq > best:
+                        best = seq
+                if best > 0:
+                    return best
+                buf = lines[0]
+    except OSError:
+        pass
+    return 0
+
+
+class FileTransport:
+    """Durable daily-JSONL event log with the same interface.
+
+    A per-file (mtime, size, offset, seq, count) index backs ``fetch``,
+    ``event_count``, and startup seq recovery: the seed re-read and re-parsed
+    every daily file on every call. Appends by this process (and by other
+    writers) are picked up incrementally from the recorded byte offset; a
+    shrunken file (rotation, truncation) is re-parsed from scratch.
+    """
+
+    STREAM = "events:log"
+
+    def __init__(self, root: str | Path, clock: Callable[[], float] = time.time,
+                 journal=None):
+        self.root = Path(root)
+        self.clock = clock
+        self.stats = TransportStats()
+        self._index: dict[Path, _FileEntry] = {}
+        # True when the current day file may end mid-line: after a failed
+        # append in THIS process, and at startup (a crashed previous writer
+        # leaves a torn tail this process would otherwise merge its first
+        # record into). The first append newline-isolates it.
+        self._tail_dirty = True
+        # Persistent same-day append handle: reopening the day
+        # file per event cost an open+close round-trip per publish. The
+        # handle rolls with the day; the rotated/deleted-underneath check
+        # (stat+fstat) runs at most once per clock second.
+        self._day_fh = None
+        self._day_path: Optional[Path] = None
+        self._day_checked = -1  # whole clock second of the last inode check
+        self._day_meta: tuple = ("", None)
+        self.replay_deduped = 0
+        # Shared group-commit journal: publishes append to the wal
+        # and compact into the daily files on fetch/count barriers or the
+        # journal's own thresholds. Registration replays crash-stranded
+        # records into the day files BEFORE seq recovery reads them.
+        self.journal = journal
+        if journal is not None:
+            journal.register_append(
+                self.STREAM, self._journal_sink,
+                auto_compact=int(journal.settings.get("compactEveryRecords",
+                                                      512)))
+        self._seq = self._recover_seq()
+
+    def _recover_seq(self) -> int:
+        # Max over each file's tail seq: append-ordered files keep their max
+        # seq in the last valid record, so recovery reads file tails instead
+        # of every line of every file.
+        seq = 0
+        for f in self.root.glob("*.jsonl"):
+            seq = max(seq, _last_seq_in_file(f))
+        if self.journal is not None:
+            # Records whose recovery-compaction failed are still pending in
+            # the journal; their event seqs must stay claimed.
+            for rec in self.journal.pending_payloads(self.STREAM):
+                try:
+                    seq = max(seq, int(rec.get("seq") or 0))
+                except (AttributeError, TypeError, ValueError):
+                    continue
+        return seq
+
+    # ── day-file appends (shared by legacy publish + journal compaction) ─
+
+    def _close_day_handle(self) -> None:
+        if self._day_fh is not None and not self._day_fh.closed:
+            try:
+                self._day_fh.close()
+            except OSError:
+                pass
+        self._day_fh, self._day_path = None, None
+
+    def _day_handle(self, path: Path):
+        fh = self._day_fh
+        if fh is not None and not fh.closed and self._day_path == path:
+            # Whole-second memo: raw float clocks never compare equal twice,
+            # which would re-pay the stat+fstat pair on EVERY append.
+            now = int(self.clock())
+            if now != self._day_checked:
+                self._day_checked = now
+                try:
+                    disk = os.stat(path)
+                    held = os.fstat(fh.fileno())
+                    if (disk.st_dev, disk.st_ino) != (held.st_dev, held.st_ino):
+                        fh = None  # rotated: same name, different inode
+                except OSError:
+                    fh = None  # deleted/renamed: recreate like the seed did
+        if fh is None or fh.closed or self._day_path != path:
+            self._close_day_handle()
+            try:
+                fh = path.open("a", encoding="utf-8")
+            except FileNotFoundError:
+                path.parent.mkdir(parents=True, exist_ok=True)
+                fh = path.open("a", encoding="utf-8")
+            self._day_fh, self._day_path = fh, path
+            self._day_checked = int(self.clock())
+        return fh
+
+    def _append_text(self, path: Path, text: str, site: str) -> None:
+        fh = self._day_handle(path)
+        if self._tail_dirty:
+            if not repair_torn_tail(path):
+                # Repair failed: appending now would concatenate this
+                # record onto the torn tail and corrupt BOTH.
+                raise OSError("torn tail unrepaired; append deferred")
+            self._tail_dirty = False
+        write_with_faults(site, fh.write, text)
+        # Flush to the OS so fetch()'s separate read handle (and other
+        # processes) see the record — the per-publish close used to do this.
+        fh.flush()
+
+    def _journal_sink(self, batch: list, dedup: bool) -> None:
+        """Journal compaction: committed wal records → daily files, grouped
+        by the day each record was published under (meta ``d``)."""
+        by_day: dict[str, list] = {}
+        for rec in batch:
+            by_day.setdefault((rec[2] or {}).get("d")
+                              or daily_jsonl_name(self.clock()), []).append(rec)
+        try:
+            for day, records in by_day.items():
+                path = self.root / day
+                if dedup:
+                    records, dropped = dedup_against_tail(path, records)
+                    self.replay_deduped += dropped
+                    if not records:
+                        continue
+                self._append_text(path,
+                                  "".join(raw + "\n" for _q, raw, _m in records),
+                                  "transport.compact")
+        except OSError:
+            # A torn compaction write must be newline-isolated before the
+            # next append, and the handle may be dead — same discipline as a
+            # failed legacy publish. The journal retains the batch for retry.
+            self._tail_dirty = True
+            self._close_day_handle()
+            raise
+
+    def publish(self, subject: str, event: ClawEvent) -> bool:
+        try:
+            self._seq += 1
+            event.seq = self._seq
+            rec = {"subject": subject, **event.to_dict()}
+            if self.journal is not None:
+                # One meta dict per day — the journal memoizes its encoding
+                # by identity, so reusing the dict collapses a commit
+                # batch's meta encodes to one.
+                day = daily_jsonl_name(self.clock())
+                if self._day_meta[0] != day:
+                    self._day_meta = (day, {"d": day})
+                maybe_fail("transport.publish")
+                if not self.journal.append(self.STREAM, rec,
+                                           meta=self._day_meta[1]):
+                    raise OSError(self.journal.last_error
+                                  or "journal closed")
+                self.stats.published += 1
+                return True
+            line = jsonl_dumps(rec) + "\n"
+            self._append_text(self.root / daily_jsonl_name(self.clock()), line,
+                              "transport.publish")
+            self.stats.published += 1
+            return True
+        except Exception as exc:  # noqa: BLE001
+            self.stats.publish_failures += 1
+            self.stats.last_error = str(exc)
+            # The failed write may have landed a partial line; the next
+            # append newline-isolates it so one torn record can't merge
+            # with (and corrupt) the record appended after it. The handle may
+            # sit on a half-written line or a dead fd — reopen next append.
+            self._tail_dirty = True
+            self._close_day_handle()
+            return False
+
+    def _refresh_file(self, path: Path) -> Optional[_FileEntry]:
+        try:
+            maybe_fail("transport.fetch")
+            st = path.stat()
+        except OSError:
+            # Unreadable this round (including injected fetch faults): serve
+            # what the index already has rather than crashing the consumer.
+            return self._index.get(path)
+        entry = self._index.get(path)
+        if entry is not None and st.st_size == entry.offset + entry.tail_len:
+            return entry  # fully parsed — nothing new
+        if entry is None or st.st_size < entry.offset:
+            entry = _FileEntry()  # new file, or rewritten shorter: reparse
+            self._index[path] = entry
+        try:
+            with path.open("rb") as fh:
+                fh.seek(entry.offset)
+                chunk = fh.read()
+        except OSError:
+            return entry
+        # Parse complete lines only; a trailing partial line (a concurrent
+        # writer mid-append, or a torn final write) stays unconsumed — it is
+        # tracked as the file's tail, never an error.
+        end = chunk.rfind(b"\n")
+        if end == -1:
+            entry.tail_len = len(chunk)
+            entry.mtime, entry.size = st.st_mtime, st.st_size
+            return self._maybe_quarantine(path, entry)
+        for line in chunk[:end].split(b"\n"):
+            parsed = _parse_jsonl_record(line)
+            if parsed is None:
+                if line.strip():
+                    entry.corrupt += 1
+                    self.stats.corrupt_lines += 1
+                continue
+            entry.parsed_any = True
+            seq = parsed[0]
+            if entry.records is not None:
+                entry.records.append(parsed)
+            if seq > 0:
+                entry.count += 1
+                if seq > entry.max_seq:
+                    entry.max_seq = seq
+        entry.offset += end + 1
+        entry.tail_len = len(chunk) - (end + 1)
+        entry.mtime, entry.size = st.st_mtime, st.st_size
+        return self._maybe_quarantine(path, entry)
+
+    def _maybe_quarantine(self, path: Path, entry: _FileEntry) -> Optional[_FileEntry]:
+        """Move a file aside when its *entire* parsed span is garbage: at
+        least one complete line, none of them records. A healthy file with a
+        few corrupt lines keeps serving (bad payloads are skipped and
+        counted); a wholly-corrupt file would otherwise be re-scanned on
+        every fetch forever. The rename drops it out of the ``*.jsonl`` glob
+        while preserving the bytes for post-mortem."""
+        if entry.parsed_any or entry.corrupt == 0 or entry.offset == 0:
+            return entry
+        if entry.tail_len:
+            # An unterminated tail may be a concurrent writer mid-append of
+            # a perfectly good record — renaming now would strand its
+            # O_APPEND handle on the quarantined inode and silently lose
+            # everything it writes next. Only fully-terminated garbage
+            # qualifies.
+            return entry
+        try:
+            path.rename(path.with_name(path.name + ".quarantined"))
+        except OSError:
+            return entry  # rename failed: keep serving the (empty) entry
+        if path == self._day_path:
+            # Our own append handle would keep writing to the quarantined
+            # inode — every later record silently lost (the per-publish
+            # reopen used to sidestep this; the persistent handle must not).
+            self._close_day_handle()
+        self.stats.quarantined_files += 1
+        self._index.pop(path, None)
+        return None
+
+    # Bound on raw records held in memory across all files: beyond it the
+    # OLDEST files drop to offset-only entries (streamed from disk on fetch)
+    # so a long-lived gateway never mirrors its whole event history in RSS.
+    MAX_CACHED_RECORDS = 200_000
+
+    def _refresh_index(self) -> list[tuple[Path, _FileEntry]]:
+        seen = []
+        present = set()
+        for f in sorted(self.root.glob("*.jsonl")):
+            entry = self._refresh_file(f)
+            if entry is not None:
+                present.add(f)
+                seen.append((f, entry))
+        for stale in [p for p in self._index if p not in present]:
+            del self._index[stale]
+        # Gauge, not a counter: files currently ending in a partial line
+        # (torn final write, or a concurrent writer mid-append).
+        self.stats.torn_tails = sum(1 for _, e in seen if e.tail_len > 0)
+        cached = sum(len(e.records) for _, e in seen if e.records is not None)
+        for _, entry in seen[:-1]:  # newest file always stays cached
+            if cached <= self.MAX_CACHED_RECORDS:
+                break
+            if entry.records is not None:
+                cached -= len(entry.records)
+                entry.records = None
+        return seen
+
+    def _stream_records(self, path: Path, entry: _FileEntry):
+        """Re-read an evicted file's parsed span from disk (seed behavior)."""
+        try:
+            with path.open("rb") as fh:
+                chunk = fh.read(entry.offset)
+        except OSError:
+            return
+        for line in chunk.split(b"\n"):
+            parsed = _parse_jsonl_record(line)
+            if parsed is not None:
+                yield parsed
+
+    def _journal_barrier(self) -> None:
+        """Readers see through the wal: compact pending records into the
+        day files before serving a fetch/count (failures are counted by the
+        journal and the reader serves what did land)."""
+        if self.journal is not None:
+            self.journal.compact(self.STREAM)
+
+    def fetch(self, subject_filter: str = ">", start_seq: int = 0,
+              batch: Optional[int] = None) -> Iterator[ClawEvent]:
+        self._journal_barrier()
+        n = 0
+        filt = _SubjectFilter(subject_filter)
+        matches = filt.matches
+        for path, entry in self._refresh_index():
+            if start_seq > 0 and entry.max_seq <= start_seq:
+                # every positive seq in this file is ≤ max_seq ≤ start_seq,
+                # and seq-0 records are excluded by any start_seq > 0 — a
+                # consumer past the whole file skips it without iterating
+                continue
+            rows = (entry.records if entry.records is not None
+                    else self._stream_records(path, entry))
+            for seq, subject, rec in rows:
+                if seq <= start_seq:
+                    continue
+                if not matches(subject):
+                    continue
+                yield ClawEvent.from_dict(rec)
+                n += 1
+                if batch is not None and n >= batch:
+                    return
+
+    def last_sequence(self) -> int:
+        return self._seq
+
+    def event_count(self) -> int:
+        self._journal_barrier()
+        return sum(entry.count for _, entry in self._refresh_index())
+
+    def healthy(self) -> bool:
+        return True
+
+    def drain(self) -> None:
+        self._journal_barrier()
+        self._close_day_handle()

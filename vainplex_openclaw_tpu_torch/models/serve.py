@@ -85,11 +85,12 @@ def _extract_message(prompt: str) -> str:
     return body.strip()
 
 
-# One batcher per (checkpoint dir, device, knob tuple): every
+# One batcher per (scope, checkpoint dir, device, knob tuple): every
 # call_llm closure a process builds for the same serving config shares one
 # queue — that IS the continuous-batching win — and the collector-thread
-# count stays bounded. The JAX package also keys on an owner scope, which
-# only its cluster workers pass; nothing passes one to the port's.
+# count stays bounded. ``scope`` partitions the book per owner (a fleet
+# replica's ``<worker>:fleet:<rid>``), so retiring an owner closes ONLY
+# its batchers, as in the JAX package.
 _batchers: dict = {}
 _batchers_lock = threading.Lock()
 
@@ -145,14 +146,19 @@ def _registry_key(serve_cfg: dict):
 
 
 def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
+                   scope: str = "global", registry=None,
                    device: DeviceLike = None) -> ContinuousBatcher:
-    """The process-shared batcher for ``serve_cfg``, built on first use.
-    With ``modelRegistry`` enabled it serves from a registry named
-    ``serve:global`` (the JAX package's name for it) on the batcher's
-    device, with the checkpoint registered as ``"v0"``."""
+    """The process-shared batcher of ``scope`` for ``serve_cfg``, built on
+    first use. ``registry`` (a fleet's shared :class:`ModelRegistry`)
+    serves every version decision of its owner; without one, an enabled
+    ``modelRegistry`` section builds a registry named ``serve:<scope>``
+    (the JAX package's name for it) on the batcher's device, with the
+    checkpoint registered as ``"v0"``. A key ``serve_cfg`` gives is taken
+    as given (``admission: None`` turns admission off, as a fleet's
+    replicas need); a key it lacks takes :data:`SERVE_DEFAULTS`'s."""
     dev = resolve_device(device)
-    scfg = deep_merge(SERVE_DEFAULTS, serve_cfg or {})
-    key = (checkpoint_dir, str(dev), scfg["maxBatch"],
+    scfg = {**SERVE_DEFAULTS, **(serve_cfg or {})}
+    key = (scope, checkpoint_dir, str(dev), scfg["maxBatch"],
            scfg["windowMs"],
            tuple(sorted((scfg.get("admission") or {}).items())),
            _mesh_key(scfg), _registry_key(scfg))
@@ -160,13 +166,13 @@ def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
         batcher = _batchers.get(key)
         if batcher is None:
             mesh = _resolve_mesh(scfg, dev)
-            registry = None
-            rcfg = registry_settings(scfg.get("modelRegistry", False))
-            if rcfg["enabled"]:
-                registry = ModelRegistry(
-                    rcfg, name="serve:global",
-                    device=mesh.devices[0] if mesh is not None else dev)
-                registry.register("v0", checkpoint_dir)
+            if registry is None:
+                rcfg = registry_settings(scfg.get("modelRegistry", False))
+                if rcfg["enabled"]:
+                    registry = ModelRegistry(
+                        rcfg, name=f"serve:{scope}",
+                        device=mesh.devices[0] if mesh is not None else dev)
+                    registry.register("v0", checkpoint_dir)
             batcher = ContinuousBatcher(
                 checkpoint_dir, max_batch=scfg["maxBatch"],
                 window_ms=scfg["windowMs"],
@@ -182,12 +188,27 @@ def shared_batcher(checkpoint_dir: Optional[str], serve_cfg: dict,
         return batcher
 
 
-def close_batchers() -> None:
-    """Stop every shared collector thread."""
+def close_batchers(scope: Optional[str] = None, drain: bool = False) -> None:
+    """Stop shared collector threads. ``scope=None`` closes every batcher
+    (tests, process teardown); a scope closes only that owner's, the
+    replica-retirement path. ``drain=True`` serves what is still queued
+    before closing, so a planned retirement strands no accepted request;
+    a crash path keeps ``drain=False`` and lets fleet redelivery re-route
+    the queue."""
     with _batchers_lock:
-        batchers = list(_batchers.values())
-        _batchers.clear()
-    for b in batchers:
+        if scope is None:
+            items = list(_batchers.items())
+            _batchers.clear()
+        else:
+            items = [(k, v) for k, v in _batchers.items() if k[0] == scope]
+            for k, _ in items:
+                del _batchers[k]
+    for _, b in items:
+        if drain:
+            try:
+                b.drain()
+            except Exception:  # noqa: BLE001 — teardown must reach close()
+                pass
         b.close()
 
 

@@ -11,7 +11,14 @@ at the same places:
   analyzer's report and state files;
 - ``"checkpoint.write"`` (after the npz is written, before any rename) and
   ``"checkpoint.rename"`` (between the manifest's rename and the npz's) in
-  :func:`..models.checkpoint.save_checkpoint`.
+  :func:`..models.checkpoint.save_checkpoint`;
+- ``"file.append"`` (torn-capable) in
+  :func:`..storage.atomic.append_jsonl`;
+- ``"transport.publish"`` in both event transports (torn-capable in
+  ``FileTransport``'s day-file write), ``"transport.fetch"`` where
+  ``FileTransport`` re-reads a file, and ``"transport.compact"``
+  (torn-capable) where it compacts a journal batch
+  (:mod:`..events.transport`).
 
 A plan decides failures from ``(seed, site, per-site call index)`` only, so
 a chaos run is bit-reproducible: the same seed gives the same faults on the

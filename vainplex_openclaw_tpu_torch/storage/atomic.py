@@ -1,21 +1,26 @@
 """Atomic JSON persistence.
 
-A copy of ``read_json`` and ``write_json_atomic`` from
-``vainplex_openclaw_tpu/storage/atomic.py`` (with the compact encoder they
-share), kept here so the port imports nothing of the JAX package. Files
-are written byte for byte as the JAX package writes them, so a state file
-written by one package is read by the other. The fault sites are the JAX
-writer's, at the same places (``resilience/faults.py``): ``file.write``
-(torn-capable), ``file.fsync`` under ``durable`` and ``file.rename``; a
-failed write removes its temporary file.
+A copy of ``read_json``, ``write_json_atomic``, the JSONL helpers
+(``append_jsonl``, ``read_jsonl`` with its ``JsonlReadReport``,
+``repair_torn_tail``) and ``daily_jsonl_name`` from
+``vainplex_openclaw_tpu/storage/atomic.py``, kept here so the port imports
+nothing of the JAX package. Files are written byte for byte as the JAX
+package writes them, so a file written by one package is read by the
+other. The fault sites are the JAX writer's, at the same places
+(``resilience/faults.py``): ``file.write`` (torn-capable), ``file.fsync``
+under ``durable`` and ``file.rename``; a failed write removes its
+temporary file. ``append_jsonl`` writes through ``file.append``
+(torn-capable).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 from ..resilience.faults import maybe_fail, write_with_faults
 
@@ -100,3 +105,100 @@ def read_json(path: str | Path, default: Any = None) -> Any:
         return json.loads(path.read_text(encoding="utf-8"))
     except (OSError, json.JSONDecodeError):
         return default
+
+
+def append_jsonl(path: str | Path, records: list[Any]) -> None:
+    """Append one compact JSON line per record, in one ``write()``."""
+    path = Path(path)
+    payload = "".join(jsonl_dumps(rec) + "\n" for rec in records)
+    try:
+        fh = path.open("a", encoding="utf-8")
+    except FileNotFoundError:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fh = path.open("a", encoding="utf-8")
+    with fh:
+        write_with_faults("file.append", fh.write, payload)
+
+
+@dataclass
+class JsonlReadReport:
+    """Filled by ``read_jsonl`` when passed: what the reader skipped.
+    ``torn_tail`` is the unparseable final line *without* a trailing newline
+    (a writer died mid-append); corrupt lines are complete lines that fail
+    to parse; ``read_error`` records a file that could not be opened at all,
+    so an unreadable log is never taken for an empty one."""
+
+    records: int = 0
+    corrupt_lines: int = 0
+    torn_tail: Optional[str] = None
+    read_error: Optional[str] = None
+
+
+def read_jsonl(path: str | Path,
+               report: Optional[JsonlReadReport] = None) -> Iterator[Any]:
+    """Yield parseable records. A torn final line (no trailing newline, not
+    valid JSON) is reported through ``report``, not taken for mid-file
+    corruption; a *parseable* unterminated tail is a complete record that
+    lost its newline, and is yielded.
+
+    A missing file reads as empty. Any other open failure is recorded on
+    ``report`` and swallowed, or re-raised when no report was passed."""
+    path = Path(path)
+    try:
+        fh = path.open("rb")
+    except FileNotFoundError:
+        return
+    except OSError as exc:
+        if report is None:
+            raise
+        report.read_error = str(exc)
+        return
+    # streamed: only the FINAL line can lack its newline, so the tail case
+    # is told per line without buffering the file
+    with fh:
+        for raw in fh:
+            if not raw.strip():
+                continue
+            terminated = raw.endswith(b"\n")
+            try:
+                rec = json.loads(raw)
+            except (json.JSONDecodeError, UnicodeDecodeError):
+                if report is None:
+                    continue
+                if terminated:
+                    report.corrupt_lines += 1
+                else:
+                    report.torn_tail = raw.decode("utf-8", errors="replace")
+                continue
+            if report is not None:
+                report.records += 1
+            yield rec
+
+
+def repair_torn_tail(path: str | Path) -> bool:
+    """Newline-terminate a torn final line, so the next append cannot join
+    a good record onto the partial one. The isolated prefix then reads as
+    ONE corrupt line. Every writer here emits a line (or batch) in one
+    ``write()``, so a partial final line is always a tear, never a live
+    writer that will finish it.
+
+    Returns True when appending is safe (repaired, already terminated, or
+    no file); False when the tail could not be inspected."""
+    try:
+        with Path(path).open("rb+") as fh:
+            fh.seek(0, 2)
+            if fh.tell() > 0:
+                fh.seek(-1, 2)
+                if fh.read(1) != b"\n":
+                    fh.write(b"\n")
+    except FileNotFoundError:
+        return True  # nothing to repair
+    except OSError:
+        return False
+    return True
+
+
+def daily_jsonl_name(ts: Optional[float] = None) -> str:
+    """``YYYY-MM-DD.jsonl`` file name for daily logs (UTC)."""
+    t = time.gmtime(ts if ts is not None else time.time())
+    return f"{t.tm_year:04d}-{t.tm_mon:02d}-{t.tm_mday:02d}.jsonl"
