@@ -6,7 +6,8 @@ Run from the repository root::
 
     python3 chip_smoke.py
 
-The main path is the governance stage-3 local validator:
+The main path is the governance stage-3 local validator, from the port's
+``Gateway.message_sending`` through its ``GovernancePlugin`` to
 ``make_local_call_llm()`` → ``ContinuousBatcher`` → ``encode_texts`` →
 ``load_pretrained`` (the shipped triage-tiny checkpoint, at its full
 width) → ``forward`` with attention through the CUDA kernel →
@@ -49,6 +50,21 @@ non-zero before the last line is printed.
    with its defaults; verdicts equal the CPU one-shot oracle's, and the
    kernel's launch count, set to 0 just before, equals layers × batches;
    a second, profiled round gives the card's busy share while serving;
+5a. gateway: the port's front door. Its ``Gateway`` with a config-only
+    ``GovernancePlugin`` (default builtins, the audit journal on, stage 3
+    by ``validation.llmValidator: {enabled, local, failMode: "closed"}``
+    over ``GATEWAY_FACTS``): 256 distinct seeded texts (``gateway_texts``,
+    every 16th contradicting a fact) through ``message_sending`` on an
+    external channel, one at a time, with decisions equal to the same
+    gateway on the CPU with the one-shot path, K1 = n_layers x batches,
+    256 evaluations in ``governance.status`` and, after ``stop()``, one
+    whole audit record per evaluation; then the same texts from 32
+    threads on a fresh gateway (decisions equal to the serial leg's, K1 =
+    n_layers x batches) beside a bare ``make_local_call_llm`` round on the
+    same texts and threads; last ``bench.py``'s policy-eval setup, 5,000
+    ``before_tool_call`` calls through the port's gateway on the host (ms
+    a call, the engine's stages, the rate limiter's denials, audit records
+    = evaluations);
 6. timing: the kernel, its plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) at
    the serve path's shape, with CUDA events, beside the least time the card
@@ -1027,7 +1043,325 @@ def phase_serve() -> dict:
                                  **device_busy(prof, wall2)}}
     emit(record)
     serve.close_batchers()
-    return {"launches": launches}
+    return {"launches": launches,
+            "latency": {"requests_per_s": record["requests_per_s"],
+                        "p50_ms": record["latency_ms"]["p50"],
+                        "p99_ms": record["latency_ms"]["p99"]}}
+
+
+# ── the port's front door: Gateway → GovernancePlugin → stage 3 ───────────
+
+GATEWAY_TEXTS = 256
+GATEWAY_THREADS = 32
+GATEWAY_POLICY_CALLS = 5000
+# every CONTRADICT_EVERY-th text claims a subject is stopped, against a
+# seeded fact that it runs: stage 2 blocks it at the default trust, and
+# stage 3 still scores it (the verdicts merge, ``more_restrictive``)
+CONTRADICT_EVERY = 16
+GATEWAY_FACTS = [{"subject": s, "predicate": "state", "value": "running"}
+                 for s in _SUBJECTS[:4]]
+GATEWAY_META = {"agent_id": "main", "session_key": "agent:main",
+                "channel_id": "twitter"}
+
+
+def gateway_texts(n: int, seed: int) -> list:
+    """``n`` distinct seeded texts; every ``CONTRADICT_EVERY``-th, from the
+    sixth on, says one of ``GATEWAY_FACTS``' subjects is stopped."""
+    pool = iter(dict.fromkeys(seeded_texts(8 * n, seed)))
+    out = []
+    for i in range(n):
+        if i % CONTRADICT_EVERY == 5:
+            subject = GATEWAY_FACTS[(i // CONTRADICT_EVERY)
+                                    % len(GATEWAY_FACTS)]["subject"]
+            out.append(f"{subject} is stopped after {i} retries")
+        else:
+            out.append(next(pool))
+    check(len(set(out)) == n, "gateway texts are not distinct")
+    return out
+
+
+def governance_gateway(workspace: str, device=None, serve_cfg=None):
+    """The port's ``Gateway`` with a config-only ``GovernancePlugin``:
+    default builtins, the audit journal at its default, and stage 3 served
+    by the local encoder on ``device`` (fail closed)."""
+    from vainplex_openclaw_tpu_torch.core import Gateway
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.governance import GovernancePlugin
+
+    lcfg = {"enabled": True, "local": True, "failMode": "closed"}
+    if serve_cfg is not None:
+        lcfg["serve"] = serve_cfg
+    logger = list_logger()
+    gw = Gateway(config={"workspace": workspace, "agents": [{"id": "main"}]},
+                 logger=logger)
+    plugin = GovernancePlugin(device=device)
+    gw.load(plugin, plugin_config={"validation": {
+        "enabled": True, "facts": GATEWAY_FACTS, "llmValidator": lcfg}},
+        logger=logger)
+    gw.start()
+    return gw, plugin
+
+
+def gateway_call(gw):
+    """``text -> (blocked, content, block_reason)`` through
+    ``gw.message_sending``, for ``serve_round``."""
+    def call(text: str) -> tuple:
+        d = gw.message_sending(text, dict(GATEWAY_META))
+        return d.blocked, d.content, d.block_reason
+
+    return call
+
+
+def latency_summary(latency: list, wall_s: float) -> dict:
+    lat = sorted(latency)
+    return {"requests_per_s": len(lat) / wall_s,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "max_ms": lat[-1]}
+
+
+def audit_readback(workspace: str) -> dict:
+    """The audit day files after ``gw.stop()``: every line parsed, with
+    the reader's torn and corrupt counts."""
+    from pathlib import Path
+
+    from vainplex_openclaw_tpu_torch.storage.atomic import (JsonlReadReport,
+                                                            read_jsonl)
+
+    records, corrupt, torn = [], 0, 0
+    for path in sorted((Path(workspace) / "governance" / "audit")
+                       .glob("*.jsonl")):
+        report = JsonlReadReport()
+        records += list(read_jsonl(path, report=report))
+        corrupt += report.corrupt_lines
+        torn += report.torn_tail is not None
+    return {"records": records, "corrupt_lines": corrupt, "torn_tails": torn}
+
+
+def check_audit(workspace: str, texts: list, leg: str) -> int:
+    """One whole audit record for each evaluation of ``texts``."""
+    back = audit_readback(workspace)
+    recs = back["records"]
+    check(back["corrupt_lines"] == 0 and back["torn_tails"] == 0,
+          f"{leg}: audit files torn or corrupt: {back['corrupt_lines']} "
+          f"corrupt lines, {back['torn_tails']} torn tails")
+    check(len(recs) == len(texts), f"{leg}: {len(recs)} audit records for "
+                                   f"{len(texts)} evaluations")
+    check(len({r["id"] for r in recs}) == len(recs),
+          f"{leg}: audit ids repeat")
+    check(sorted(r["context"]["messageContent"] for r in recs)
+          == sorted(texts), f"{leg}: audit records do not match the texts")
+    check(all(r["context"]["hook"] == "message_sending"
+              and r["verdict"] == "allow" for r in recs),
+          f"{leg}: an audit record is not the allowed message_sending")
+    return len(recs)
+
+
+def bench_user_policies() -> list:
+    """``bench.py``'s ``_bench_user_policies`` (``:480-489``): ten
+    regex-gated audit policies, which the compiled planner folds into one
+    prefilter bank."""
+    return [
+        {"id": f"p{i}", "priority": 50 + i,
+         "scope": {"hooks": ["before_tool_call"]},
+         "rules": [{"action": "audit",
+                    "conditions": [{"type": "tool", "tools": ["exec"],
+                                    "params": {"command":
+                                               {"matches": f"pattern-{i}-[a-z]+"}}}]}]}
+        for i in range(10)]
+
+
+def policy_leg(workspace: str, n: int) -> dict:
+    """``bench.py``'s ``_bench_policy_eval`` setup (``:451-487``) through
+    the port's gateway: one warm-up, then ``n`` timed
+    ``before_tool_call("exec", ...)`` calls. Host work only: no stage 3."""
+    from vainplex_openclaw_tpu_torch.core import Gateway
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.governance import GovernancePlugin
+
+    gw = Gateway(config={"workspace": workspace, "agents": [{"id": "main"}]},
+                 logger=list_logger())
+    plugin = GovernancePlugin()
+    gw.load(plugin, plugin_config={"policies": bench_user_policies()})
+    gw.start()
+    ctx = {"agent_id": "main", "session_key": "agent:main:s"}
+    gw.before_tool_call("exec", {"command": "ls -la /tmp"}, ctx)
+    reasons: dict = {}
+    t0 = time.perf_counter()
+    for i in range(n):
+        d = gw.before_tool_call("exec", {"command": f"ls -la /tmp/dir{i}"},
+                                ctx)
+        key = (d.block_reason or "allow").split(" (")[0]
+        reasons[key] = reasons.get(key, 0) + 1
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    stages = plugin.engine.timer.stages_ms()
+    status = gw.call_method("governance.status")
+    audited = plugin.engine.audit_trail.stats()["today"]
+    gw.stop()
+    evaluations = status["stats"]["totalEvaluations"]
+    check(evaluations == n + 1, f"policy leg: {evaluations} evaluations "
+                                f"for {n + 1} calls")
+    check(reasons.get("Rate limit exceeded", 0) > 0,
+          f"policy leg: the rate limiter never denied ({reasons})")
+    check(audited == evaluations, f"policy leg: {audited} audit records "
+                                  f"for {evaluations} evaluations")
+    return {"calls": n, "ms_per_call": ms, "stage_ms": stages,
+            "decisions": reasons, "evaluations": evaluations,
+            "audited": audited,
+            "policy_count": status["policyCount"]}
+
+
+def gateway_legs(device, texts: list, n_threads: int, root: str,
+                 count=None) -> dict:
+    """The serial and concurrent legs on ``device`` against the one-shot
+    oracle on the CPU. ``count()`` reads the attention kernel's launches
+    (None on the CPU, whose plain attention counts nothing)."""
+    import os
+
+    from vainplex_openclaw_tpu_torch.models import serve
+
+    record: dict = {}
+    ws = {name: os.path.join(root, name)
+          for name in ("oracle", "serial", "concurrent")}
+    for path in ws.values():
+        os.makedirs(path)
+    gw, _ = governance_gateway(ws["oracle"], "cpu",
+                               {"continuousBatching": False})
+    oracle, _, _, errors = serve_round(gateway_call(gw), texts, 1)
+    gw.stop()
+    check(not errors, f"gateway oracle errors: {errors[:3]}")
+
+    for leg, threads in (("serial", 1), ("concurrent", n_threads)):
+        gw, plugin = governance_gateway(ws[leg], device)
+        call = plugin.engine.output_validator.llm_validator.call_llm
+        batcher = call.batcher
+        check(gw.stage_timers.get("serve") is batcher.timer,
+              f"{leg}: the serve timer is not registered on the gateway")
+        # the collector's first forward sets up its own handles: one
+        # request straight to the batcher, outside the counted run
+        batcher.submit("warm-up request")
+        batches0 = batcher.batches
+        if count is not None:
+            count(reset=True)
+        got, latency, wall, errors = serve_round(gateway_call(gw), texts,
+                                                 threads)
+        launches = count() if count is not None else None
+        batches = batcher.batches - batches0
+        check(not errors, f"{leg}: gateway errors: {errors[:3]}")
+        want = oracle if leg == "serial" else record["serial"]["decisions"]
+        mismatches = sum(a != b for a, b in zip(got, want))
+        check(mismatches == 0,
+              f"{leg}: {mismatches} decisions differ from the "
+              f"{'CPU one-shot oracle' if leg == 'serial' else 'serial leg'}")
+        status = gw.call_method("governance.status")
+        snap = batcher.timer.snapshot()
+        gw.stop()
+        audited = check_audit(ws[leg], texts, leg)
+        rec = {"decisions": got, "batches": batches,
+               "mean_batch": len(texts) / batches if batches else None,
+               "launches": launches, "audited": audited,
+               "evaluations": status["stats"]["totalEvaluations"],
+               "governance_stage_ms": status["stageMs"],
+               "serve_stage_quantiles_ms": snap["quantiles"],
+               **latency_summary(latency, wall)}
+        if leg == "serial":
+            check(rec["evaluations"] == len(texts),
+                  f"serial: governance.status shows {rec['evaluations']} "
+                  f"evaluations for {len(texts)} messages")
+        record[leg] = rec
+    blocked = sum(d[0] for d in oracle)
+    check(0 < blocked < len(texts),
+          f"{blocked} of {len(texts)} blocked: both kinds must occur")
+    record["blocked"] = blocked
+    record["stage3_blocked"] = sum(
+        bool(d[0] and d[2] and "local triage encoder" in d[2])
+        for d in oracle)
+    record["merged"] = sum(
+        bool(d[2] and "Contradiction" in d[2]
+             and "local triage encoder" in d[2]) for d in oracle)
+    serve.close_batchers()
+    return record
+
+def phase_gateway(smi: str, served: dict) -> dict:
+    """The port's ``Gateway`` → ``GovernancePlugin`` → stage 3 on the card:
+    the serial and concurrent legs against the CPU one-shot oracle, K1 =
+    n_layers x batches in each, a bare serve round on the same texts and
+    threads beside them, and the policy leg on the host."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    cfg, _ = load_pretrained()
+    texts = gateway_texts(GATEWAY_TEXTS, seed=17)
+
+    def count(reset: bool = False) -> int:
+        torch.cuda.synchronize()
+        if reset:
+            fa.launches = 0
+        return fa.launches
+
+    t_phase = time.perf_counter()
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["OPENCLAW_HOME"] = os.path.join(root, "home")
+        try:
+            legs = gateway_legs(None, texts, GATEWAY_THREADS, root, count)
+            # the bare serve path at the same load: the same texts from
+            # the same threads through make_local_call_llm
+            call = serve.make_local_call_llm()
+            call(as_prompt("warm-up request"))
+            batches0 = call.batcher.batches
+            count(reset=True)
+            _, latency, wall, errors = serve_round(
+                call, [as_prompt(t) for t in texts], GATEWAY_THREADS)
+            bare_launches = count()
+            bare_batches = call.batcher.batches - batches0
+            serve.close_batchers()
+            check(not errors, f"bare serve errors: {errors[:3]}")
+            policy = policy_leg(os.path.join(root, "policy"),
+                                GATEWAY_POLICY_CALLS)
+        finally:
+            if saved_home is None:
+                os.environ.pop("OPENCLAW_HOME", None)
+            else:
+                os.environ["OPENCLAW_HOME"] = saved_home
+    for leg, launches, batches in (
+            ("serial", legs["serial"]["launches"], legs["serial"]["batches"]),
+            ("concurrent", legs["concurrent"]["launches"],
+             legs["concurrent"]["batches"]),
+            ("bare", bare_launches, bare_batches)):
+        check(launches > 0 and launches == cfg.n_layers * batches,
+              f"gateway {leg}: flash_attention launches {launches} != "
+              f"{cfg.n_layers} layers x {batches} batches")
+    bare = {"batches": bare_batches, "launches": bare_launches,
+            **latency_summary(latency, wall)}
+    conc = legs["concurrent"]
+    record = {"phase": "gateway", "nvidia_smi": smi, "texts": len(texts),
+              "threads": GATEWAY_THREADS, "blocked": legs["blocked"],
+              "stage3_blocked": legs["stage3_blocked"],
+              "merged": legs["merged"],
+              "serial": {k: v for k, v in legs["serial"].items()
+                         if k != "decisions"},
+              "concurrent": {k: v for k, v in conc.items()
+                             if k != "decisions"},
+              "bare_serve": bare,
+              "serve_phase": served.get("latency"),
+              "governance_host_cost": {
+                  "p50_ms": conc["p50_ms"] - bare["p50_ms"],
+                  "p99_ms": conc["p99_ms"] - bare["p99_ms"],
+                  "requests_per_s_ratio":
+                      conc["requests_per_s"] / bare["requests_per_s"]},
+              "policy": policy,
+              "seconds": time.perf_counter() - t_phase}
+    emit(record)
+    return {"launches": legs["serial"]["launches"] + conc["launches"],
+            "serial_launches": legs["serial"]["launches"],
+            "concurrent_launches": conc["launches"]}
 
 
 def time_ms(fn, n: int = 200, reps: int = 15, warmup: int = 20) -> float:
@@ -5810,6 +6144,7 @@ def main() -> int:
         worst = phase_kernels()
         forwarded = phase_forward()
         served = phase_serve()
+        gateway = phase_gateway(info["nvidia_smi"], served)
         timing = phase_timing()
         worst_stats = phase_kernels_stats()
         wide = phase_timing_wide(info["nvidia_smi"])
@@ -5862,6 +6197,7 @@ def main() -> int:
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "launches_by_path": {
             "serve": served["launches"],
+            "gateway": gateway["launches"],
             "serve_long": served_long["k1_launches"],
             "grad": grad["float32"]["k1_launches"]
             + grad["bfloat16"]["k1_launches"],

@@ -1,5 +1,27 @@
-"""The plugin API types the port hands to a gateway."""
+"""Plugin kernel: the hook/service/command contract every subsystem plugs into."""
 
-from .api import PluginCommand, PluginService, make_logger
+from .api import (
+    HookBus,
+    HookHandler,
+    PluginApi,
+    PluginCommand,
+    PluginLogger,
+    PluginService,
+    list_logger,
+    make_logger,
+)
+from .gateway import Gateway, ToolCallDecision, MessageWriteDecision
 
-__all__ = ["PluginCommand", "PluginService", "make_logger"]
+__all__ = [
+    "Gateway",
+    "HookBus",
+    "HookHandler",
+    "MessageWriteDecision",
+    "PluginApi",
+    "PluginCommand",
+    "PluginLogger",
+    "PluginService",
+    "ToolCallDecision",
+    "list_logger",
+    "make_logger",
+]

@@ -18,7 +18,14 @@ at the same places:
   ``FileTransport``'s day-file write), ``"transport.fetch"`` where
   ``FileTransport`` re-reads a file, and ``"transport.compact"``
   (torn-capable) where it compacts a journal batch
-  (:mod:`..events.transport`).
+  (:mod:`..events.transport`);
+- ``"journal.append"`` (torn-capable) and ``"journal.fsync"`` where the
+  group commit writes a segment, ``"lifecycle.snapshot"`` and
+  ``"lifecycle.demote"`` where it ships and tiers, and the ``file.*``
+  sites where compaction rewrites a snapshot stream
+  (:mod:`..storage.journal`);
+- ``"audit.append"`` (torn-capable) where the audit trail appends a day
+  file (:mod:`..governance.audit`).
 
 A plan decides failures from ``(seed, site, per-site call index)`` only, so
 a chaos run is bit-reproducible: the same seed gives the same faults on the
