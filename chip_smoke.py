@@ -11,8 +11,10 @@ The main path is the governance stage-3 local validator, from the port's
 ``make_local_call_llm()`` → ``ContinuousBatcher`` → ``encode_texts`` →
 ``load_pretrained`` (the shipped triage-tiny checkpoint, at its full
 width) → ``forward`` with attention through the CUDA kernel →
-``render_verdict``. Each phase prints one JSON line; any failure exits
-non-zero before the last line is printed.
+``render_verdict``. The worker_profile phase runs the same path behind
+the port's redaction and beside its ``CortexPlugin``, as a cluster worker
+runs it. Each phase prints one JSON line; any failure exits non-zero
+before the last line is printed.
 
 1. device: the card's name and power limit (``nvidia-smi``), or exit 1
    without a CUDA device;
@@ -38,7 +40,8 @@ non-zero before the last line is printed.
    launch per call; at 256 also L=2048, causal L=2048 and Lq=1000
    Lk=1999) and 1000 (Q streamed with K, ``WIDE_STREAMED_Q_CASES``), and
    the shard shapes the mesh and graft_entry phases
-   launch (16-21, 29); at 2048 keys or more the
+   launch (16-21, 29), the serve path's smaller buckets (B 1-16, the
+   worker_profile phase's one-at-a-time sends); at 2048 keys or more the
    plain version without its first key tile must fail the same check
    (``CONTROL_MIN_LK``); each bf16 case runs the tile the committed block
    table gives its shape, and every row of that table must serve at least
@@ -243,7 +246,26 @@ Versioned serving and the trace analyzer follow:
     failed``, clusters non-empty within the 512-signal cap; then
     ``/trace-analyze`` through ``register_trace_analyzer`` on a recording
     API, and K1 at the triage bucket and K3 at the detector's window timed
-    beside their bounds.
+    beside their bounds;
+27b. worker_profile: the cluster worker's gateway (JAX's
+     ``build_worker_gateway`` configs) on the port: ``GovernancePlugin``
+     with redaction, the credential guard and stage 3 local (fail closed,
+     over ``GATEWAY_FACTS``), ``CortexPlugin`` with every language pack,
+     journal, lifecycle (3 tenants resident) and its trace analyzer over
+     the 10% new chains of ``trace_corpora``. One seeded stream of 320 ops
+     over 8 tenants (``worker_ops``: JAX's ``dispatch_op`` kinds, sends
+     and writes on an external channel, a share carrying a seeded API key,
+     GitHub token, email or IBAN, and tool calls whose params hold a vault
+     placeholder), then ``session_start`` and ``before_compaction`` for
+     each tenant, ``/trace-analyze`` and ``/cortexstatus``, against the
+     same gateway on the CPU with the one-shot path: every result equal,
+     blocked, passed, stage-3-blocked and redacted sends all present, no
+     seeded secret in a sent content, a persisted tool result or any file
+     under the worker's root, the placeholder resolved to the live secret
+     in the tool's params, each tenant's workspace byte-equal,
+     hibernations and wakes, one whole audit record per evaluation, the
+     analyzer's files equal; K1 = n_layers x (batches + triage forwards),
+     only at buckets the kernels phase holds, K3 once per window.
 
 27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
      state writers. The train leg trains ``triage-tiny`` at its full width
@@ -308,7 +330,8 @@ The graft entry points close it:
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle, classify,
-trace_analyzer, chaos and graft_entry phases included, its triage bucket
+trace_analyzer, worker_profile, chaos and graft_entry phases included, its
+triage bucket
 in the trace analyzer, the tiles the block table gives the serve
 and long shapes, its head-dim-8 shapes and its shapes above head dim 128),
 K2 (with its head-dim-8 and wide shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
@@ -435,6 +458,12 @@ TRACE_TRIAGE_CASES = [
     ("trace_triage_run2", 1024, 4, 64, 64, 16, False, "prefix"),
 ]
 
+# the serve path's smaller pow2 buckets: the worker_profile phase sends
+# one message at a time (B=1); the phase fails if it launches K1 at a
+# bucket that no case holds
+WORKER_SERVE_CASES = [(f"worker_serve_b{B}", B, 4, 64, 64, 16, False, "prefix")
+                      for B in (1, 2, 4, 8, 16)]
+
 KERNEL_CASES = [
     ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
     ("encoder_default_width", 32, 8, 128, 128, 32, False, "prefix"),
@@ -496,7 +525,8 @@ KERNEL_CASES = [
     ("dryrun_pp_microbatch", 1, 4, 32, 32, 16, False, False),
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
-] + WIDE_CASES + WIDE_STREAMED_Q_CASES + TRACE_TRIAGE_CASES
+] + (WIDE_CASES + WIDE_STREAMED_Q_CASES + TRACE_TRIAGE_CASES
+     + WORKER_SERVE_CASES)
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -5334,6 +5364,559 @@ def trace_cluster_leg(c_runs: dict, n_new_chains: int) -> dict:
     return out
 
 
+# ── worker profile: the cluster worker's gateway on the card ─────────
+
+WORKER_ID = "w0"
+WORKER_TENANTS = 8
+WORKER_OPS = 320
+WORKER_SEED = 29
+# the lifecycle's resident cap, below the tenants: workspaces hibernate
+# and wake
+WORKER_MAX_RESIDENT = 3
+WORKER_START = 1_700_050_000.0  # the gateways' virtual clock (s)
+WORKER_CHANNEL = "twitter"  # external: stage 3 scores every send
+# (kind, cumulative probability): JAX's ``dispatch_op`` kinds
+# (``cluster/worker.py:60-77``), then ``message_sending`` (``send``),
+# ``before_message_write`` (``write``) and a tool call whose params hold a
+# vault placeholder (``tool_vault``)
+WORKER_KIND_CDF = (("msg_in", 0.20), ("msg_out", 0.32), ("tool_ok", 0.40),
+                   ("tool_denied", 0.45), ("tool_secret", 0.53),
+                   ("send", 0.87), ("write", 0.93), ("tool_vault", 1.0))
+WORKER_SECRET_SHARE = 0.35  # the sends and writes that carry a secret
+WORKER_MESSAGES = (
+    "let's talk about the payment gateway hardening",
+    "we decided to use the simpler rollout because it ships faster",
+    "I'm waiting for the infra team to approve the quota first",
+    "the cache migration is done and deployed ✅",
+    "I'll draft the migration plan tonight",
+    "wir haben beschlossen, die Migration schrittweise zu machen",
+    "warten auf das Security-Review, vorher geht nichts",
+    "on a décidé de passer par la file de messages",
+    "我们决定采用灰度发布方案",
+    "решено, делаем поэтапный деплой",
+    "back to the database migration plan",
+    "careful, the rollout is risky and urgent",
+    "let me check the logs before the release",
+    "the dashboard shows normal traffic levels this morning",
+)
+WORKER_SAFE_PATHS = ("docs/readme.md", "src/app.py", "notes/todo.txt")
+WORKER_DENIED_PATHS = ("config/.env", "keys/server.pem",
+                       "secrets/prod-credentials.json")
+_ALNUM = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789"
+_SECRET_FORMS = (
+    "{text}; use key {secret}",
+    "{text}, reach me at {secret}",
+    "{text} (pay into {secret})",
+    "{text}, token {secret}",
+)
+# the lines of /cortexstatus that read the host's clock
+_STATUS_TIMING = re.compile(r"stage (?:ms|p99 ms):")
+_STATUS_WAKE = re.compile(r"wakeP99=\S+ms")
+
+
+class VirtualClock:
+    """The seconds both gateways of a run read: advanced by the op script
+    only."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def worker_secret(rng, kind: str) -> str:
+    """A seeded credential (``sk-`` or ``ghp_``), email or IBAN: each a
+    match of one builtin redaction pattern."""
+    def pick(n: int) -> str:
+        return "".join(_ALNUM[int(i)] for i in rng.integers(len(_ALNUM),
+                                                            size=n))
+
+    if kind == "api_key":
+        return "sk-" + pick(24)
+    if kind == "github":
+        return "ghp_" + pick(36)
+    if kind == "email":
+        return f"ops.{pick(6).lower()}{int(rng.integers(100))}@example.org"
+    return "DE" + "".join(str(int(d)) for d in rng.integers(10, size=20))
+
+
+def worker_ops(n: int, seed: int, tenants: int = WORKER_TENANTS) -> dict:
+    """The seeded op stream: ``{"ops": [...], "secrets": [...]}``. Each op
+    is ``{"kind", "tenant", "dt", "content"}`` (``dt``: seconds the clock
+    moves before it). Sends and writes draw from ``gateway_texts`` (every
+    16th contradicts a fact) and carry, at ``WORKER_SECRET_SHARE``, a
+    fresh secret; each ``tool_secret`` exports a fresh API key; a
+    ``tool_vault`` names the ``tool_secret`` op whose placeholder its params
+    hold (the first ``tool_vault`` before any ``tool_secret`` becomes
+    one). Every secret is distinct."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    texts = iter(gateway_texts(n, seed))
+    ops, secrets, last_secret_op = [], [], None
+    for i in range(n):
+        r = rng.random()
+        kind = next(k for k, c in WORKER_KIND_CDF if r < c)
+        if kind == "tool_vault" and last_secret_op is None:
+            kind = "tool_secret"
+        op = {"kind": kind, "tenant": int(rng.integers(tenants)),
+              "dt": float(rng.choice([0.5, 1.0, 2.0, 5.0]))}
+        if kind in ("msg_in", "msg_out"):
+            op["content"] = WORKER_MESSAGES[int(rng.integers(
+                len(WORKER_MESSAGES)))]
+        elif kind == "tool_ok":
+            op["content"] = WORKER_SAFE_PATHS[int(rng.integers(3))]
+        elif kind == "tool_denied":
+            op["content"] = WORKER_DENIED_PATHS[int(rng.integers(3))]
+        elif kind == "tool_secret":
+            secret = worker_secret(rng, "api_key")
+            secrets.append(secret)
+            op["content"] = f"export API_KEY={secret}"
+            op["secret"] = secret
+            last_secret_op = i
+        elif kind == "tool_vault":
+            op["ref"] = last_secret_op
+        else:
+            text = next(texts)
+            if rng.random() < WORKER_SECRET_SHARE:
+                secret = worker_secret(rng, ("api_key", "github", "email",
+                                             "iban")[int(rng.integers(4))])
+                secrets.append(secret)
+                text = _SECRET_FORMS[int(rng.integers(
+                    len(_SECRET_FORMS)))].format(text=text, secret=secret)
+            op["content"] = text
+        ops.append(op)
+    check(len(set(secrets)) == len(secrets), "worker secrets repeat")
+    return {"ops": ops, "secrets": secrets}
+
+
+def worker_gateway(root: str, device, clock, trace_raws: list,
+                   serve_cfg=None) -> tuple:
+    """The cluster worker's gateway (JAX's ``build_worker_gateway``,
+    ``cluster/worker.py:80-136``) on the port: ``GovernancePlugin`` with
+    redaction, the credential guard and its audit journal at ``root``,
+    plus stage 3 local over ``GATEWAY_FACTS`` (fail closed) on ``device``;
+    ``CortexPlugin`` with every language pack, journal, lifecycle (at most
+    ``WORKER_MAX_RESIDENT`` tenants resident) and its trace analyzer
+    (``TRACE_CONFIG``, on ``device``) over ``trace_raws``. Both plugins
+    read ``clock``; the analyzer keeps its state in ``root``."""
+    from vainplex_openclaw_tpu_torch.core import Gateway
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.cortex import (CortexPlugin,
+                                                    MemoryTraceSource)
+    from vainplex_openclaw_tpu_torch.governance import GovernancePlugin
+
+    lcfg = {"enabled": True, "local": True, "failMode": "closed"}
+    if serve_cfg is not None:
+        lcfg["serve"] = serve_cfg
+    logger = list_logger()
+    gw = Gateway(config={"workspace": root, "agents": [{"id": WORKER_ID}],
+                         "cluster": {"workerPrefix": f"{WORKER_ID}:"}},
+                 logger=logger, clock=clock)
+    gov = GovernancePlugin(workspace=root, clock=clock, device=device)
+    gw.load(gov, plugin_config={
+        "redaction": {"enabled": True},
+        "builtinPolicies": {"credentialGuard": True,
+                            "rateLimiter": {"maxPerMinute": 10_000_000}},
+        "storage": {"journal": True},
+        "validation": {"enabled": True, "facts": GATEWAY_FACTS,
+                       "llmValidator": lcfg}}, logger=logger)
+    cortex = CortexPlugin(workspace=root, clock=clock, wall_timers=False,
+                          trace_source=MemoryTraceSource(trace_raws),
+                          device=device)
+    gw.load(cortex, plugin_config={
+        "languages": "all",
+        "traceAnalyzer": {"enabled": True, **TRACE_CONFIG},
+        "registerTools": False,
+        "storage": {"journal": True,
+                    "lifecycle": {"maxResident": WORKER_MAX_RESIDENT}}},
+        logger=logger)
+    gw.start()
+    return gw, gov, cortex
+
+
+def worker_ctx(root: str, tenant: int) -> dict:
+    return {"agent_id": WORKER_ID, "session_key": f"agent:{WORKER_ID}:t{tenant}",
+            "workspace": os.path.join(root, "tenants", f"t{tenant}"),
+            "channel_id": WORKER_CHANNEL}
+
+
+def worker_dispatch(gw, op: dict, ctx: dict, placeholders: dict,
+                    tool_params: list):
+    """One op through the gateway, as JAX's ``dispatch_op`` runs its kinds
+    (``msg_in``, ``msg_out``, the ``read`` tool, ``tool_result_persist``
+    of ``exec``), plus ``send``, ``write`` and ``tool_vault``. Returns the
+    op's result; a ``tool_vault`` call's params, as the tool received them,
+    go to ``tool_params``."""
+    from vainplex_openclaw_tpu_torch.governance.redaction import (
+        PLACEHOLDER_RE)
+
+    kind, content = op["kind"], op.get("content")
+    if kind == "msg_in":
+        return gw.message_received(content, ctx)
+    if kind == "msg_out":
+        return gw.message_sent(content, ctx)
+    if kind in ("tool_ok", "tool_denied"):
+        d, persisted = gw.run_tool("read", {"path": content},
+                                   lambda p: f"contents of {p['path']}", ctx)
+        return [d.blocked, d.block_reason, persisted]
+    if kind == "tool_secret":
+        out = gw.tool_result_persist("exec", content, ctx)
+        m = PLACEHOLDER_RE.search(out) if isinstance(out, str) else None
+        placeholders[op["index"]] = m.group(0) if m else None
+        return out
+    if kind == "tool_vault":
+        placeholder = placeholders[op["ref"]]
+        check(placeholder is not None, f"op {op['index']}: the tool result "
+                                       "it names carries no placeholder")
+
+        def tool(params):
+            tool_params.append(params)
+            return "deployed"
+
+        d, persisted = gw.run_tool(
+            "exec", {"command": f"deploy --env {placeholder}"}, tool, ctx)
+        return [d.blocked, d.block_reason, persisted]
+    decide = gw.message_sending if kind == "send" else gw.before_message_write
+    d = decide(content, ctx)
+    return [d.blocked, d.content, d.block_reason]
+
+
+def worker_tree(path: str) -> dict:
+    """``{relative path: bytes}`` of every file under ``path``; a gzip'd
+    cold journal segment by its content (its header holds the wall time
+    and the writer's pid)."""
+    import gzip
+
+    out = {}
+    for dirpath, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(dirpath, name)
+            with open(full, "rb") as f:
+                data = f.read()
+            out[os.path.relpath(full, path)] = (
+                gzip.decompress(data) if name.endswith(".gz") else data)
+    return out
+
+
+def worker_status_text(text: str, root: str) -> str:
+    """/cortexstatus less the host's clock: the stage lines and the wake
+    p99 dropped, the root written as ``<root>``."""
+    lines = [_STATUS_WAKE.sub("wakeP99=<ms>", line)
+             for line in text.replace(root, "<root>").splitlines()
+             if not _STATUS_TIMING.search(line)]
+    return "\n".join(lines)
+
+
+def worker_run(device, script: dict, root: str, trace_raws: list,
+               serve_cfg=None, count=None) -> dict:
+    """Every op of ``script`` through a fresh worker gateway at ``root``,
+    then ``session_start`` and ``before_compaction`` for every tenant,
+    ``/trace-analyze`` and ``/cortexstatus``; after ``stop()`` the files.
+    ``count(reset=...)`` reads K1 and K3 (None: nothing counted)."""
+    from vainplex_openclaw_tpu_torch.storage import journal
+    from vainplex_openclaw_tpu_torch.utils import ids
+    from vainplex_openclaw_tpu_torch.utils.stage_timer import StageTimer
+
+    os.makedirs(root)
+    clock = VirtualClock(WORKER_START)
+    ids._ID_RNG.seed(WORKER_SEED)
+    gw, gov, cortex = worker_gateway(root, device, clock, trace_raws,
+                                     serve_cfg)
+    batcher = getattr(gov.engine.output_validator.llm_validator.call_llm,
+                      "batcher", None)
+    if batcher is not None:
+        # the collector's first forward sets up its handles: one request
+        # straight to the batcher, outside the counted run
+        batcher.submit("warm-up request")
+    batches0 = batcher.batches if batcher is not None else 0
+    # each tenant's ingest StageTimer, kept across hibernation, and the
+    # host ms of each hibernation (flush, ship, close)
+    ingest = StageTimer()
+    hibernate = cortex._hibernate_workspace
+    hibernate_ms: list = []
+
+    def keep_timer(ws: str) -> None:
+        tr = cortex._trackers.get(ws)
+        if tr is not None:
+            ingest.absorb(tr.timer.state())
+        t = time.perf_counter()
+        hibernate(ws)
+        hibernate_ms.append((time.perf_counter() - t) * 1e3)
+
+    cortex._hibernate_workspace = keep_timer
+    if count is not None:
+        count(reset=True)
+    results, placeholders, tool_params = [], {}, []
+    host_ms: dict = {}
+    t_run = time.perf_counter()
+    for i, op in enumerate(script["ops"]):
+        clock.t += op["dt"]
+        ctx = worker_ctx(root, op["tenant"])
+        t = time.perf_counter()
+        results.append(worker_dispatch(gw, dict(op, index=i), ctx,
+                                       placeholders, tool_params))
+        host_ms.setdefault(op["kind"], []).append(
+            (time.perf_counter() - t) * 1e3)
+    run_s = time.perf_counter() - t_run
+    hooks = []
+    for tenant in range(WORKER_TENANTS):
+        clock.t += 1.0
+        ctx = worker_ctx(root, tenant)
+        hooks.append(gw.session_start(dict(ctx)))
+        hooks.append(gw.before_compaction(dict(ctx), messages=[
+            {"role": "user", "content": m} for m in WORKER_MESSAGES[:4]]))
+    t = time.perf_counter()
+    trace_text = gw.command("/trace-analyze")["text"]
+    trace_s = time.perf_counter() - t
+    launches = count() if count is not None else None
+    status = worker_status_text(gw.command("/cortexstatus")["text"], root)
+    for tr in cortex._trackers.values():
+        ingest.absorb(tr.timer.state())
+    batches = (batcher.batches - batches0) if batcher is not None else None
+    lifecycle = cortex.lifecycle.stats()
+    # wake, and the snapshot shipping and segment tiering of the
+    # hibernated workspaces, absorbed into the manager's timer
+    lifecycle_timer = cortex.lifecycle.timer.snapshot()
+    evaluations = gw.call_method("governance.status")["stats"][
+        "totalEvaluations"]
+    gw.stop()
+    journal.reset_journals()
+    return {"results": results, "hooks": hooks, "tool_params": tool_params,
+            "trace_text": trace_text, "status": status,
+            "lifecycle": lifecycle, "lifecycle_timer": lifecycle_timer,
+            "evaluations": evaluations,
+            "batches": batches, "launches": launches,
+            "files": trace_files(root),
+            "tenants": {t: worker_tree(os.path.join(root, "tenants", f"t{t}"))
+                        for t in range(WORKER_TENANTS)},
+            "tree": worker_tree(root),
+            "host_ms": host_ms, "hibernate_ms": hibernate_ms,
+            "run_s": run_s, "trace_s": trace_s,
+            "ingest": ingest.snapshot()}
+
+
+def worker_leaks(script: dict, run: dict) -> list:
+    """``(secret, where)`` for every seeded secret found in a sent or
+    written content, a persisted tool result, or any file under the run's
+    root: the audit files and journals, the tenants' cortex files and the
+    analyzer's."""
+    places = []
+    for op, res in zip(script["ops"], run["results"]):
+        if op["kind"] in ("send", "write"):
+            places.append(("sent content", str(res[1])))
+        elif op["kind"] == "tool_secret":
+            places.append(("tool result", str(res)))
+        elif op["kind"] in ("tool_ok", "tool_vault"):
+            places.append(("tool result", str(res[2])))
+    for path, data in run["tree"].items():
+        places.append((path, data.decode("utf-8", "replace")))
+    return [(secret, where) for secret in script["secrets"]
+            for where, text in places if secret in text]
+
+
+def worker_check(script: dict, card: dict, oracle: dict) -> dict:
+    """The phase's checks of a card run against the CPU oracle's."""
+    leg = "worker_profile"
+    from vainplex_openclaw_tpu_torch.governance.redaction import (
+        PLACEHOLDER_RE)
+
+    for i, (got, want) in enumerate(zip(card["results"], oracle["results"])):
+        check(got == want, f"{leg}: op {i} ({script['ops'][i]['kind']}) "
+                           f"gave {str(got)[:200]} on the card, "
+                           f"{str(want)[:200]} on the CPU")
+    check(len(card["results"]) == len(script["ops"]),
+          f"{leg}: {len(card['results'])} results")
+    check(card["hooks"] == oracle["hooks"],
+          f"{leg}: session_start/before_compaction results differ")
+    for tenant, tree in card["tenants"].items():
+        check(tree == oracle["tenants"][tenant],
+              f"{leg}: tenant {tenant}'s workspace differs card vs CPU: "
+              f"{sorted(set(tree) ^ set(oracle['tenants'][tenant]))}")
+        for name in ("threads.json", "BOOTSTRAP.md", "narrative.md",
+                     "hot-snapshot.md"):
+            check(os.path.join("memory", "reboot", name) in tree,
+                  f"{leg}: tenant {tenant} has no {name}")
+        check(any(path.startswith("journal") for path in tree),
+              f"{leg}: tenant {tenant} has no journal")
+    for name in ("decisions.json", "commitments.json"):
+        check(any(os.path.join("memory", "reboot", name) in tree
+                  for tree in card["tenants"].values()),
+              f"{leg}: no tenant has a {name}")
+    check(card["status"] == oracle["status"],
+          f"{leg}: /cortexstatus differs card vs CPU")
+    check(card["files"] == oracle["files"],
+          f"{leg}: the /trace-analyze files differ card vs CPU")
+    head = card["trace_text"].splitlines()[0]
+    check(head.startswith("🔍 trace analysis:") and "failed" not in head,
+          f"{leg}: /trace-analyze answered {card['trace_text'][:200]!r}")
+    leaks = worker_leaks(script, card)
+    check(not leaks, f"{leg}: {len(leaks)} seeded secrets leaked, first "
+                     f"in {leaks[0][1] if leaks else None}")
+    vault_ops = [op for op in script["ops"] if op["kind"] == "tool_vault"]
+    check(len(card["tool_params"]) == len(vault_ops) > 0,
+          f"{leg}: {len(card['tool_params'])} vault tool calls ran for "
+          f"{len(vault_ops)} ops")
+    for op, params in zip(vault_ops, card["tool_params"]):
+        live = script["ops"][op["ref"]]["secret"]
+        check(live in params["command"]
+              and not PLACEHOLDER_RE.search(params["command"]),
+              f"{leg}: the tool got {params['command'][:80]!r}, not the "
+              "live secret")
+    for op, res in zip(script["ops"], card["results"]):
+        if op["kind"] in ("tool_ok", "tool_denied"):
+            denied = op["kind"] == "tool_denied"
+            check(res[0] == denied and (not denied
+                                        or "Credential Guard" in res[1]),
+                  f"{leg}: read {op['content']!r} gave {res[:2]}")
+    lc = card["lifecycle"]
+    check(lc["evictions"] > 0 and lc["wakes"] > 0,
+          f"{leg}: lifecycle {lc['evictions']} hibernations, "
+          f"{lc['wakes']} wakes")
+    check(card["evaluations"] == oracle["evaluations"],
+          f"{leg}: {card['evaluations']} evaluations on the card, "
+          f"{oracle['evaluations']} on the CPU")
+    back = audit_readback(card["root"])
+    recs = back["records"]
+    check(back["corrupt_lines"] == 0 and back["torn_tails"] == 0
+          and len(recs) == card["evaluations"]
+          and len({r["id"] for r in recs}) == len(recs),
+          f"{leg}: {len(recs)} audit records ({back['corrupt_lines']} "
+          f"corrupt, {back['torn_tails']} torn) for {card['evaluations']} "
+          "evaluations")
+    sends = [(op, res) for op, res in zip(script["ops"], oracle["results"])
+             if op["kind"] == "send"]
+    blocked = sum(bool(res[0]) for _, res in sends)
+    stage3 = sum(bool(res[0] and res[2] and "local triage encoder" in res[2])
+                 for _, res in sends)
+    redacted = sum("[REDACTED:" in str(res[1]) for _, res in sends)
+    check(0 < blocked < len(sends) and stage3 > 0 and redacted > 0,
+          f"{leg}: of {len(sends)} sends {blocked} blocked, {stage3} by "
+          f"stage 3, {redacted} redacted")
+    return {"sends": len(sends), "blocked": blocked, "stage3_blocked": stage3,
+            "redacted": redacted, "secrets": len(script["secrets"]),
+            "vault_calls": len(vault_ops), "audit_records": len(recs),
+            "lifecycle": {k: v for k, v in lc.items()
+                          if k not in ("wakeP50Ms", "wakeP99Ms")}}
+
+
+def worker_legs(device, script: dict, root: str, trace_raws: list,
+                count=None) -> dict:
+    """The run on ``device`` (continuous batching) and the CPU oracle (the
+    one-shot path), each on its own root, and the checks between them."""
+    runs = {}
+    for leg, dev, serve_cfg, counter in (
+            ("card", device, None, count),
+            ("oracle", "cpu", {"continuousBatching": False}, None)):
+        path = os.path.join(root, leg)
+        runs[leg] = worker_run(dev, script, path, trace_raws, serve_cfg,
+                               counter)
+        runs[leg]["root"] = path
+    return {"runs": runs,
+            "checks": worker_check(script, runs["card"], runs["oracle"])}
+
+
+def phase_worker_profile(smi: str) -> dict:
+    """The cluster worker's gateway on the card: the port's ``Gateway``
+    with JAX's worker-profile configs (redaction, the credential guard,
+    stage 3 local; cortex with every pack, journal, lifecycle and its
+    trace analyzer over the 10% new chains of ``trace_corpora``), one
+    seeded stream of ``WORKER_OPS`` ops over ``WORKER_TENANTS`` tenants,
+    then session_start and before_compaction for each, ``/trace-analyze``
+    and ``/cortexstatus``, against the same gateway on the CPU with the
+    one-shot path: every result equal, no seeded secret leaked, the vault
+    placeholder resolved in the tool's params, tenant trees byte-equal,
+    hibernations and wakes, one whole audit record per evaluation, the
+    analyzer's files equal; K1 = n_layers x (batches + triage forwards)
+    at buckets the kernels phase holds, K3 one launch per window."""
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+    from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
+
+    t0 = time.perf_counter()
+    cfg, _ = load_pretrained()
+    _, new = trace_corpora()
+    script = worker_ops(WORKER_OPS, WORKER_SEED)
+    windows = trace_k3_windows(new)
+    buckets: list = []
+    forward = fa._forward
+
+    def count(reset: bool = False) -> dict:
+        torch.cuda.synchronize()
+        if reset:
+            fa.launches = sim.launches = 0
+        return {"k1": fa.launches, "k3": sim.launches}
+
+    def record_bucket(q, *args, **kwargs):
+        if q.is_cuda:
+            buckets.append(list(q.shape))
+        return forward(q, *args, **kwargs)
+
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["OPENCLAW_HOME"] = os.path.join(root, "home")
+        fa._forward = record_bucket
+        try:
+            legs = worker_legs(None, script, root, new, count)
+        finally:
+            fa._forward = forward
+            serve.close_batchers()
+            if saved_home is None:
+                os.environ.pop("OPENCLAW_HOME", None)
+            else:
+                os.environ["OPENCLAW_HOME"] = saved_home
+    card = legs["runs"]["card"]
+    report = card["files"]["report"]
+    triage = int(len(report["findings"]) > 0)
+    k1, k3 = card["launches"]["k1"], card["launches"]["k3"]
+    check(k1 == cfg.n_layers * (card["batches"] + triage),
+          f"worker_profile: K1 launches {k1} != {cfg.n_layers} layers x "
+          f"({card['batches']} batches + {triage} triage forward)")
+    check(k3 == len(windows), f"worker_profile: K3 launches {k3} != "
+                              f"{len(windows)} windows")
+    shapes = [list(s) for s in dict.fromkeys(map(tuple, buckets))]
+    unheld = trace_k1_unheld(shapes)
+    check(not unheld, f"worker_profile: K1 launched at {unheld}, which no "
+                      "kernels case holds against the plain version")
+    sends = card["host_ms"]["send"]
+    ingest_ms = card["host_ms"]["msg_in"] + card["host_ms"]["msg_out"]
+    triage_shape = (trace_k1_shape(cfg, len(report["findings"]))
+                    if triage else None)
+    record = {"phase": "worker_profile", "nvidia_smi": smi,
+              "ops": len(script["ops"]), "tenants": WORKER_TENANTS,
+              "max_resident": WORKER_MAX_RESIDENT,
+              "trace_events": len(new), **legs["checks"],
+              "batches": card["batches"], "k1_launches": k1,
+              "k3_launches": k3, "k3_windows": windows,
+              "k3_buckets": sorted({pow2_bucket(n) for n in windows}),
+              "k1_shapes": shapes, "triage_shape": triage_shape,
+              "message_sending": latency_summary(sends, sum(sends) / 1e3),
+              "ingest_host_ms": {"ops": len(ingest_ms),
+                                 **quantiles_ms(ingest_ms)},
+              "host_ms_per_op": {kind: sum(v) / len(v)
+                                 for kind, v in card["host_ms"].items()},
+              "cortex_stage_ms": card["ingest"]["stages_ms"],
+              "cortex_stage_quantiles_ms": card["ingest"]["quantiles"],
+              "lifecycle_stage_ms": card["lifecycle_timer"]["stages_ms"],
+              "lifecycle_stage_counts": card["lifecycle_timer"]["counts"],
+              "wake_ms": {"p50": card["lifecycle"]["wakeP50Ms"],
+                          "p99": card["lifecycle"]["wakeP99Ms"]},
+              "hibernate_ms": {"sum": sum(card["hibernate_ms"]),
+                               **quantiles_ms(card["hibernate_ms"])},
+              "ops_s": card["run_s"], "trace_analyze_s": card["trace_s"],
+              "oracle_ops_s": legs["runs"]["oracle"]["run_s"],
+              "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 # ── chaos: fault plans on the checkpoint and state writers ───────────
 
 CHAOS_STEPS = 60
@@ -5652,15 +6235,15 @@ def served_cases(lengths) -> list:
     ``lengths`` would serve (the pow2 bucket of Lq or Lk is one of
     them), plus the long serve shape: where a searched tile is held
     against the plain version before its row may be written. Not the
-    ``TRACE_TRIAGE_CASES``: they differ from ``serve_path`` only in the
-    batch, which a tile does not see, and the search's check walks one
-    (batch, head) slice at a time (65,536 of them at B=16384). Nor the
-    wide cases: the wide library has its own tiles."""
+    ``TRACE_TRIAGE_CASES`` or ``WORKER_SERVE_CASES``: they differ from
+    ``serve_path`` only in the batch, which a tile does not see, and the
+    search's check walks one (batch, head) slice at a time (65,536 of them
+    at B=16384). Nor the wide cases: the wide library has its own tiles."""
     from vainplex_openclaw_tpu_torch.ops.similarity import pow2_bucket
 
     buckets = {pow2_bucket(L) for L in lengths}
     cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
-             and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
+             and c not in WORKER_SERVE_CASES and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
              and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
     if pow2_bucket(L) in buckets:
@@ -6164,6 +6747,7 @@ def main() -> int:
         fleet = phase_fleet(info["nvidia_smi"])
         classified = phase_classify(info["nvidia_smi"])
         traced = phase_trace_analyzer(info["nvidia_smi"])
+        worker = phase_worker_profile(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
@@ -6217,6 +6801,7 @@ def main() -> int:
             "classify": classified["k1_launches"],
             "trace_analyzer": sum(traced[run]["card"]["k1_launches"]
                                   for run in TRACE_RUNS),
+            "worker_profile": worker["k1_launches"],
             "chaos": chaos["train"]["k1_launches"]
             + chaos["trace"]["rerun"]["cuda"]["k1_launches"],
             "graft_entry": graft["entry"]["k1_launches"],
@@ -6294,6 +6879,7 @@ def main() -> int:
              "similarity": similarity["k3_launches"],
              "trace_analyzer": sum(traced[run]["card"]["k3_launches"]
                                    for run in TRACE_RUNS),
+             "worker_profile": worker["k3_launches"],
              "chaos": chaos["trace"]["rerun"]["cuda"]["k3_launches"]},
          "trace_analyzer_shape": trace_k3_line(traced),
          "dp_cell_bound_ms": k3["dp_cell_bound_ms"],

@@ -16,8 +16,9 @@ Deviations, each beside the JAX behaviour it departs from: a device error
 from ``call_llm`` propagates out of the port's ``message_sending`` under
 both failModes, where JAX logs it and answers with the failMode verdict;
 a plain error gives identical decisions; a missing card raises at
-``Gateway.load`` where JAX logs "local stage-3 unavailable"; redaction,
-2FA and ERC-8004 raise at ``register`` in the port.
+``Gateway.load`` where JAX logs "local stage-3 unavailable"; 2FA without
+an approver and ERC-8004 raise at ``register`` in the port (redaction is
+ported: ``tests/test_torch_redaction.py``).
 """
 
 from __future__ import annotations
@@ -409,7 +410,6 @@ def test_missing_card_raises_at_load_where_jax_logs(tmp_path, openclaw_home,
 
 
 @pytest.mark.parametrize("section", [
-    {"redaction": {"enabled": True}},
     {"twoFa": {"enabled": True, "totpSecret": "JBSWY3DPEHPK3PXP"}},
     {"erc8004": {"enabled": True}}])
 def test_unported_sections_raise_at_register(tmp_path, openclaw_home,

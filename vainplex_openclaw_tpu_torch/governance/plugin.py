@@ -27,10 +27,11 @@ A copy of ``vainplex_openclaw_tpu/governance/plugin.py`` with JAX's
   checkpoint) is logged as there;
 - ``_fail`` re-raises an error of the device, where the JAX package returns
   the failMode result (``None``, allow, under ``failMode: "open"``);
-- ``redaction``, ``twoFa`` without an injected approver, and ``erc8004``
-  are not ported: enabling one raises ``NotImplementedError`` at
-  ``register``. An approver passed as ``approval_2fa=`` is wired as in the
-  JAX package.
+- ``twoFa`` without an injected approver, and ``erc8004`` are not
+  ported: enabling one raises ``NotImplementedError`` at ``register``. An
+  approver passed as ``approval_2fa=`` is wired as in the JAX package.
+  ``redaction`` is the port's own ``governance/redaction/``, wired as in
+  the JAX package (its hooks, and the audit trail's credential scrubber).
 """
 
 from __future__ import annotations
@@ -147,6 +148,7 @@ class GovernancePlugin:
         self.approval_2fa = approval_2fa  # injectable for tests; else built from config
         self.call_llm = call_llm          # DI'd LLM seam (Ollama, or the local encoder)
         self.device = device              # the local stage 3's device
+        self.redaction_state = None
         self.response_gate = None
         self.fact_registry = None
 
@@ -173,6 +175,7 @@ class GovernancePlugin:
             stop=lambda ctx: self.engine.stop(),
         ))
 
+        self._init_redaction(api)
         self._init_validation(api)
         self._init_2fa(api)
 
@@ -207,7 +210,6 @@ class GovernancePlugin:
         """Raise for a section this port does not carry yet, rather than
         serve without it (ROADMAP.md, Queue 1 item 2)."""
         missing = [(section, module) for section, module in (
-            ("redaction", "governance/redaction/"),
             ("twoFa", "governance/approval/ (2FA, Matrix)"),
             ("erc8004", "governance/security/ (ERC-8004)"))
             if self.config.get(section, {}).get("enabled")
@@ -218,6 +220,19 @@ class GovernancePlugin:
                     f"{section} needs {module}" for section, module in missing)
                 + ", not ported to the PyTorch package yet (ROADMAP.md, "
                 "Queue 1 item 2); disable the section or use the JAX package")
+
+    def _init_redaction(self, api) -> None:
+        if not self.config.get("redaction", {}).get("enabled"):
+            return
+        from .redaction import init_redaction, register_redaction_hooks
+
+        self.redaction_state = init_redaction(self.config["redaction"], api.logger,
+                                              clock=self.clock)
+        register_redaction_hooks(api, self.redaction_state)
+        # Audit records must never carry live credentials (vault resolution
+        # runs before governance audits the params — verified leak otherwise).
+        credential_engine = self.redaction_state.credential_only_engine
+        self.engine.audit_trail.scrubber = lambda ctx: credential_engine.scan(ctx).output
 
     def _init_validation(self, api) -> None:
         vcfg = self.config.get("validation", {})

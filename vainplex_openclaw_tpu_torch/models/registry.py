@@ -139,7 +139,8 @@ class ModelRegistry:
         # LRU over PLACED trees only: versions are the manager's keys, the
         # hibernate callback drops a device tree.
         self._pager = LifecycleManager(
-            max(1, int(s["maxResidentVersions"])), clock=clock)
+            {"maxResident": max(1, int(s["maxResidentVersions"])),
+             "idleSeconds": 0.0}, clock=clock)
         # ── guarded state (self._lock) ───────────────────────────────
         self._lock = threading.Lock()
         self._versions: dict[str, ModelVersion] = {}

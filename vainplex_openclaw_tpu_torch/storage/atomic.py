@@ -2,7 +2,8 @@
 
 A copy of ``read_json``, ``write_json_atomic``, the JSONL helpers
 (``append_jsonl``, ``read_jsonl`` with its ``JsonlReadReport``,
-``repair_torn_tail``) and ``daily_jsonl_name`` from
+``repair_torn_tail``), ``Debouncer``, ``AtomicStorage`` and
+``daily_jsonl_name`` from
 ``vainplex_openclaw_tpu/storage/atomic.py``, kept here so the port imports
 nothing of the JAX package. Files are written byte for byte as the JAX
 package writes them, so a file written by one package is read by the
@@ -15,12 +16,15 @@ temporary file. ``append_jsonl`` writes through ``file.append``
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional
 
 from ..resilience.faults import maybe_fail, write_with_faults
 
@@ -196,6 +200,135 @@ def repair_torn_tail(path: str | Path) -> bool:
     except OSError:
         return False
     return True
+
+
+# Debouncers with pending work at interpreter exit used to lose it: the
+# daemon timer thread dies with the process. One atexit hook flushes every
+# live debouncer (weakly referenced — registration must not keep dead
+# stores alive); flush failures are swallowed, exit paths can't raise.
+_LIVE_DEBOUNCERS: "weakref.WeakSet[Debouncer]" = weakref.WeakSet()
+
+
+@atexit.register
+def _flush_live_debouncers() -> None:  # pragma: no cover — exercised manually
+    for deb in list(_LIVE_DEBOUNCERS):
+        try:
+            deb.flush()
+        except Exception:  # noqa: BLE001 — interpreter is going down
+            pass
+
+
+class Debouncer:
+    """Trailing-edge debounce with an explicit ``flush`` for shutdown paths.
+
+    ``wall=False`` (tests) never starts a timer thread; callers drive it via
+    ``flush()``. With ``wall=True`` a daemon timer fires after ``delay_s``.
+    ``stop()`` cancels the timer and flushes pending work; pending work also
+    flushes at interpreter exit (a 15 s save debounce must not turn a clean
+    shutdown into silent data loss).
+    """
+
+    def __init__(self, fn: Callable[[], None], delay_s: float, wall: bool = True):
+        self._fn = fn
+        self._delay = delay_s
+        self._wall = wall
+        self._timer: Optional[threading.Timer] = None
+        self._pending = False
+        self._lock = threading.Lock()
+        _LIVE_DEBOUNCERS.add(self)
+
+    def trigger(self) -> None:
+        with self._lock:
+            self._pending = True
+            if not self._wall:
+                return
+            if self._timer is not None:
+                self._timer.cancel()
+            self._timer = threading.Timer(self._delay, self.flush)
+            self._timer.daemon = True
+            self._timer.start()
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._timer is not None:
+                self._timer.cancel()
+                self._timer = None
+            if not self._pending:
+                return
+            self._pending = False
+        self._fn()
+
+    def stop(self) -> None:
+        """Shutdown: cancel any armed timer and flush pending work."""
+        self.flush()
+        _LIVE_DEBOUNCERS.discard(self)
+
+    @property
+    def pending(self) -> bool:
+        return self._pending
+
+
+class AtomicStorage:
+    """Directory-rooted JSON store with per-key debounced persistence.
+
+    With a ``journal`` every save becomes a group-committed wal
+    append instead of an atomic rename; ``flush_all``/``stop`` compact the
+    journaled state back to the JSON files, and ``load`` registers the
+    stream first so a crash-interrupted compaction completes before the
+    read. ``journal=None`` is the legacy path, byte-for-byte."""
+
+    def __init__(self, root: str | Path, wall: bool = True, journal=None,
+                 stream_prefix: Optional[str] = None):
+        self.root = Path(root)
+        self._wall = wall
+        self._debouncers: dict[str, Debouncer] = {}
+        self._journal = journal
+        self._stream_prefix = stream_prefix or f"store:{self.root.name}"
+        self._streams: dict[str, str] = {}
+
+    def path(self, name: str) -> Path:
+        return self.root / name
+
+    def _stream(self, name: str) -> str:
+        stream = self._streams.get(name)
+        if stream is None:
+            stream = self._streams[name] = f"{self._stream_prefix}:{name}"
+            # indent=2: compaction must reproduce the exact bytes the legacy
+            # pretty-printed save wrote (the equivalence suites diff files).
+            self._journal.register_snapshot(stream, self.path(name), indent=2)
+        return stream
+
+    def save(self, name: str, obj: Any) -> None:
+        if self._journal is not None:
+            if self._journal.append(self._stream(name), obj):
+                return
+        write_json_atomic(self.path(name), obj)
+
+    def load(self, name: str, default: Any = None) -> Any:
+        if self._journal is not None:
+            self._stream(name)  # registration completes pending compaction
+        return read_json(self.path(name), default)
+
+    def save_debounced(self, name: str, supplier: Callable[[], Any], delay_s: float = 15.0) -> None:
+        deb = self._debouncers.get(name)
+        if deb is None:
+            deb = Debouncer(lambda: self.save(name, supplier()), delay_s, wall=self._wall)
+            self._debouncers[name] = deb
+        deb.trigger()
+
+    def flush_all(self) -> None:
+        for deb in self._debouncers.values():
+            deb.flush()
+        if self._journal is not None:
+            for stream in self._streams.values():
+                self._journal.compact(stream)
+
+    def stop(self) -> None:
+        for deb in self._debouncers.values():
+            deb.stop()
+        if self._journal is not None:
+            for stream in self._streams.values():
+                self._journal.compact(stream)
 
 
 def daily_jsonl_name(ts: Optional[float] = None) -> str:
