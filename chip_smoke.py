@@ -266,6 +266,31 @@ Versioned serving and the trace analyzer follow:
      hibernations and wakes, one whole audit record per evaluation, the
      analyzer's files equal; K1 = n_layers x (batches + triage forwards),
      only at buckets the kernels phase holds, K3 once per window.
+27c. cluster: the port's ``ClusterSupervisor`` (ring, lease table,
+     route log) over workers that each run the worker profile, with
+     ``fleetServing`` arming the port's ``ReplicaFleet`` on the card under
+     the supervisor. storm: 3 in-process workers, a settable clock, JAX's
+     fault plan (``cluster.route`` once, ``journal.fsync`` 5%,
+     ``journal.append`` 2% torn), 360 ops of ``generate_workload`` over 8
+     tenants, each also a stage-3 request to the fleet (3 replicas,
+     maxBatch 8); the worker hosting the fullest replica is failed over,
+     the fullest replica retired, and a survivor retired with
+     ``retire_worker`` before the final drain: every fleet verdict equal
+     to the one-shot oracle, none dropped or served twice, routed = served
+     + redelivered, every op's final observation with each denial and
+     redaction, no fenced record, ``ProtocolWitness`` clean, and each
+     tenant's tracker files byte-equal to the same storm's on the CPU
+     with no kill and no retire. process: 3 workers in their own
+     processes (``spawn``; none touches the card) and the fleet in this
+     one, 240 ops on the real clock, a SIGKILL after 120, then ``drain``:
+     one failover, every op answered (twice only with one answer), fleet
+     verdicts equal to the oracle, the children's stage timers merged, no
+     child left after ``stop``. worker_serve: two ``InProcessWorker``s
+     with ``serve_cfg`` on the card, 32 requests through each one's
+     ``gw.serve_batcher`` equal to the oracle; one's ``stop`` drains and
+     closes exactly its scope and the other still serves. No thread the
+     phase started outlives it; K1 = n_layers x batches in each leg, only
+     at buckets the kernels phase holds;
 
 27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
      state writers. The train leg trains ``triage-tiny`` at its full width
@@ -330,7 +355,7 @@ The graft entry points close it:
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle, classify,
-trace_analyzer, worker_profile, chaos and graft_entry phases included, its
+trace_analyzer, worker_profile, cluster, chaos and graft_entry phases included, its
 triage bucket
 in the trace analyzer, the tiles the block table gives the serve
 and long shapes, its head-dim-8 shapes and its shapes above head dim 128),
@@ -4475,16 +4500,22 @@ def fleet_drive(fleet, ops, delivered: dict, on_submitted=None) -> dict:
                       "tenant": f"tenant{op.tenant}"})
         if on_submitted is not None:
             on_submitted(n + 1)
-    deadline = time.perf_counter() + FLEET_WAIT_S
-    while len(delivered) < len(ops) and time.perf_counter() < deadline:
-        fleet.drain()
-        time.sleep(0.0005)
+    fleet_await(fleet, delivered, len(ops))
     end = max((d["at"] for d in delivered.values()), default=start)
     lat = [(delivered[i]["at"] - arrival[i]) * 1e3 for i in delivered
            if i in arrival]
     return {"wall_s": end - start,
             "requests_per_s": len(delivered) / max(end - start, 1e-9),
             "latency_ms": quantiles_ms(lat) if lat else None}
+
+
+def fleet_await(fleet, delivered: dict, n: int) -> None:
+    """Drain the fleet until ``n`` requests are delivered (or
+    ``FLEET_WAIT_S`` passed)."""
+    deadline = time.perf_counter() + FLEET_WAIT_S
+    while len(delivered) < n and time.perf_counter() < deadline:
+        fleet.drain()
+        time.sleep(0.0005)
 
 
 def fleet_collect(delivered: dict, counts: dict):
@@ -4627,13 +4658,14 @@ def single_batcher_leg(ops: list, oracle: dict, smi: str) -> dict:
             "k1_launches": fa.launches}
 
 
-def one_shot_oracle(texts: set, checkpoint_dir=None) -> dict:
+def one_shot_oracle(texts: set, checkpoint_dir=None, device=None) -> dict:
     """text -> verdict of the one-shot path (one forward a text) on the
-    card, the serve path's equivalence oracle."""
+    card (or ``device``), the serve path's equivalence oracle."""
     from vainplex_openclaw_tpu_torch.models import serve
 
     call = serve.make_local_call_llm(
-        checkpoint_dir, serve_cfg={"continuousBatching": False})
+        checkpoint_dir, serve_cfg={"continuousBatching": False},
+        device=device)
     return {t: call(t) for t in sorted(texts)}
 
 
@@ -5917,6 +5949,531 @@ def phase_worker_profile(smi: str) -> dict:
     return record
 
 
+# ── the cluster: supervisor, ring, workers and the fleet under them ──
+
+CLUSTER_SEED = 31
+CLUSTER_OPS = 360
+CLUSTER_TENANTS = 8
+CLUSTER_BASE_T = 1_753_772_400.0  # the storm's settable clock (s)
+CLUSTER_ROUTE_FAULT_STEP = 37
+# the worker's ack boundary is the journals' only commit trigger, so a
+# crash loses exactly the un-acked ops and redelivery replays exactly them
+CLUSTER_JOURNAL = {"maxBatchRecords": 1_000_000, "windowMs": 0.0}
+CLUSTER_FLEET = {"replicas": 3, "maxBatch": 8, "windowMs": 0.0,
+                 "ackEvery": 4}
+CLUSTER_PUMP_EVERY = 6
+CLUSTER_PROCESS_OPS = 240
+CLUSTER_PROCESS_KILL_AFTER = 120
+CLUSTER_SERVE_REQUESTS = 32
+CLUSTER_SERVE_THREADS = 8
+CLUSTER_TRACKER_FILES = ("threads.json", "decisions.json",
+                         "commitments.json")
+
+
+def cluster_ops(n: int, seed: int, root: str) -> list:
+    """``generate_workload``'s gateway mix as the cluster's ops: each op
+    routed by its tenant's workspace, its ids seeded per op."""
+    from vainplex_openclaw_tpu_torch.slo.workload import generate_workload
+
+    return [{"i": op.index, "at": CLUSTER_BASE_T + op.arrival,
+             "ws": os.path.join(root, "tenants", f"tenant{op.tenant}"),
+             "wsKey": f"tenant{op.tenant}", "kind": op.kind,
+             "content": op.content, "ids": f"{seed}:{op.index}"}
+            for op in generate_workload(seed, n, CLUSTER_TENANTS)]
+
+
+def cluster_verdicts(ops: list, results: dict, leg: str) -> dict:
+    """Every op has a final observation; each denial blocks, each secret
+    comes back redacted, nothing else blocks (the JAX storms' accounting)."""
+    missing = [op["i"] for op in ops if results.get(op["i"]) is None]
+    check(not missing, f"cluster {leg}: ops {missing[:8]} have no result")
+    kinds = {op["i"]: op["kind"] for op in ops}
+    count = {"denials": 0, "redactions": 0, "false_blocks": 0}
+    for i, kind in kinds.items():
+        obs = results[i]
+        count["denials"] += kind == "tool_denied" and bool(obs.get("blocked"))
+        count["redactions"] += (kind == "tool_secret"
+                                and bool(obs.get("redacted")))
+        count["false_blocks"] += kind == "tool_ok" and bool(obs.get("blocked"))
+    want = {"denials": sum(k == "tool_denied" for k in kinds.values()),
+            "redactions": sum(k == "tool_secret" for k in kinds.values()),
+            "false_blocks": 0}
+    check(count == want, f"cluster {leg}: verdicts {count} != {want}")
+    return count
+
+
+def cluster_tenant_files(root: str) -> dict:
+    """Root-normalized bytes of every tenant's tracker files."""
+    out = {}
+    for t in range(CLUSTER_TENANTS):
+        for name in CLUSTER_TRACKER_FILES:
+            path = os.path.join(root, "tenants", f"tenant{t}", "memory",
+                                "reboot", name)
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    out[f"tenant{t}/{name}"] = f.read().replace(
+                        root.encode(), b"ROOT")
+    return out
+
+
+def flush_cluster(sup) -> None:
+    """Deliver and commit everything, then make each live worker's tenant
+    files current (a tracker flush compacts its streams)."""
+    sup.drain()
+    for state in sup.workers().values():
+        if state.alive:
+            for trackers in list(state.handle.cortex._trackers.values()):
+                trackers.flush()
+
+
+def fleet_replica_book(fleet, book: dict) -> None:
+    """Every replica batcher the fleet has built so far, by identity: the
+    dead and the retired leave the fleet's table but keep their counts."""
+    with fleet._lock:
+        for rep in fleet._replicas.values():
+            book.setdefault(id(rep.batcher), rep.batcher)
+
+
+def cluster_fleet_audit(fleet, ops: list, delivered: dict, counts: dict,
+                        oracle: dict, leg: str) -> dict:
+    """Dropped, served twice and verdicts off the one-shot oracle; the
+    fleet's routed = served + redelivered."""
+    from types import SimpleNamespace
+
+    stats = fleet.stats()
+    audit = fleet_audit([SimpleNamespace(index=op["i"], content=op["content"])
+                         for op in ops], delivered, counts, {"v0": oracle})
+    check(audit == {"dropped": 0, "served_twice": 0,
+                    "verdict_mismatches": 0}, f"cluster {leg}: {audit}")
+    check(stats["shed"] == 0 and stats["served"] == len(ops)
+          and stats["routed"] == stats["served"] + stats["redelivered"],
+          f"cluster {leg}: fleet routed {stats['routed']}, served "
+          f"{stats['served']}, redelivered {stats['redelivered']}, shed "
+          f"{stats['shed']} of {len(ops)}")
+    return {**audit, "routed": stats["routed"], "served": stats["served"],
+            "redelivered": stats["redelivered"],
+            "fleet_failovers": [{k: f[k] for k in (
+                "worker", "replicasLost", "respawned", "redelivered")}
+                for f in stats["failovers"]]}
+
+
+def warm_replicas(book: dict, device) -> dict:
+    """One request on each replica batcher outside the counted run (its
+    collector's first batch), and each batcher's batches after it."""
+    if str(device) != "cpu":
+        for batcher in book.values():
+            batcher.submit("warm-up request")
+    return {key: b.batches for key, b in book.items()}
+
+
+def cluster_storm(device, root: str, n: int, seed: int, oracle: dict,
+                  chaos: bool, count=None) -> dict:
+    """JAX's fleet storm shape on the port: a ``ClusterSupervisor`` over 3
+    in-process workers with ``fleetServing`` armed (the port's default
+    batcher factory on ``device``), a settable clock and JAX's fault plan
+    (``cluster.route`` at one step, ``journal.fsync`` 5%,
+    ``journal.append`` 2% torn). Each op also goes to the fleet as a
+    stage-3 request. With ``chaos``: the worker hosting the fullest
+    replica is failed over, the fullest replica is retired under load,
+    and one survivor is retired with ``retire_worker`` before the final
+    drain."""
+    import random
+
+    from vainplex_openclaw_tpu_torch.analysis.witness import ProtocolWitness
+    from vainplex_openclaw_tpu_torch.cluster import ClusterSupervisor
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.resilience.faults import (FaultPlan,
+                                                               FaultSpec,
+                                                               installed)
+    from vainplex_openclaw_tpu_torch.storage.journal import reset_journals
+
+    leg = "storm" if chaos else f"storm ({device}, no chaos)"
+    reset_journals()
+    clock = VirtualClock(CLUSTER_BASE_T)
+    ws_results: dict = {}
+    delivered: dict = {}
+    counts: dict = {}
+    sup = ClusterSupervisor(
+        root, {"workers": 3, "ackEveryOps": 6, "deterministicIds": True,
+               "heartbeatMissLimit": 2, "fleetServing": True,
+               "fleet": dict(CLUSTER_FLEET)},
+        clock=clock, wall_timers=False, settable_clock=clock,
+        journal_cfg=CLUSTER_JOURNAL, logger=list_logger(),
+        on_result=lambda op, obs: ws_results.__setitem__(op["i"], obs))
+    try:
+        fleet = sup.enable_fleet(on_result=fleet_collect(delivered, counts),
+                                 device=device)
+        book: dict = {}
+        fleet_replica_book(fleet, book)
+        batches0 = warm_replicas(book, device)
+        witness = ProtocolWitness()
+        witness.arm_supervisor(sup)
+        ops = cluster_ops(n, seed, root)
+        rng = random.Random(f"clusterstorm:{seed}")
+        kill_step = rng.randrange(n // 4, n // 2) if chaos else None
+        retire_step = rng.randrange(n // 2, 3 * n // 4) if chaos else None
+        chaos_log: list = []
+        plan = FaultPlan([
+            FaultSpec("cluster.route", steps=(CLUSTER_ROUTE_FAULT_STEP,)),
+            FaultSpec("journal.fsync", rate=0.05),
+            FaultSpec("journal.append", rate=0.02, mode="torn")], seed=seed)
+        launches0 = count(reset=True) if count is not None else None
+        t0 = time.perf_counter()
+        with installed(plan):
+            for step, op in enumerate(ops):
+                sup.submit(op)
+                sup.tick()
+                fleet.submit({"i": step, "text": op["content"],
+                              "tenant": op["wsKey"], "at": clock.t})
+                if step == kill_step:
+                    occ = fleet.occupancy()
+                    rid = max(sorted(occ), key=lambda r: occ[r]["pending"])
+                    worker = occ[rid]["workerId"]
+                    chaos_log.append({"chaos": "kill", "step": step,
+                                      "rid": rid, "worker": worker,
+                                      "pending": occ[rid]["pending"]})
+                    sup.failover(worker, reason="chaos kill")
+                    fleet_replica_book(fleet, book)
+                if step == retire_step:
+                    occ = fleet.occupancy()
+                    live = [r for r in sorted(occ) if occ[r]["alive"]]
+                    rid = max(live, key=lambda r: (occ[r]["pending"], r))
+                    chaos_log.append({"chaos": "retire_replica",
+                                      "step": step, "rid": rid,
+                                      "pending": occ[rid]["pending"]})
+                    fleet.retire_replica(rid, reason="chaos scale-down")
+                if step % CLUSTER_PUMP_EVERY == CLUSTER_PUMP_EVERY - 1:
+                    fleet.pump()
+        # the planned retirement runs after the fault plan: a write fault
+        # at its barrier would abort a handoff, and the worker would stay
+        if chaos:
+            survivor = sup.stats()["membership"]["live"][0]
+            chaos_log.append({"chaos": "retire_worker", "worker": survivor,
+                              **sup.retire_worker(survivor)})
+            fleet_replica_book(fleet, book)
+        fleet_await(fleet, delivered, n)
+        flush_cluster(sup)
+        wall = time.perf_counter() - t0
+        launches = count() if count is not None else None
+        audit = cluster_fleet_audit(fleet, ops, delivered, counts, oracle,
+                                    leg)
+        verdicts = cluster_verdicts(ops, ws_results, leg)
+        stats = sup.stats()
+        check(stats["fencedRecords"] == 0,
+              f"cluster {leg}: {stats['fencedRecords']} fenced records")
+        violations = witness.violations()
+        check(not violations, f"cluster {leg}: protocol {violations[:3]}")
+        if chaos:
+            check(len(stats["failovers"]) == 1 and stats["membership"][
+                "dead"] == [chaos_log[0]["worker"]]
+                and stats["membership"]["retired"] == [survivor]
+                and chaos_log[-1]["retired"],
+                f"cluster {leg}: membership {stats['membership']}, "
+                f"failovers {len(stats['failovers'])}, {chaos_log}")
+        timer = sup.timer.snapshot()
+        fired = dict(plan.fired)
+    finally:
+        sup.stop()
+        reset_journals()
+    batches = sum(b.batches - batches0.get(key, 0)
+                  for key, b in book.items())
+    return {"leg": leg, "device": str(device), "ops": n, "wall_s": wall,
+            "ops_per_s": n / wall, "chaos": chaos_log, "fired": fired,
+            **verdicts, **audit, "batches": batches,
+            "replicas_built": len(book),
+            "launches": (None if launches is None else
+                         {k: launches[k] - launches0[k] for k in launches}),
+            "route_ms": timer["stages_ms"].get("route"),
+            "recover_ms": timer["stages_ms"].get("recover"),
+            "rebalance_ms": timer["stages_ms"].get("rebalance"),
+            "handoff_ms": timer["stages_ms"].get("handoff"),
+            "stage_counts": timer["counts"],
+            "failovers": [{k: f[k] for k in (
+                "worker", "workspacesMoved", "replayedRecords",
+                "redelivered", "durationMs")} for f in stats["failovers"]],
+            "handoffs": [{k: h[k] for k in (
+                "ws", "from", "to", "replayedRecords", "redelivered",
+                "durationMs")} for h in stats["handoffs"]],
+            "route_faults": stats["routeFaults"],
+            "redelivered_ops": stats["redelivered"],
+            "leases": {os.path.basename(ws): lease["epoch"]
+                       for ws, lease in stats["leases"].items()},
+            "tenant_files": cluster_tenant_files(root)}
+
+
+def cluster_process(device, root: str, n: int, kill_after: int, seed: int,
+                    oracle: dict, count=None) -> dict:
+    """``worker_mode="process"``: 3 workers in their own processes (none
+    touches the card), the fleet's replicas in this one on ``device``, on
+    the real clock; a real SIGKILL of one worker after ``kill_after`` ops,
+    then ``drain``. Every op answers (a redelivered op may answer twice,
+    with the same answer), the fleet's verdicts equal the oracle, the
+    children's stage timers merge, and ``stop`` leaves no child."""
+    import multiprocessing as mp
+
+    from vainplex_openclaw_tpu_torch.cluster import ClusterSupervisor
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+
+    answers: dict = {}
+    delivered: dict = {}
+    counts: dict = {}
+    t_start = time.perf_counter()
+    sup = ClusterSupervisor(
+        root, {"workers": 3, "ackEveryOps": 4, "heartbeatDeadlineS": 5.0,
+               "fleetServing": True, "fleet": dict(CLUSTER_FLEET)},
+        worker_mode="process", journal_cfg={"fsync": "os"},
+        logger=list_logger(),
+        on_result=lambda op, obs: answers.setdefault(op["i"], []).append(
+            obs))
+    procs = [s.handle.proc for s in sup.workers().values()]
+    try:
+        fleet = sup.enable_fleet(on_result=fleet_collect(delivered, counts),
+                                 device=device)
+        book: dict = {}
+        fleet_replica_book(fleet, book)
+        batches0 = warm_replicas(book, device)
+        ops = cluster_ops(n, seed, root)
+        launches0 = count(reset=True) if count is not None else None
+        start_s = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        victim, kill_ms = None, None
+        for step, op in enumerate(ops):
+            if step == kill_after:
+                victim = sup.stats()["membership"]["live"][0]
+                t_kill = time.perf_counter()
+                sup.workers()[victim].handle.kill()
+                sup.tick()
+                kill_ms = (time.perf_counter() - t_kill) * 1e3
+                fleet_replica_book(fleet, book)
+            sup.submit(op)
+            sup.tick()
+            fleet.submit({"i": step, "text": op["content"],
+                          "tenant": op["wsKey"]})
+            if step % CLUSTER_PUMP_EVERY == CLUSTER_PUMP_EVERY - 1:
+                fleet.pump()
+        sup.drain(timeout_s=60.0)
+        fleet_await(fleet, delivered, n)
+        wall = time.perf_counter() - t0
+        launches = count() if count is not None else None
+        stats = sup.stats()
+        check(len(stats["failovers"]) == 1
+              and stats["membership"]["dead"] == [victim],
+              f"cluster process: failovers {len(stats['failovers'])}, "
+              f"membership {stats['membership']}")
+        split = [i for i, obs in answers.items()
+                 if any(o != obs[0] for o in obs)]
+        check(not split, f"cluster process: ops {split[:8]} answered "
+                         "differently twice")
+        verdicts = cluster_verdicts(ops, {i: obs[-1] for i, obs in
+                                          answers.items()}, "process")
+        audit = cluster_fleet_audit(fleet, ops, delivered, counts, oracle,
+                                    "process")
+        failover = stats["failovers"][0]
+    finally:
+        sup.stop()
+    edges = sup.stage_snapshots()
+    check("cluster" in edges and len(edges) > 1,
+          f"cluster process: stage_snapshots merged only {sorted(edges)}")
+    left = [p.name for p in procs if p.is_alive()] + [
+        p.name for p in mp.active_children() if p.name.startswith("cluster-")]
+    check(not left, f"cluster process: children left after stop: {left}")
+    batches = sum(b.batches - batches0.get(key, 0)
+                  for key, b in book.items())
+    return {"leg": "process", "device": str(device), "ops": n,
+            "start_s": start_s, "wall_s": wall, "ops_per_s": n / wall,
+            "victim": victim, "kill_ms": kill_ms,
+            "failover_ms": failover["durationMs"],
+            "failover": {k: failover[k] for k in (
+                "workspacesMoved", "replayedRecords", "redelivered")},
+            "answered_twice": sum(1 for obs in answers.values()
+                                  if len(obs) > 1),
+            **verdicts, **audit, "batches": batches,
+            "merged_edges": len(edges),
+            "merged_edge_kinds": sorted({e.split(":")[0] for e in edges}),
+            "launches": (None if launches is None else
+                         {k: launches[k] - launches0[k] for k in launches})}
+
+
+def cluster_worker_serve(device, root: str, n: int, oracle: dict,
+                         count=None) -> dict:
+    """Two ``InProcessWorker``s, each with ``serve_cfg`` (the shipped
+    checkpoint, ``SERVE_DEFAULTS``) on ``device``: ``n`` requests through
+    each worker's ``gw.serve_batcher`` from several threads equal the
+    oracle; ``stop()`` of one drains and closes exactly its scope (the
+    requests it held are answered), and the other still serves."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vainplex_openclaw_tpu_torch.cluster import InProcessWorker
+    from vainplex_openclaw_tpu_torch.models import serve
+
+    texts = [f"worker {w} request {i}: {t}" for w in ("a", "b")
+             for i, t in enumerate(seeded_texts(n, CLUSTER_SEED))]
+    oracle.update(one_shot_oracle(set(texts) - set(oracle), device=device))
+    workers = [InProcessWorker(wid, os.path.join(root, wid),
+                               journal_cfg=CLUSTER_JOURNAL, serve_cfg={},
+                               device=device)
+               for wid in ("wa", "wb")]
+    a, b = workers
+    try:
+        batchers = [w.gw.serve_batcher for w in workers]
+        for batcher in batchers if str(device) != "cpu" else ():
+            batcher.submit("warm-up request")
+        batches0 = [bt.batches for bt in batchers]
+        launches0 = count(reset=True) if count is not None else None
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CLUSTER_SERVE_THREADS) as pool:
+            got = [list(pool.map(bt.submit, texts[k * n:(k + 1) * n]))
+                   for k, bt in enumerate(batchers)]
+        wall = time.perf_counter() - t0
+        wrong = sum(1 for k in range(2) for t, v in zip(
+            texts[k * n:(k + 1) * n], got[k]) if v != oracle[t])
+        check(wrong == 0, f"cluster worker_serve: {wrong} verdicts off the "
+                          "oracle")
+        held = [batchers[0].enqueue(t) for t in texts[:4]]
+        a.stop()
+        with serve._batchers_lock:
+            scopes = sorted({key[0] for key in serve._batchers})
+        check(batchers[0]._closed and not batchers[1]._closed
+              and a.serve_scope not in scopes and b.serve_scope in scopes,
+              f"cluster worker_serve: after wa.stop() scopes {scopes}, "
+              f"closed {[bt._closed for bt in batchers]}")
+        check(all(tk.done.is_set() and tk.result == oracle[t]
+                  for tk, t in zip(held, texts[:4])),
+              "cluster worker_serve: wa.stop() did not drain its queue")
+        after = batchers[1].submit(texts[n])
+        check(after == oracle[texts[n]],
+              "cluster worker_serve: wb stopped serving with wa")
+        launches = count() if count is not None else None
+    finally:
+        for w in workers:
+            w.stop()
+    batches = sum(bt.batches - b0 for bt, b0 in zip(batchers, batches0))
+    return {"leg": "worker_serve", "device": str(device),
+            "requests": 2 * n + len(held) + 1, "wall_s": wall,
+            "requests_per_s": 2 * n / wall, "batches": batches,
+            "scopes": [w.serve_scope.replace(root, "<root>")
+                       for w in workers],
+            "launches": (None if launches is None else
+                         {k: launches[k] - launches0[k] for k in launches})}
+
+
+def cluster_threads(before: set, wait_s: float = 5.0) -> list:
+    """Names of the threads started since ``before`` still alive after up
+    to ``wait_s``."""
+    deadline = time.perf_counter() + wait_s
+    while True:
+        left = [t for t in threading.enumerate()
+                if t.ident not in before and t.is_alive()]
+        if not left or time.perf_counter() > deadline:
+            return [t.name for t in left]
+        time.sleep(0.05)
+
+
+def cluster_legs(device, root: str, n_storm: int = CLUSTER_OPS,
+                 n_process: int = CLUSTER_PROCESS_OPS,
+                 kill_after: int = CLUSTER_PROCESS_KILL_AFTER,
+                 n_serve: int = CLUSTER_SERVE_REQUESTS,
+                 count=None) -> dict:
+    """The cluster phase's three legs on ``device``, and the storm once
+    more on the CPU with no kill and no retire, whose tenant files the
+    chaos storm's must equal; at the end no thread the legs started is
+    left."""
+    before = {t.ident for t in threading.enumerate()}
+    storm_ops = cluster_ops(n_storm, CLUSTER_SEED, root)
+    process_ops = cluster_ops(n_process, CLUSTER_SEED + 1, root)
+    t = time.perf_counter()
+    oracle = one_shot_oracle({op["content"] for op in storm_ops + process_ops},
+                             device=device)
+    oracle_s = time.perf_counter() - t
+    storm = cluster_storm(device, os.path.join(root, "storm"), n_storm,
+                          CLUSTER_SEED, oracle, chaos=True, count=count)
+    host = cluster_storm("cpu", os.path.join(root, "host"), n_storm,
+                         CLUSTER_SEED, oracle, chaos=False)
+    files, host_files = storm["tenant_files"], host["tenant_files"]
+    differ = sorted(k for k in set(files) | set(host_files)
+                    if files.get(k) != host_files.get(k))
+    check(files and not differ, f"cluster storm: tenant files {differ} "
+          "differ from the CPU storm's with no kill and no retire")
+    process = cluster_process(device, os.path.join(root, "process"),
+                              n_process, kill_after, CLUSTER_SEED + 1,
+                              oracle, count)
+    worker_serve = cluster_worker_serve(device, os.path.join(root, "serve"),
+                                        n_serve, oracle, count)
+    left = cluster_threads(before)
+    check(not left, f"cluster: threads left after the phase: {left}")
+    return {"storm": storm, "host_storm": host, "process": process,
+            "worker_serve": worker_serve, "oracle_s": oracle_s}
+
+
+def phase_cluster(smi: str) -> dict:
+    """The port's cluster on the card: a ``ClusterSupervisor`` with its
+    ring, lease table and workers (each the port's worker profile), and
+    ``fleetServing`` arming the port's ``ReplicaFleet`` on cuda:0 under
+    the supervisor's failover and retirement. Three legs (``storm``,
+    ``process``, ``worker_serve``, see :func:`cluster_legs`); K1 = n_layers
+    x the batches of every replica batcher of each leg, at buckets the
+    kernels phase holds."""
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg, _ = load_pretrained()
+    buckets: list = []
+    forward = fa._forward
+
+    def count(reset: bool = False) -> dict:
+        torch.cuda.synchronize()
+        if reset:
+            fa.launches = 0
+        return {"k1": fa.launches}
+
+    def record_bucket(q, *args, **kwargs):
+        if q.is_cuda:
+            buckets.append(list(q.shape))
+        return forward(q, *args, **kwargs)
+
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["OPENCLAW_HOME"] = os.path.join(root, "home")
+        fa._forward = record_bucket
+        try:
+            legs = cluster_legs(None, root, count=count)
+        finally:
+            fa._forward = forward
+            serve.close_batchers()
+            if saved_home is None:
+                os.environ.pop("OPENCLAW_HOME", None)
+            else:
+                os.environ["OPENCLAW_HOME"] = saved_home
+    k1 = {}
+    for name in ("storm", "process", "worker_serve"):
+        leg = legs[name]
+        k1[name] = leg["launches"]["k1"]
+        check(k1[name] == cfg.n_layers * leg["batches"],
+              f"cluster {name}: K1 launches {k1[name]} != {cfg.n_layers} "
+              f"layers x {leg['batches']} batches")
+    shapes = [list(s) for s in dict.fromkeys(map(tuple, buckets))]
+    unheld = trace_k1_unheld(shapes)
+    check(not unheld, f"cluster: K1 launched at {unheld}, which no kernels "
+                      "case holds against the plain version")
+    storm, process = legs["storm"], legs["process"]
+    host = legs.pop("host_storm")
+    storm.pop("tenant_files")
+    record = {"phase": "cluster", "nvidia_smi": smi,
+              "tenant_files_equal_cpu": len(host.pop("tenant_files")),
+              "host_storm_ops_per_s": host["ops_per_s"],
+              "host_storm_batches": host["batches"],
+              **legs, "k1_launches": sum(k1.values()), "k1_by_leg": k1,
+              "k1_shapes": shapes, "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 # ── chaos: fault plans on the checkpoint and state writers ───────────
 
 CHAOS_STEPS = 60
@@ -6748,6 +7305,7 @@ def main() -> int:
         classified = phase_classify(info["nvidia_smi"])
         traced = phase_trace_analyzer(info["nvidia_smi"])
         worker = phase_worker_profile(info["nvidia_smi"])
+        cluster = phase_cluster(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
@@ -6802,6 +7360,7 @@ def main() -> int:
             "trace_analyzer": sum(traced[run]["card"]["k1_launches"]
                                   for run in TRACE_RUNS),
             "worker_profile": worker["k1_launches"],
+            "cluster": cluster["k1_launches"],
             "chaos": chaos["train"]["k1_launches"]
             + chaos["trace"]["rerun"]["cuda"]["k1_launches"],
             "graft_entry": graft["entry"]["k1_launches"],

@@ -13,12 +13,21 @@ Beside the builds the witness reads the kernels' launch counters
 ``stats_launches`` and K3's ``similarity.launches``), so that a timed
 phase can pin its launches to a formula, such as steps × rounds
 (:meth:`RetraceWitness.launched`). Launches never count against a build
-budget. The lock-order and protocol witnesses of the JAX module
-are framework tools that import no JAX and are not copied.
+budget.
+
+:class:`ProtocolWitness` is a copy of the JAX module's, under the same
+name: it records the cluster's grant/recover/deliver/release/handoff
+event sequence of a real run (the port's ``ClusterSupervisor`` and its
+workers) and asserts the protocol's order invariants over it: grants
+advance the epoch strictly, traffic never precedes recovery at the
+granted epoch, and a handoff never regrants before the release barrier
+returned. The lock-order witness of the JAX module is a framework tool
+that imports no JAX; the port's tests use it as it is.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional
 
 
@@ -29,6 +38,148 @@ def launch_counters() -> dict:
 
     return {"k1": lambda: fa.launches, "k2": lambda: fa.stats_launches,
             "k3": lambda: sim.launches}
+
+
+class ProtocolWitness:
+    """Records the cluster's protocol event sequence and answers whether
+    the dynamic order honored the protocol's order invariants.
+
+    Wrap with :meth:`arm_supervisor` (leases + every current worker handle
+    + the handoff entry point); call it again after membership changes
+    that build new handles (a second supervisor generation). Recording is
+    append-only and lock-cheap: test and storm freight, which nothing
+    imports at serving time.
+
+    Events recorded (each ``(kind, ws, info)``):
+
+    - ``grant``    — LeaseTable.grant returned ``info["epoch"]``
+    - ``recover``  — a worker's add_workspace(ws, epoch) returned
+    - ``deliver``  — a worker finished delivering ``info["seq"]``
+    - ``release``  — release_workspace(ws) returned (barrier success)
+    - ``handoff``/``handoff-end`` — the supervisor's handoff window
+    """
+
+    def __init__(self):
+        self._mutex = threading.Lock()
+        self.events: list = []
+
+    def note(self, kind: str, ws, **info) -> None:
+        with self._mutex:
+            self.events.append((kind, str(ws) if ws is not None else None,
+                                info))
+
+    # ── arming ───────────────────────────────────────────────────────
+
+    def _wrap(self, obj, attr, record):
+        fn = getattr(obj, attr)
+        if getattr(fn, "_proto_witnessed", False):
+            return
+
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            record(out, *args, **kwargs)
+            return out
+
+        wrapped._proto_witnessed = True
+        wrapped.__wrapped__ = fn
+        setattr(obj, attr, wrapped)
+
+    def arm_supervisor(self, sup) -> None:
+        """Wrap the supervisor's lease grants, handoff window, and every
+        CURRENT worker handle's protocol methods. Idempotent per object;
+        re-call after adding workers or adopting a new generation."""
+        self._wrap(sup.leases, "grant",
+                   lambda epoch, ws, wid: self.note("grant", ws,
+                                                    epoch=epoch, owner=wid))
+        fn = sup.handoff
+        if not getattr(fn, "_proto_witnessed", False):
+            def handoff(ws, *a, _fn=fn, **kw):
+                self.note("handoff", ws)
+                try:
+                    return _fn(ws, *a, **kw)
+                finally:
+                    self.note("handoff-end", ws)
+            handoff._proto_witnessed = True
+            handoff.__wrapped__ = fn
+            sup.handoff = handoff
+        for state in sup.workers().values():
+            self.arm_worker(state.handle)
+
+    def arm_worker(self, handle) -> None:
+        self._wrap(handle, "add_workspace",
+                   lambda out, ws, epoch: self.note("recover", ws,
+                                                    epoch=epoch))
+        self._wrap(handle, "deliver",
+                   lambda out, seq, op: self.note(
+                       "deliver", op.get("ws"), seq=seq,
+                       content=op.get("content"),
+                       worker=handle.worker_id))
+        self._wrap(handle, "release_workspace",
+                   lambda out, ws: self.note("release", ws))
+
+    # ── the order rules ──────────────────────────────────────────────
+
+    def violations(self) -> list:
+        """Order-invariant breaches over the recorded sequence, each a
+        ``(invariant, message)`` pair; empty list = the dynamic schedule
+        honored the table."""
+        with self._mutex:
+            events = list(self.events)
+        out: list = []
+        last_epoch: dict = {}        # ws -> last granted epoch
+        recovered_at: dict = {}      # ws -> epoch recovery last returned for
+        # Handoff windows are tracked PER WORKSPACE (a depth count plus a
+        # released-in-window mark), not as one LIFO stack: concurrent
+        # handoffs of different workspaces interleave their events, and a
+        # shared stack would attribute ws A's release to whichever window
+        # happened to be on top.
+        open_windows: dict = {}      # ws -> open handoff window depth
+        released: set = set()        # ws whose open window saw its release
+        for kind, ws, info in events:
+            if kind == "grant":
+                epoch = info.get("epoch")
+                prev = last_epoch.get(ws)
+                if prev is not None and epoch <= prev:
+                    out.append((
+                        "epoch-monotonic",
+                        f"grant({ws}) returned epoch {epoch} after {prev} — "
+                        f"epochs must advance strictly"))
+                last_epoch[ws] = epoch
+                if open_windows.get(ws, 0) > 0 and ws not in released:
+                    out.append((
+                        "barrier-before-regrant",
+                        f"handoff({ws}) regranted before the release "
+                        f"barrier returned"))
+            elif kind == "recover":
+                recovered_at[ws] = info.get("epoch")
+            elif kind == "deliver":
+                if ws in last_epoch \
+                        and recovered_at.get(ws) != last_epoch[ws]:
+                    out.append((
+                        "fence-before-traffic",
+                        f"deliver({ws}, seq={info.get('seq')}) before "
+                        f"recovery at epoch {last_epoch[ws]} returned "
+                        f"(recovered at {recovered_at.get(ws)})"))
+            elif kind == "release":
+                if open_windows.get(ws, 0) > 0:
+                    released.add(ws)
+            elif kind == "handoff":
+                open_windows[ws] = open_windows.get(ws, 0) + 1
+                released.discard(ws)
+            elif kind == "handoff-end":
+                depth = open_windows.get(ws, 0)
+                if depth <= 1:
+                    open_windows.pop(ws, None)
+                else:
+                    open_windows[ws] = depth - 1
+                released.discard(ws)
+        return out
+
+    def assert_clean(self) -> None:
+        violations = self.violations()
+        if violations:
+            pretty = "; ".join(f"[{inv}] {msg}" for inv, msg in violations)
+            raise AssertionError(f"protocol order violated: {pretty}")
 
 
 class RetraceWitness:

@@ -40,7 +40,7 @@ from typing import Callable, Optional
 import torch
 
 from ..config.loader import deep_merge
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, is_device_error, resolve_device
 from ..parallel.mesh import _factor, available_devices, cached_mesh
 from ..parallel.plan import preferred_mesh_shape, searched_plans_enabled
 from ..resilience.admission import AdmissionController
@@ -194,7 +194,9 @@ def close_batchers(scope: Optional[str] = None, drain: bool = False) -> None:
     replica-retirement path. ``drain=True`` serves what is still queued
     before closing, so a planned retirement strands no accepted request;
     a crash path keeps ``drain=False`` and lets fleet redelivery re-route
-    the queue."""
+    the queue. A drain that fails with an error of the device
+    (``device.is_device_error``) is raised once every batcher is closed;
+    any other drain error is passed over, as in the JAX package."""
     with _batchers_lock:
         if scope is None:
             items = list(_batchers.items())
@@ -203,13 +205,17 @@ def close_batchers(scope: Optional[str] = None, drain: bool = False) -> None:
             items = [(k, v) for k, v in _batchers.items() if k[0] == scope]
             for k, _ in items:
                 del _batchers[k]
+    device_error = None
     for _, b in items:
         if drain:
             try:
                 b.drain()
-            except Exception:  # noqa: BLE001 — teardown must reach close()
-                pass
+            except Exception as exc:  # noqa: BLE001 — teardown must reach close()
+                if device_error is None and is_device_error(exc):
+                    device_error = exc
         b.close()
+    if device_error is not None:
+        raise device_error
 
 
 # Collector threads are daemons, but one parked inside a device call during

@@ -1,11 +1,12 @@
 """Deterministic workload generation for the fleet SLO harness.
 
 A copy of ``vainplex_openclaw_tpu/slo/workload.py``'s ``Op``,
-``generate_fleet_workload``, ``generate_serve_texts`` and
-``workload_digest`` (with the phrase tables they draw from), kept here so
-the port imports nothing of the JAX package. Everything is a pure function
-of the seed, and the same seed draws byte-identical traffic in both
-packages. ``generate_workload`` (the gateway mix) is not ported yet.
+``generate_workload`` (the gateway mix every cluster storm draws its ops
+from), ``generate_fleet_workload``, ``generate_serve_texts`` and
+``workload_digest`` (with the phrase, path and kind tables they draw
+from), kept here so the port imports nothing of the JAX package.
+Everything is a pure function of the seed, and the same seed draws
+byte-identical traffic in both packages.
 """
 
 from __future__ import annotations
@@ -69,6 +70,19 @@ ALL_LANGS = tuple(LANG_PHRASES)
 # sequences keep the folding/prefilter path honest about non-BMP input.
 _EMOJI = ("🚀", "✅", "⚠️", "👩🏽‍💻", "𝕬𝖇𝖈", "🔥🔥", "…—…")
 
+SAFE_PATHS = ("README.md", "src/app.py", "docs/plan.md", "notes/today.txt")
+# Every entry must trip the builtin credential guard (\.(env|pem|key)$ or a
+# credentials/secrets path segment): a storm pins observed == expected
+# denials, so a path the guard ignores would read as a verdict loss.
+DENIED_PATHS = ("/home/user/.env", "secrets.pem", "config/credentials.json",
+                "deploy/prod.key")
+
+# (kind, cumulative probability). Verdict-bearing kinds: tool_ok and
+# tool_denied go through before_tool_call, tool_secret through
+# tool_result_persist, all on NEVER_SHED hooks.
+_KIND_CDF = (("msg_in", 0.42), ("msg_out", 0.68), ("tool_ok", 0.83),
+             ("tool_denied", 0.91), ("tool_secret", 1.0))
+
 
 @dataclass
 class Op:
@@ -88,6 +102,13 @@ class Op:
         return base + (self.pack,) if self.pack else base
 
 
+def _pick_kind(r: float) -> str:
+    for kind, cum in _KIND_CDF:
+        if r < cum:
+            return kind
+    return _KIND_CDF[-1][0]
+
+
 def _message(rng: random.Random, lang: str, i: int) -> str:
     phrases = LANG_PHRASES[lang]
     r = rng.random()
@@ -104,6 +125,52 @@ def _message(rng: random.Random, lang: str, i: int) -> str:
     if rng.random() < 0.22:
         body += " " + rng.choice(_EMOJI)
     return body
+
+
+def generate_workload(seed: int = 0, n_ops: int = 2000,
+                      tenants: int = 4, uniform_tenants: bool = False) -> list:
+    """Deterministic op list, sorted by unit-rate arrival time.
+
+    ``uniform_tenants`` flattens the zipf tenant skew (with many uniform
+    workspaces, a cluster's measured efficiency attributes to ring balance
+    and routing overhead rather than to one deliberately heavy tenant that
+    no sharding could split). Draw count is identical either way, so the
+    default workloads do not depend on it."""
+    rng = random.Random(f"slo:{seed}")
+    weights = ([1.0] * tenants if uniform_tenants
+               else [1.0 / (i + 1) ** 1.1 for i in range(tenants)])  # skewed
+    total_w = sum(weights)
+    ops: list[Op] = []
+    t = 0.0
+    burst_left = 0
+    for i in range(n_ops):
+        if burst_left > 0:
+            burst_left -= 1
+            t += rng.expovariate(1.0) * 0.04   # inside a burst: ~25x rate
+        elif rng.random() < 0.10:
+            burst_left = rng.randint(4, 16)    # burst begins
+            t += rng.expovariate(1.0)
+        else:
+            t += rng.expovariate(1.0)
+        r = rng.random() * total_w
+        tenant = tenants - 1
+        for ti, w in enumerate(weights):
+            if r < w:
+                tenant = ti
+                break
+            r -= w
+        kind = _pick_kind(rng.random())
+        lang = rng.choice(ALL_LANGS)
+        if kind in ("msg_in", "msg_out"):
+            content = _message(rng, lang, i)
+        elif kind == "tool_ok":
+            content = rng.choice(SAFE_PATHS)
+        elif kind == "tool_denied":
+            content = rng.choice(DENIED_PATHS)
+        else:  # tool_secret: a credential that MUST come back redacted
+            content = f"export API_KEY=sk-{'a' * 20}{i % 10}"
+        ops.append(Op(i, t, tenant, kind, lang, content))
+    return ops
 
 
 def generate_fleet_workload(seed: int = 0, n_ops: int = 2000,
