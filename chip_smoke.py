@@ -291,6 +291,37 @@ Versioned serving and the trace analyzer follow:
      closes exactly its scope and the other still serves. No thread the
      phase started outlives it; K1 = n_layers x batches in each leg, only
      at buckets the kernels phase holds;
+27d. knowledge_slo: the five-plugin gateway of JAX's SLO harness
+     (``slo.harness._build_gateway``: governance with redaction, the
+     event store on a memory transport, cortex, the knowledge engine,
+     sitrep; virtual clock, wall timers off) on the port, with the
+     knowledge engine's local embeddings on the card. ``generate_workload``
+     (seed 0, 4 tenants) through ``dispatch_op`` until the fact store
+     holds its default cap of 2000 facts; a maintenance sync (K1 at
+     B=2048); 32 seeded ``/knowledge <query>`` commands (B=1 each); 500
+     more ops, whose new facts prune old ones; a second sync, which removes
+     the pruned facts from the arena, while a thread runs 16 queries; a
+     decay tick. Held against the same run on the CPU: the fact files and
+     the facts as JSON, every event on the memory transport (subject and
+     envelope; a ``uuid4`` event id as such), each sync's count, the
+     removals, the /knowledge fact lines, and each query's hits: each
+     card hit's score within 5e-2 of the CPU's score of that fact (the
+     bf16 tolerance ``tests/test_torch_triage_embeddings.py`` holds the
+     vectors to), and a hit that is not the CPU's at its rank scoring on
+     the CPU within 5e-2 of the CPU's hit (facts tied in bf16 noise may
+     trade ranks; the count of queries whose ids match in order is
+     printed); K1 = n_layers x (sync forwards + uncached query forwards),
+     only at buckets the kernels phase holds; K1 at the first sync's
+     bucket timed beside its bound, plain version and SDPA. Then
+     ``run_slo_report`` with ``device=None`` at ``bench.py``'s
+     ``bench_slo_report`` settings (2000 ops, seed 0, 6 tenants, wall,
+     admission, watermark 32) at saturation 1.0, 2.0 and with 2 workers at
+     1.0: no verdict lost, no false block, the observed denials and
+     redactions equal to the expected (each above 0), at 2.0 shedding
+     above 0 and equal to the sitrep's; and the sim report (seed 11, 260
+     ops, 4 tenants, saturation 2.0) on the card equal to the CPU's as
+     sorted JSON. NATS is not driven (the card's machine has no client
+     package; the phase's line says whether one is installed);
 
 27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
      state writers. The train leg trains ``triage-tiny`` at its full width
@@ -355,9 +386,9 @@ The graft entry points close it:
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle, classify,
-trace_analyzer, worker_profile, cluster, chaos and graft_entry phases included, its
-triage bucket
-in the trace analyzer, the tiles the block table gives the serve
+trace_analyzer, worker_profile, cluster, knowledge_slo, chaos and
+graft_entry phases included, its triage bucket
+in the trace analyzer, its knowledge sync bucket, the tiles the block table gives the serve
 and long shapes, its head-dim-8 shapes and its shapes above head dim 128),
 K2 (with its head-dim-8 and wide shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
 with its L=128 figures and the trace analyzer's window beside them, and
@@ -489,6 +520,13 @@ TRACE_TRIAGE_CASES = [
 WORKER_SERVE_CASES = [(f"worker_serve_b{B}", B, 4, 64, 64, 16, False, "prefix")
                       for B in (1, 2, 4, 8, 16)]
 
+# the knowledge_slo phase's embedding syncs: the pow2 bucket of the 2000
+# facts at maxFacts, then of the 214 new ones after 500 more ops (its
+# queries run at B=1, a worker_serve case); the phase fails if a sync
+# launches K1 at a bucket that no case holds
+KNOWLEDGE_SYNC_CASES = [(f"knowledge_sync_b{B}", B, 4, 64, 64, 16, False,
+                         "prefix") for B in (2048, 256)]
+
 KERNEL_CASES = [
     ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
     ("encoder_default_width", 32, 8, 128, 128, 32, False, "prefix"),
@@ -551,7 +589,7 @@ KERNEL_CASES = [
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
 ] + (WIDE_CASES + WIDE_STREAMED_Q_CASES + TRACE_TRIAGE_CASES
-     + WORKER_SERVE_CASES)
+     + WORKER_SERVE_CASES + KNOWLEDGE_SYNC_CASES)
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -6474,6 +6512,431 @@ def phase_cluster(smi: str) -> dict:
     return record
 
 
+# ── knowledge_slo: the five-plugin gateway, knowledge on the card ────
+
+KNOWLEDGE_SEED = 0          # generate_workload's seed, and the id RNG's
+KNOWLEDGE_TENANTS = 4
+KNOWLEDGE_FILL_MAX = 20_000  # ops the fill may take before the phase fails
+KNOWLEDGE_MORE_OPS = 500
+KNOWLEDGE_QUERIES = 32
+KNOWLEDGE_THREAD_QUERIES = 16  # during the second sync: half repeats
+KNOWLEDGE_QUERY_SEED = 43
+# scores card vs CPU: tests/test_torch_triage_embeddings.py's tolerance
+# for the bf16 LocalEmbeddings vectors (unit vectors, so it bounds a
+# score's difference too)
+KNOWLEDGE_SCORE_TOL = 5e-2
+KNOWLEDGE_STAGES = ("extract", "sync", "search", "decay")
+# bench.py's bench_slo_report settings, and JAX's sim test size
+SLO_BENCH = {"n_ops": 2000, "seed": 0, "tenants": 6, "saturation": 1.0,
+             "mode": "wall", "admission": True, "watermark": 32}
+SLO_LEGS = (("saturation_1", {}), ("saturation_2", {"saturation": 2.0}),
+            ("workers_2", {"workers": 2}))
+SLO_SIM = {"seed": 11, "n_ops": 260, "tenants": 4, "saturation": 2.0,
+           "mode": "sim"}
+
+
+def knowledge_queries(n: int, seed: int) -> list:
+    """Seeded ``/knowledge`` queries: half name an item the workload's
+    messages mention ("item 17"), half are the first words of another
+    seed's messages."""
+    import random
+
+    from vainplex_openclaw_tpu_torch.slo.workload import generate_workload
+
+    rng = random.Random(seed)
+    texts = [op.content for op in generate_workload(seed, 4 * n, 4)
+             if op.kind in ("msg_in", "msg_out")]
+    return [f"item {rng.randrange(6000)}" if i % 2 == 0
+            else " ".join(rng.choice(texts).split()[:4]) for i in range(n)]
+
+
+def knowledge_events(transport) -> list:
+    """``[subject, envelope]`` of every event the memory transport holds,
+    in publish order (its sequence included). A message without a stable
+    id gets a ``uuid4`` event id (in the JAX package too), which is
+    replaced by ``"uuid"``."""
+    out = []
+    for subject, event, _ in list(transport._events):
+        env = event.to_dict()
+        if not str(env["id"]).startswith("evt-"):
+            env["id"] = "uuid"
+        out.append([subject, env])
+    return out
+
+
+def knowledge_run(device, root: str, more_ops: int = KNOWLEDGE_MORE_OPS,
+                  n_queries: int = KNOWLEDGE_QUERIES,
+                  n_thread: int = KNOWLEDGE_THREAD_QUERIES,
+                  count=None) -> dict:
+    """One run of the knowledge leg on ``device``: JAX's five-plugin
+    gateway (``slo.harness._build_gateway``: virtual clock, wall timers
+    off) fed ``generate_workload`` through ``dispatch_op`` until the fact
+    store holds ``maxFacts``; a sync; ``n_queries`` ``/knowledge <query>``
+    commands; ``more_ops`` more ops (each new fact prunes one); a second
+    sync (which removes the pruned facts from the arena) while a thread
+    runs ``n_thread`` queries, half of them repeats; a decay tick. The
+    count is set to 0 before the first op and read after the thread."""
+    import random
+    from pathlib import Path
+
+    from vainplex_openclaw_tpu_torch.cluster.worker import dispatch_op
+    from vainplex_openclaw_tpu_torch.slo import harness
+    from vainplex_openclaw_tpu_torch.slo.workload import generate_workload
+    from vainplex_openclaw_tpu_torch.utils import ids
+
+    ids._ID_RNG.seed(KNOWLEDGE_SEED)
+    clock = harness._SimClock()
+    base_t = clock.t
+    ws = Path(root)
+    gw, _ = harness._build_gateway(ws, KNOWLEDGE_TENANTS, clock, False, 32,
+                                   device=device)
+    plugin = gw.plugins["knowledge-engine"].module
+    transport = gw.plugins["eventstore"].module.transport
+    emb = plugin.embeddings
+    cap = plugin.fact_store.config["maxFacts"]
+    ctxs = {t: harness._tenant_ctx(ws, t)
+            for t in range(KNOWLEDGE_TENANTS)}
+    for t in range(KNOWLEDGE_TENANTS):
+        gw.session_start(ctxs[t])
+
+    forwards, searches, removed = [], [], []
+    embed, search, remove = emb._embed, emb.search, emb.remove
+
+    def counted_embed(texts):
+        forwards.append(len(texts))
+        return embed(texts)
+
+    def recorded_search(query, k=5):
+        hits = search(query, k=k)
+        # every live fact's score against the query's cached vector, so a
+        # hit of another run can be scored on this one
+        with emb._lock:
+            q = emb._query_cache.get(query)
+            scores = ({} if q is None else dict(zip(
+                emb._ids[:emb._size],
+                (emb._arena[:emb._size] @ q).tolist())))
+        searches.append({"thread": threading.current_thread().name,
+                         "query": query,
+                         "hits": [[h["id"], h["score"]] for h in hits],
+                         "scores": scores})
+        return hits
+
+    def counted_remove(dead):
+        removed.append(len(dead))
+        return remove(dead)
+
+    emb._embed, emb.search, emb.remove = (counted_embed, recorded_search,
+                                          counted_remove)
+    ops = generate_workload(KNOWLEDGE_SEED, KNOWLEDGE_FILL_MAX + more_ops,
+                            KNOWLEDGE_TENANTS)
+    at = 0
+
+    def drive(n: int) -> None:
+        nonlocal at
+        for op in ops[at:at + n]:
+            clock.t = base_t + op.arrival
+            dispatch_op(gw, op.kind, op.content, ctxs[op.tenant])
+        at += n
+
+    if count is not None:
+        count(reset=True)
+    while plugin.fact_store.count() < cap:
+        check(at < KNOWLEDGE_FILL_MAX, f"knowledge: {at} ops left the store "
+              f"at {plugin.fact_store.count()} facts of {cap}")
+        drive(1)
+    fill_ops, at_cap = at, plugin.fact_store.count()
+    syncs = []
+    t = time.perf_counter()
+    syncs.append({"facts": plugin.maintenance.run_embeddings_sync(),
+                  "ms": (time.perf_counter() - t) * 1e3})
+    queries = knowledge_queries(n_queries, KNOWLEDGE_QUERY_SEED)
+    texts, query_ms = [], []
+    for q in queries:
+        t = time.perf_counter()
+        texts.append(gw.command("/knowledge", args=q)["text"])
+        query_ms.append((time.perf_counter() - t) * 1e3)
+    first_ids = {f.id for f in plugin.fact_store.snapshot()}
+    drive(more_ops)
+    pruned = len(first_ids - {f.id for f in plugin.fact_store.snapshot()})
+    rng = random.Random(KNOWLEDGE_QUERY_SEED + 1)
+    thread_queries = [rng.choice(queries) if i % 2 else f"{q} again"
+                      for i, q in enumerate(
+                          knowledge_queries(n_thread, KNOWLEDGE_QUERY_SEED + 2))]
+    errors: list = []
+
+    def ask():
+        try:
+            for q in thread_queries:
+                gw.command("/knowledge", args=q)
+        except BaseException as exc:  # noqa: BLE001 — the phase reports it
+            errors.append(repr(exc))
+
+    asker = threading.Thread(target=ask, name="knowledge-queries")
+    misses_before = emb.query_cache_misses
+    asker.start()
+    t = time.perf_counter()
+    syncs.append({"facts": plugin.maintenance.run_embeddings_sync(),
+                  "ms": (time.perf_counter() - t) * 1e3})
+    asker.join()
+    launches = count() if count is not None else None
+    check(not errors, f"knowledge: the query thread failed: {errors}")
+    plugin.maintenance.run_decay()
+    snap = plugin.timer.snapshot()
+    facts = [f.to_dict() for f in plugin.fact_store.snapshot()]
+    events = knowledge_events(transport)
+    stats = plugin.stats()
+    gw.stop()
+    return {"fill_ops": fill_ops, "more_ops": more_ops, "cap": cap,
+            "facts_at_cap": at_cap, "pruned_after_sync": pruned,
+            "syncs": syncs, "forwards": forwards,
+            "sync_forwards": len(forwards) - emb.query_cache_misses,
+            "query_forwards": emb.query_cache_misses,
+            "thread_misses": emb.query_cache_misses - misses_before,
+            "removed": removed, "searches": searches, "texts": texts,
+            "query_ms": query_ms, "launches": launches,
+            "stage_ms": {k: snap["stages_ms"].get(k) for k in KNOWLEDGE_STAGES},
+            "stage_counts": {k: snap["counts"].get(k)
+                             for k in KNOWLEDGE_STAGES},
+            "stats": {k: stats[k] for k in ("facts", "embedded",
+                                            "queryCache")},
+            "facts": facts, "files": worker_tree(str(ws / "knowledge")),
+            "events": events}
+
+
+def knowledge_search_differs(card: dict, host: dict,
+                             tol: float = KNOWLEDGE_SCORE_TOL) -> list:
+    """The sequential queries whose hits on the card are not the CPU's:
+    a different query order or hit count, a hit whose card score is off
+    the CPU's score of that fact by more than ``tol``, or a hit that is
+    not the CPU's hit at that rank and scores (on the CPU) more than
+    ``tol`` below it. In bf16 two facts that score within the noise of
+    each other may trade ranks; every other difference is named."""
+    seq = [s for s in card["searches"] if s["thread"] != "knowledge-queries"]
+    ref = [s for s in host["searches"] if s["thread"] != "knowledge-queries"]
+    if [s["query"] for s in seq] != [s["query"] for s in ref]:
+        return ["query order"]
+    out = []
+    for got, want in zip(seq, ref):
+        if len(got["hits"]) != len(want["hits"]):
+            out.append(f"{got['query']!r}: {len(got['hits'])} hits, "
+                       f"{len(want['hits'])} on the CPU")
+            continue
+        for rank, ((cid, cscore), (hid, hscore)) in enumerate(
+                zip(got["hits"], want["hits"])):
+            mine = want["scores"].get(cid)
+            if mine is None or abs(cscore - mine) > tol or (
+                    cid != hid and hscore - mine > tol):
+                out.append(f"{got['query']!r} rank {rank}: {cid} "
+                           f"({cscore}) where the CPU has {hid} ({hscore})")
+    return out
+
+
+def knowledge_check(card: dict, host: dict, n_layers: int) -> dict:
+    """The card's knowledge run against the CPU's: facts (as JSON and the
+    files), events, syncs, removals and searches; K1 = n_layers x the
+    forwards when the card counted."""
+    for key in ("fill_ops", "facts_at_cap", "pruned_after_sync", "removed",
+                "stats"):
+        check(card[key] == host[key], f"knowledge: {key} {card[key]} on the "
+                                      f"card, {host[key]} on the CPU")
+    check(card["facts_at_cap"] == card["cap"],
+          f"knowledge: the fill stopped at {card['facts_at_cap']} facts")
+    check(card["pruned_after_sync"] > 0 and sum(card["removed"]) > 0,
+          "knowledge: no fact pruned after the first sync, or none removed "
+          "from the arena")
+    check([s["facts"] for s in card["syncs"]]
+          == [s["facts"] for s in host["syncs"]],
+          f"knowledge: syncs {[s['facts'] for s in card['syncs']]} on the "
+          f"card, {[s['facts'] for s in host['syncs']]} on the CPU")
+    check(json.dumps(card["facts"]) == json.dumps(host["facts"]),
+          "knowledge: the facts differ from the CPU's")
+    differ = sorted(k for k in set(card["files"]) | set(host["files"])
+                    if card["files"].get(k) != host["files"].get(k))
+    check(card["files"] and not differ,
+          f"knowledge: fact files {differ} differ from the CPU's")
+    check(card["events"] == host["events"],
+          f"knowledge: {len(card['events'])} events on the card differ from "
+          f"the CPU's {len(host['events'])}")
+    # each /knowledge text's fact lines (the store's substring matches)
+    lines = [t.split("  semantic:")[0].split("  stages:")[0]
+             for t in card["texts"]]
+    check(lines == [t.split("  semantic:")[0].split("  stages:")[0]
+                    for t in host["texts"]],
+          "knowledge: the /knowledge fact lines differ from the CPU's")
+    differ = knowledge_search_differs(card, host)
+    check(not differ, f"knowledge: searches differ from the CPU's: "
+                      f"{differ[:4]}")
+    seq = [s for s in card["searches"] if s["thread"] != "knowledge-queries"]
+    ref = [s for s in host["searches"] if s["thread"] != "knowledge-queries"]
+    exact = sum(1 for a, b in zip(seq, ref)
+                if [h[0] for h in a["hits"]] == [h[0] for h in b["hits"]])
+    score_err = max((abs(a[1] - b[1]) for x, y in zip(seq, ref)
+                     for a, b in zip(x["hits"], y["hits"]) if a[0] == b[0]),
+                    default=0.0)
+    check(all(math.isfinite(h[1]) for s in card["searches"]
+              for h in s["hits"]), "knowledge: a non-finite score")
+    check(len(card["forwards"]) == card["sync_forwards"]
+          + card["query_forwards"] and card["sync_forwards"] == len(
+              [s for s in card["syncs"] if s["facts"]]),
+          f"knowledge: {len(card['forwards'])} forwards for "
+          f"{card['sync_forwards']} syncs and {card['query_forwards']} "
+          "uncached queries")
+    if card["launches"] is not None:
+        k1 = card["launches"]["k1"]
+        want = n_layers * (card["sync_forwards"] + card["query_forwards"])
+        check(k1 == want, f"knowledge: K1 launches {k1} != {n_layers} layers "
+                          f"x ({card['sync_forwards']} sync + "
+                          f"{card['query_forwards']} query forwards)")
+    return {"ids_in_order": exact, "queries": len(seq),
+            "score_max_abs_err": score_err}
+
+
+def knowledge_leg(device, root: str, count=None, **kw) -> dict:
+    """The knowledge run on ``device`` and on the CPU, held together."""
+    import os as _os
+
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+
+    cfg, _ = load_pretrained(device="cpu")
+    card = knowledge_run(device, _os.path.join(root, "card"), count=count,
+                         **kw)
+    host = knowledge_run("cpu", _os.path.join(root, "host"), **kw)
+    held = knowledge_check(card, host, cfg.n_layers)
+    return {"card": card, "host": host, **held}
+
+
+def slo_legs(device, bench: dict = SLO_BENCH, legs=SLO_LEGS,
+             sim: dict = SLO_SIM) -> dict:
+    """``run_slo_report`` on ``device``: each wall leg with no verdict
+    lost, no false block and the expected denials and redactions (each
+    above 0), shedding at saturation 2 equal to the sitrep's count; and
+    the sim report on ``device`` equal to the CPU's as sorted JSON."""
+    from vainplex_openclaw_tpu_torch.slo import run_slo_report
+
+    out = {}
+    for name, over in legs:
+        t = time.perf_counter()
+        rep = run_slo_report(**{**bench, **over}, device=device)
+        v = rep["verdicts"]
+        check(v["losses"] == 0 and v["false_blocks"] == 0,
+              f"slo {name}: {v['losses']} verdicts lost, "
+              f"{v['false_blocks']} false blocks")
+        check(v["observed_denials"] == v["expected_denials"] > 0
+              and v["observed_redactions"] == v["expected_redactions"] > 0,
+              f"slo {name}: verdicts {v}")
+        shed = (rep.get("admission") or {}).get("shed", 0)
+        if over.get("saturation", bench["saturation"]) > 1.0 \
+                and not over.get("workers"):
+            check(shed > 0 and shed == rep["sitrep"]["gatewayShed"],
+                  f"slo {name}: shed {shed}, sitrep "
+                  f"{rep['sitrep'].get('gatewayShed')}")
+        out[name] = {"seconds": time.perf_counter() - t,
+                     "e2e": {k: rep["e2e"].get(k)
+                             for k in ("count", "p50", "p95", "p99")},
+                     "throughput_ops_s": rep["throughput_ops_s"],
+                     "capacity_ops_s": rep["capacity_ops_s"],
+                     "offered_ops_s": rep["offered_ops_s"],
+                     "shed": shed, "verdicts": v,
+                     "workload": rep["workload"]["checksum"]}
+    card = run_slo_report(**sim, device=device)
+    host = run_slo_report(**sim, device="cpu")
+    check(json.dumps(card, sort_keys=True) == json.dumps(host, sort_keys=True),
+          "slo: the sim report on the card differs from the CPU's")
+    out["sim"] = {"equal_cpu": True, "shed": card["admission"].get("shed"),
+                  "verdicts": card["verdicts"],
+                  "workload": card["workload"]["checksum"]}
+    return out
+
+
+def phase_knowledge_slo(smi: str) -> dict:
+    """The full five-plugin gateway of JAX's SLO harness on the port, with
+    the knowledge engine's fact embeddings on the card (the knowledge
+    leg: :func:`knowledge_leg`), then ``run_slo_report`` on the card
+    (:func:`slo_legs`); K1 at the first sync's bucket timed beside its
+    bound, plain version and SDPA. NATS is not driven (the card's machine
+    has no ``nats`` client package)."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg, _ = load_pretrained()
+    buckets: list = []
+    forward = fa._forward
+
+    def count(reset: bool = False) -> dict:
+        torch.cuda.synchronize()
+        if reset:
+            fa.launches = 0
+        return {"k1": fa.launches}
+
+    def record_bucket(q, *args, **kwargs):
+        if q.is_cuda:
+            buckets.append(list(q.shape))
+        return forward(q, *args, **kwargs)
+
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["OPENCLAW_HOME"] = os.path.join(root, "home")
+        fa._forward = record_bucket
+        try:
+            leg = knowledge_leg(None, os.path.join(root, "knowledge"),
+                                count=count)
+            knowledge_s = time.perf_counter() - t0
+            slo = slo_legs(None)
+        finally:
+            fa._forward = forward
+            if saved_home is None:
+                os.environ.pop("OPENCLAW_HOME", None)
+            else:
+                os.environ["OPENCLAW_HOME"] = saved_home
+    shapes = [list(s) for s in dict.fromkeys(map(tuple, buckets))]
+    unheld = trace_k1_unheld(shapes)
+    check(not unheld, f"knowledge: K1 launched at {unheld}, which no kernels "
+                      "case holds against the plain version")
+    card = leg["card"]
+    k1_by_bucket: dict = {}
+    for shape in buckets:
+        k1_by_bucket[str(shape[0])] = k1_by_bucket.get(str(shape[0]), 0) + 1
+    check(sum(k1_by_bucket.values()) == card["launches"]["k1"],
+          f"knowledge: K1 by bucket {k1_by_bucket} against "
+          f"{card['launches']['k1']} launches")
+    sync_b = trace_k1_shape(cfg, card["syncs"][0]["facts"])
+    timed = time_k1(*sync_b, seed=47)
+    record = {
+        "phase": "knowledge_slo", "nvidia_smi": smi,
+        "nats": "not driven" + ("" if importlib.util.find_spec("nats")
+                                else ": no nats client package installed"),
+        "knowledge": {
+            "fill_ops": card["fill_ops"], "more_ops": card["more_ops"],
+            "facts": card["cap"], "pruned_after_sync":
+                card["pruned_after_sync"], "removed": card["removed"],
+            "syncs": card["syncs"], "cpu_sync_ms":
+                [s["ms"] for s in leg["host"]["syncs"]],
+            "forwards": card["forwards"], "query_ms": quantiles_ms(
+                card["query_ms"]),
+            "cpu_query_ms": quantiles_ms(leg["host"]["query_ms"]),
+            "thread_misses": card["thread_misses"],
+            "stage_ms": card["stage_ms"], "stage_counts":
+                card["stage_counts"], "events": len(card["events"]),
+            "fact_files": sorted(card["files"]),
+            "ids_in_order": leg["ids_in_order"], "queries": leg["queries"],
+            "score_max_abs_err": leg["score_max_abs_err"],
+            "score_tol": KNOWLEDGE_SCORE_TOL, "seconds": knowledge_s},
+        "k1_launches": card["launches"]["k1"], "k1_shapes": shapes,
+        "k1_by_bucket": k1_by_bucket,
+        "k1_sync_shape": {k: timed[k] for k in (
+            "shape", "kernel_ms", "kernel_ms_runs", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "exp_floor_ms", "err")},
+        "slo": slo, "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 # ── chaos: fault plans on the checkpoint and state writers ───────────
 
 CHAOS_STEPS = 60
@@ -6792,7 +7255,8 @@ def served_cases(lengths) -> list:
     ``lengths`` would serve (the pow2 bucket of Lq or Lk is one of
     them), plus the long serve shape: where a searched tile is held
     against the plain version before its row may be written. Not the
-    ``TRACE_TRIAGE_CASES`` or ``WORKER_SERVE_CASES``: they differ from
+    ``TRACE_TRIAGE_CASES``, ``WORKER_SERVE_CASES`` or
+    ``KNOWLEDGE_SYNC_CASES``: they differ from
     ``serve_path`` only in the batch, which a tile does not see, and the
     search's check walks one (batch, head) slice at a time (65,536 of them
     at B=16384). Nor the wide cases: the wide library has its own tiles."""
@@ -6800,7 +7264,8 @@ def served_cases(lengths) -> list:
 
     buckets = {pow2_bucket(L) for L in lengths}
     cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
-             and c not in WORKER_SERVE_CASES and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
+             and c not in WORKER_SERVE_CASES + KNOWLEDGE_SYNC_CASES
+             and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
              and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
     if pow2_bucket(L) in buckets:
@@ -7306,6 +7771,7 @@ def main() -> int:
         traced = phase_trace_analyzer(info["nvidia_smi"])
         worker = phase_worker_profile(info["nvidia_smi"])
         cluster = phase_cluster(info["nvidia_smi"])
+        knowledge = phase_knowledge_slo(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
@@ -7361,6 +7827,7 @@ def main() -> int:
                                   for run in TRACE_RUNS),
             "worker_profile": worker["k1_launches"],
             "cluster": cluster["k1_launches"],
+            "knowledge": knowledge["k1_launches"],
             "chaos": chaos["train"]["k1_launches"]
             + chaos["trace"]["rerun"]["cuda"]["k1_launches"],
             "graft_entry": graft["entry"]["k1_launches"],
@@ -7373,6 +7840,12 @@ def main() -> int:
                         "plain_ms": graft["entry"]["k1"]["plain_ms"],
                         "library_ms": graft["entry"]["k1"]["library_ms"]},
         "trace_analyzer_shape": trace_k1_line(traced),
+        "knowledge_sync_shape": {
+            "shape": knowledge["k1_sync_shape"]["shape"],
+            "launches_by_bucket": knowledge["k1_by_bucket"],
+            **{k: knowledge["k1_sync_shape"][k] for k in (
+                "kernel_ms", "bound_ms", "bound_by", "exp_floor_ms",
+                "plain_ms", "library_ms")}},
         "dh8_shapes": dh8_line(graft, stats=False),
         "wide_shapes": wide_line(wide, stats=False),
         "fp32_walk_shapes": walk_line(wide, False, fp32["k1"]),

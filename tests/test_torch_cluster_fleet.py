@@ -15,7 +15,8 @@ equal duration-free summaries. The deviations are pinned one by one:
   the scope is closed, so ``InProcessWorker.stop`` does too;
 - ``serve_cfg`` without a servable checkpoint raises, where JAX skips the
   batcher;
-- ``routeTransport: "nats"`` raises, where JAX degrades to memory;
+- ``routeTransport: "nats"`` without the nats client raises, where JAX
+  degrades to memory;
 - ``mp_context`` takes ``spawn`` once CUDA is initialised.
 """
 
@@ -382,8 +383,11 @@ def test_serve_cfg_without_a_checkpoint_raises_where_jax_skips(tmp_path):
 
 
 def test_nats_route_transport_raises_where_jax_degrades(tmp_path):
+    """Without the ``nats`` client package JAX degrades the route log to
+    memory; the port raises (with the scripted client both build the
+    adapter: ``tests/test_torch_nats.py``)."""
     cfg = {"routeTransport": "nats"}
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ImportError, match="'nats' client package"):
         supervisor.build_route_transport(cfg, tmp_path, clock=lambda: 0.0)
     _t, kind = jax_supervisor.build_route_transport(cfg, tmp_path,
                                                     clock=lambda: 0.0)

@@ -240,11 +240,13 @@ def test_journal_tail_dedup_equals_jax(tmp_path):
 
 def test_no_silent_nats_degrade():
     """JAX's ``create_nats_transport`` returns None without the ``nats``
-    package, and its callers fall back to a local transport; the port has
-    neither the adapter nor that function."""
+    package, and its callers fall back to a local transport; the port's
+    raises, so no caller can degrade silently."""
     import vainplex_openclaw_tpu_torch.events as port_events
 
     assert jax_transport.create_nats_transport("nats://localhost:4222") \
         is None
-    assert not hasattr(transport, "create_nats_transport")
-    assert not hasattr(port_events, "create_nats_transport")
+    assert port_events.create_nats_transport is \
+        transport.create_nats_transport
+    with pytest.raises(ImportError, match="'nats' client package"):
+        transport.create_nats_transport("nats://localhost:4222")

@@ -28,10 +28,11 @@ Bounded repeats (``{3,40}``) are linear in their bound and safe here.
 pattern banks call; unparseable patterns answer safe — ``re.compile``
 rejects them with its own, better error.
 
-A copy of the screen of ``vainplex_openclaw_tpu/analysis/redos.py``
-(``analyze_pattern``, ``pattern_safe``, ``unsafe_report``), kept here so
-the port imports nothing of the JAX package. Its reverse, the attack-input
-synthesis the adversarial packs use, is not ported.
+A copy of ``vainplex_openclaw_tpu/analysis/redos.py``, kept here so the
+port imports nothing of the JAX package: the screen (``analyze_pattern``,
+``pattern_safe``, ``unsafe_report``) and its reverse, the attack-input
+synthesis the adversarial packs use (``worst_case_inputs``,
+``stress_inputs``).
 """
 
 from __future__ import annotations
@@ -253,3 +254,139 @@ def unsafe_report(pattern: str, flags: int = 0) -> Optional[str]:
     issues = analyze_pattern(pattern, flags)
     return "; ".join(issues) if issues else None
 
+
+# ── the screen run in reverse ─────────────────────────────────────────
+#
+# ``worst_case_inputs`` synthesizes the attack strings the analyzer's
+# issue reports describe: a pump of the flagged repeat body's first
+# characters followed by a byte that forces the overall match to fail, so
+# a backtracking engine explores every decomposition of the pump. The
+# harvest walk mirrors ``_walk_repeats`` condition for condition, which
+# makes the contract structural rather than aspirational: the generator
+# returns attacks for EXACTLY the patterns the screen flags.
+#
+# ``stress_inputs`` is the companion for patterns the screen PASSED: the
+# heaviest probes a linear pattern admits — near-miss pumps of its longest
+# literal runs and first-set floods. The adversarial redos_storm pack
+# feeds these to the shipped (screened-clean) packs and policies, so a
+# latency blowup there would mean the screen's linearity guarantee broke.
+
+
+def _pump_unit(body) -> str:
+    """One character the repeat body can start with — printable if any."""
+    chars, _broad = _first_set(body)
+    printable = sorted(c for c in chars if 32 <= c < 127)
+    if printable:
+        return chr(printable[0])
+    if chars:
+        return chr(min(chars))
+    return "a"
+
+
+def _walk_attack_bodies(seq, bodies: list) -> None:
+    """The ``_walk_repeats`` walk, harvesting flagged repeat bodies instead
+    of issue strings. Keep the two conditionals in lockstep: a divergence
+    breaks the generator⟺screen iff-contract the tests pin."""
+    for node in seq:
+        op, av = node
+        if op in _BACKTRACK_REPEATS and av[1] == _UNBOUNDED:
+            body = av[2]
+            if (_min_len(body) == 0
+                    or _has_backtracking_unbounded(body)
+                    or _ambiguous_branch(body, _first_set(body))):
+                bodies.append(body)
+        for sub in _seq_items(node):
+            _walk_attack_bodies(sub, bodies)
+
+
+def worst_case_inputs(pattern: str, flags: int = 0, pump: int = 48,
+                      cap: int = 4) -> list[str]:
+    """Attack inputs for a pattern the screen flags; ``[]`` for every
+    pattern it passes. Each input pumps a flagged repeat body ``pump``
+    times and appends a terminator chosen to miss the body's first set,
+    the classic fail-late shape that maximizes backtracking. NEVER run
+    these through ``re`` against an unscreened pattern — the whole point
+    is that they take exponential time there."""
+    if not analyze_pattern(pattern, flags):
+        return []
+    try:
+        seq = _parser.parse(pattern, flags)
+    except Exception:  # noqa: BLE001 — analyze_pattern already parsed; belt
+        return []
+    bodies: list = []
+    _walk_attack_bodies(seq, bodies)
+    out: list[str] = []
+    seen: set[str] = set()
+    for body in bodies:
+        unit = _pump_unit(body)
+        chars, _broad = _first_set(body)
+        tail = "\x00" if ord(unit) != 0 else "\x01"
+        while ord(tail) in chars and ord(tail) < 32:
+            tail = chr(ord(tail) + 1)
+        s = unit * max(1, pump) + tail
+        if s not in seen:
+            seen.add(s)
+            out.append(s)
+        if len(out) >= cap:
+            break
+    if not out:  # unreachable while the walks agree; keeps the iff honest
+        out.append("a" * max(1, pump) + "\x00")
+    return out
+
+
+def _literal_runs(seq, runs: list, cur: list) -> None:
+    """Collect maximal consecutive LITERAL runs anywhere in the tree."""
+    for node in seq:
+        op, av = node
+        if op is _c.LITERAL:
+            cur.append(chr(av))
+            continue
+        if cur:
+            runs.append("".join(cur))
+            cur.clear()
+        for sub in _seq_items(node):
+            _literal_runs(sub, runs, [])
+    if cur:
+        runs.append("".join(cur))
+        cur.clear()
+
+
+def stress_inputs(pattern: str, flags: int = 0, pump: int = 32,
+                  cap: int = 3) -> list[str]:
+    """Heaviest linear probes for any parseable pattern: the longest
+    literal run minus its final character pumped (repeated almost-match,
+    the prefilter's worst honest case) plus a first-set flood. Intended
+    for patterns ``pattern_safe`` already passed — cost is linear exactly
+    because the screen found no catastrophic construction."""
+    try:
+        seq = _parser.parse(pattern, flags)
+    except Exception:  # noqa: BLE001 — invalid regex: nothing to probe
+        return []
+    out: list[str] = []
+    seen: set[str] = set()
+
+    def add(s: str) -> None:
+        if s and s not in seen and len(out) < cap:
+            seen.add(s)
+            out.append(s)
+
+    runs = sorted((r for r in _harvest_runs(seq) if len(r) >= 2),
+                  key=len, reverse=True)
+    if runs:
+        near_miss = runs[0][:-1]
+        add(near_miss * max(1, pump))
+    chars, _broad = _first_set(seq)
+    printable = sorted(c for c in chars if 32 <= c < 127)
+    if printable:
+        add(chr(printable[0]) * max(1, pump * 4))
+    if runs:
+        add((runs[0] + "\x00") * max(1, pump // 2))
+    if not out:
+        add("a" * max(1, pump * 4))
+    return out
+
+
+def _harvest_runs(seq) -> list[str]:
+    runs: list[str] = []
+    _literal_runs(seq, runs, [])
+    return runs

@@ -5,7 +5,7 @@ The port's copy of ``vainplex_openclaw_tpu/cluster``, under JAX's names:
 a :class:`ClusterSupervisor` shards tenant workspaces over in-process or
 process workers (``worker.py``) on a consistent-hash ring with an
 epoch-fenced lease table (``ring.py``), publishes every op on a route log
-(memory or file transport; NATS is not ported), and moves workspaces by
+(memory, file or NATS transport), and moves workspaces by
 failover (fence, journal replay, redelivery) or planned handoff. Each
 worker runs the port's worker profile: governance with redaction and
 cortex over the workspace journals. ``cluster.fleetServing`` arms the

@@ -32,8 +32,9 @@ so sitrep and the SLO harness read it like any other edge.
 
 What the port changes, each a deliberate deviation pinned by a test:
 
-- ``routeTransport: "nats"`` raises ``NotImplementedError``: the port has
-  no NATS adapter yet (``ROADMAP.md``, Queue 1), and the JAX package's
+- ``routeTransport: "nats"`` builds the JetStream adapter as the JAX
+  package does, but without the ``nats`` client package it raises
+  ``ImportError`` (from ``create_nats_transport``): the JAX package's
   quiet fall back to a memory route log would hand a multi-machine
   deployment a single-box schedule.
 - The catches around a worker's ``stop`` (in :meth:`ClusterSupervisor.
@@ -83,8 +84,8 @@ CLUSTER_DEFAULTS = {
     # Route-log transport behind the EventTransport seam: "memory" is the
     # single-box route log; "file" gives a single machine a durable
     # replayable schedule; "nats" (JetStream, shared by supervisors on
-    # different machines) needs the NATS adapter, which the port has not
-    # yet, and raises.
+    # different machines) needs the nats client package, and raises
+    # without it.
     "routeTransport": "memory",
     "routeNatsUrl": "nats://localhost:4222",
     "routeStream": "CLAW_ROUTES",
@@ -137,14 +138,19 @@ def build_route_transport(cfg: dict, root: Path, clock, logger=None):
     so which wire carries it is a *config choice with a contract* —
     ``fetch(subject, start_seq=watermark)`` replay semantics are the same
     for every kind, not an accident of whatever transport happened to be
-    handy. ``"nats"`` raises ``NotImplementedError`` here: the port has no
-    NATS adapter yet."""
+    handy. ``"nats"`` without the ``nats`` client package raises
+    ``ImportError`` here, where the JAX package degrades to memory."""
     kind = str(cfg.get("routeTransport", "memory"))
     if kind == "nats":
-        raise NotImplementedError(
-            "cluster.routeTransport 'nats' needs the NATS adapter "
-            "(events/nats_adapter.py), which the port has not yet (ROADMAP.md,"
-            " Queue 1, item 2); use 'memory' or 'file'")
+        from ..events.transport import create_nats_transport
+
+        transport = create_nats_transport(
+            str(cfg.get("routeNatsUrl", "nats://localhost:4222")),
+            stream=str(cfg.get("routeStream", "CLAW_ROUTES")),
+            prefix=str(cfg.get("routePrefix", "cluster")),
+            logger=logger)
+        transport.connect()  # failure is fine: outbox + reconnect probes
+        return transport, "nats"
     if kind == "file":
         from ..events.transport import FileTransport
 

@@ -23,7 +23,13 @@ response-gate fallback-message flow, governance/src/hooks.ts:339-353):
 
 A copy of ``vainplex_openclaw_tpu/core/gateway.py`` over the port's
 ``HookBus``, so an error from the device propagates out of every entry
-point that fires a hook (``core/api.py``).
+point that fires a hook (``core/api.py``). Two more catches of the JAX
+package let such an error through in the port: ``command`` (JAX turns any
+error into the text "command … failed", which would hide a failed launch
+behind ``/knowledge`` or ``/trace-analyze``) and ``stop``'s service-stop
+catch (JAX logs it; the port logs it, stops the other services, closes the
+journals, then raises the first such error). Every other error keeps
+JAX's text or log line.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from ..device import is_device_error
 from ..resilience.admission import AdmissionController
 from .api import (
     ADMISSION_SHEDDABLE_HOOKS,
@@ -201,6 +208,7 @@ class Gateway:
 
     def stop(self) -> None:
         self.fire("gateway_stop", {}, {})
+        device_error = None
         for plugin_id, service in reversed(self.services):
             if service.stop is None:
                 continue
@@ -210,6 +218,8 @@ class Gateway:
                     _run(out)
             except Exception as exc:  # noqa: BLE001
                 self.logger.error(f"[gateway] service {plugin_id}/{service.id} failed to stop: {exc}")
+                if device_error is None and is_device_error(exc):
+                    device_error = exc
         # Journals close LAST: plugin stop paths above flush
         # through them. Closing compacts + persists watermarks and releases
         # the wal fd; a later get_journal() on the same workspace opens a
@@ -221,6 +231,8 @@ class Gateway:
             except Exception as exc:  # noqa: BLE001 — stop paths can't raise
                 self.logger.error(f"[gateway] journal close failed: {exc}")
         self._started = False
+        if device_error is not None:
+            raise device_error
 
     # ── generic hook firing (the mock-api `_fire` equivalent) ────────
 
@@ -410,6 +422,8 @@ class Gateway:
                 out = _run(out)
             return out
         except Exception as exc:  # noqa: BLE001
+            if is_device_error(exc):
+                raise
             return {"text": f"command {name} failed: {exc}"}
 
     def call_method(self, method: str, *args: Any) -> Any:

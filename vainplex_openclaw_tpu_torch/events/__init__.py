@@ -1,6 +1,11 @@
-"""Event envelope, subjects and transports, the part of the JAX package's
-``events/`` that the replica fleet's route log rides. The event-store
-plugin, the hook mappings and the NATS adapter are not ported yet."""
+"""Event store: envelope taxonomy, hook→event mapping, pluggable transports.
+
+The port's copy of ``vainplex_openclaw_tpu/events/`` (reference:
+packages/openclaw-nats-eventstore): an in-memory JetStream-lite ring, a
+durable JSONL file log, and a NATS JetStream adapter. Without the ``nats``
+client package ``create_nats_transport`` raises, where the JAX package's
+returns None and its callers degrade to a local transport.
+"""
 
 from .envelope import (
     CANONICAL_EVENT_TYPES,
@@ -8,16 +13,24 @@ from .envelope import (
     build_envelope,
     derive_event_id,
 )
+from .mappings import EXTRA_EMITTERS, HOOK_MAPPINGS, HookMapping
+from .plugin import EventStorePlugin
 from .subjects import build_subject
-from .transport import FileTransport, MemoryTransport, TransportStats
+from .transport import (FileTransport, MemoryTransport, TransportStats,
+                        create_nats_transport)
 
 __all__ = [
     "CANONICAL_EVENT_TYPES",
     "ClawEvent",
+    "EXTRA_EMITTERS",
+    "EventStorePlugin",
     "FileTransport",
+    "HOOK_MAPPINGS",
+    "HookMapping",
     "MemoryTransport",
     "TransportStats",
     "build_envelope",
     "build_subject",
+    "create_nats_transport",
     "derive_event_id",
 ]
