@@ -322,6 +322,40 @@ Versioned serving and the trace analyzer follow:
      ops, 4 tenants, saturation 2.0) on the card equal to the CPU's as
      sorted JSON. NATS is not driven (the card's machine has no client
      package; the phase's line says whether one is installed);
+27e. governance_install: governance's last two sections and the
+     installer, each leg on the card and then on the CPU in this process.
+     The governance leg loads ``GovernancePlugin`` with every section on
+     (``install_governance_config``: stage 3 local over the shipped
+     checkpoint, a ``2fa`` effect on ``exec``, 2FA with two approvers
+     through a Matrix room, ERC-8004 for three agents) against a loopback
+     homeserver and a loopback ``eth_call`` endpoint on 127.0.0.1 (the
+     phase fails if either cannot bind): 64 external sends one at a time
+     and 128 from 8 threads, each stage-3 verdict equal to the one-shot
+     oracle's on the card; 4 rounds in which 4 threads of one agent call
+     ``exec`` at once and block until the poller reads an approver's TOTP
+     code from the room (request to allow timed), then call once more
+     under the session approval; a round whose valid code comes from an
+     unauthorised sender (the call stays blocked), then a wrong code from
+     an approver (one attempt counted), then the batch's timeout; and
+     ``before_agent_start`` twice for every agent (the ``onchain=``
+     lookups uncached, then cached; each timed). Decisions, audit
+     verdicts, prompts (less their order of commands and their ids) and
+     contexts equal the CPU run's; K1 = n_layers x batches; no poller or
+     timer thread outlives ``gw.stop()``. The brainplex leg runs the
+     port's ``brainplex init --full --yes --config`` in a temporary
+     ``OPENCLAW_HOME`` over an ``openclaw.json`` of three agents: exit 0,
+     five plugin configs that the port's manifests pass, the merged
+     ``openclaw.json`` and its backup, a second init with nothing to do;
+     then one operator edit (``INSTALL_CORTEX_EDIT``: local triage on,
+     which the generated cortex config leaves off) and the five port
+     plugins loaded from those files on a virtual clock: 48 messages, an
+     embeddings sync (K1 at B=32), 8 ``/knowledge`` queries (B=1 each),
+     ``/trace-analyze`` over 3 doom loops and 12 bench chains (K3 one
+     launch a window, K1 triage at B=256), a read the credential guard
+     blocks, ``/governance`` and ``/ops``. The written files byte-equal
+     the CPU run's (a backup's time stamp aside), each command's text
+     equal less the host's clock, the search hits tie-aware within 5e-2;
+     K1 = n_layers x (embedding forwards + 1 triage forward);
 
 27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
      state writers. The train leg trains ``triage-tiny`` at its full width
@@ -386,8 +420,9 @@ The graft entry points close it:
 Then a line with K1's exponential floors at the serve and training shapes
 at the ex2 rate phase 10 measured, one line ``{"kernels": [...]}`` listing
 K1 (with its launches on every path, the lifecycle, classify,
-trace_analyzer, worker_profile, cluster, knowledge_slo, chaos and
-graft_entry phases included, its triage bucket
+trace_analyzer, worker_profile, cluster, knowledge_slo,
+governance_install, chaos and graft_entry phases included, its triage
+bucket
 in the trace analyzer, its knowledge sync bucket, the tiles the block table gives the serve
 and long shapes, its head-dim-8 shapes and its shapes above head dim 128),
 K2 (with its head-dim-8 and wide shapes) and K3 (K3 at the detector's shape, L=512 and 4096 pairs,
@@ -527,6 +562,13 @@ WORKER_SERVE_CASES = [(f"worker_serve_b{B}", B, 4, 64, 64, 16, False, "prefix")
 KNOWLEDGE_SYNC_CASES = [(f"knowledge_sync_b{B}", B, 4, 64, 64, 16, False,
                          "prefix") for B in (2048, 256)]
 
+# the governance_install phase's brainplex leg: the pow2 bucket of its
+# sync's 28 facts (its queries run at B=1, its triage of 242 findings at
+# B=256: cases above); the phase fails if it launches K1 at a bucket that
+# no case holds
+INSTALL_SYNC_CASES = [("install_sync_b32", 32, 4, 64, 64, 16, False,
+                       "prefix")]
+
 KERNEL_CASES = [
     ("serve_path", 32, 4, 64, 64, 16, False, "prefix"),
     ("encoder_default_width", 32, 8, 128, 128, 32, False, "prefix"),
@@ -589,7 +631,7 @@ KERNEL_CASES = [
     ("dryrun_dense_reference", 4, 8, 64, 64, 16, False, "prefix"),
     ("dryrun_moe_reference", 4, 4, 32, 32, 16, False, "prefix"),
 ] + (WIDE_CASES + WIDE_STREAMED_Q_CASES + TRACE_TRIAGE_CASES
-     + WORKER_SERVE_CASES + KNOWLEDGE_SYNC_CASES)
+     + WORKER_SERVE_CASES + KNOWLEDGE_SYNC_CASES + INSTALL_SYNC_CASES)
 # K1 cases with at least this many keys (and not causal) also check a
 # control: the plain version without the first 64-key tile, as a kernel
 # that skipped a stage of its ring would compute. It must fail the case's
@@ -6564,6 +6606,28 @@ def knowledge_events(transport) -> list:
     return out
 
 
+def recording_search(emb, searches: list):
+    """``emb.search`` that appends each query's thread, hits and every live
+    fact's score against the query's cached vector (so a hit of another
+    run can be scored on this one) to ``searches``."""
+    search = emb.search
+
+    def recorded(query, k=5):
+        hits = search(query, k=k)
+        with emb._lock:
+            q = emb._query_cache.get(query)
+            scores = ({} if q is None else dict(zip(
+                emb._ids[:emb._size],
+                (emb._arena[:emb._size] @ q).tolist())))
+        searches.append({"thread": threading.current_thread().name,
+                         "query": query,
+                         "hits": [[h["id"], h["score"]] for h in hits],
+                         "scores": scores})
+        return hits
+
+    return recorded
+
+
 def knowledge_run(device, root: str, more_ops: int = KNOWLEDGE_MORE_OPS,
                   n_queries: int = KNOWLEDGE_QUERIES,
                   n_thread: int = KNOWLEDGE_THREAD_QUERIES,
@@ -6600,32 +6664,18 @@ def knowledge_run(device, root: str, more_ops: int = KNOWLEDGE_MORE_OPS,
         gw.session_start(ctxs[t])
 
     forwards, searches, removed = [], [], []
-    embed, search, remove = emb._embed, emb.search, emb.remove
+    embed, remove = emb._embed, emb.remove
 
     def counted_embed(texts):
         forwards.append(len(texts))
         return embed(texts)
 
-    def recorded_search(query, k=5):
-        hits = search(query, k=k)
-        # every live fact's score against the query's cached vector, so a
-        # hit of another run can be scored on this one
-        with emb._lock:
-            q = emb._query_cache.get(query)
-            scores = ({} if q is None else dict(zip(
-                emb._ids[:emb._size],
-                (emb._arena[:emb._size] @ q).tolist())))
-        searches.append({"thread": threading.current_thread().name,
-                         "query": query,
-                         "hits": [[h["id"], h["score"]] for h in hits],
-                         "scores": scores})
-        return hits
-
     def counted_remove(dead):
         removed.append(len(dead))
         return remove(dead)
 
-    emb._embed, emb.search, emb.remove = (counted_embed, recorded_search,
+    emb._embed, emb.search, emb.remove = (counted_embed,
+                                          recording_search(emb, searches),
                                           counted_remove)
     ops = generate_workload(KNOWLEDGE_SEED, KNOWLEDGE_FILL_MAX + more_ops,
                             KNOWLEDGE_TENANTS)
@@ -6933,6 +6983,884 @@ def phase_knowledge_slo(smi: str) -> dict:
             "shape", "kernel_ms", "kernel_ms_runs", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "exp_floor_ms", "err")},
         "slo": slo, "seconds": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
+# ── governance_install: 2FA, ERC-8004 and brainplex on the card ──────
+
+INSTALL_SEED = 53
+INSTALL_SERIAL_TEXTS = 64
+INSTALL_THREADS = 8
+INSTALL_THREAD_TEXTS = 128
+INSTALL_2FA_THREADS = 4
+INSTALL_2FA_ROUNDS = 4
+INSTALL_APPROVERS = ("@alice:loopback", "@bob:loopback")
+INSTALL_INTRUDER = "@mallory:loopback"
+INSTALL_ROOM = "!approvals:loopback"
+INSTALL_POLL_S = 0.05
+INSTALL_WINDOW_MS = 100  # every thread of a round joins its one batch
+INSTALL_WAIT_S = 30.0    # the longest the phase waits for one step
+# agent -> token, and token -> (owner, feedback count, reputation score):
+# one excellent, one mixed and one unproven agent on the loopback chain
+INSTALL_TOKENS = {"main": 8004, "forge": 42, "scout": 7}
+INSTALL_CHAIN = {8004: (0x8004AA, 12, 85), 42: (0x42BB, 3, 45),
+                 7: (0x7CC, 0, 0)}
+INSTALL_AGENTS = ("main", "forge", "scout")
+INSTALL_MESSAGES = 48
+INSTALL_QUERIES = 8
+# the brainplex leg's doom loops and bench chains for /trace-analyze
+INSTALL_TRACE = {"n_bench": 12, "n_doom": 3}
+# brainplex's cortex config turns the trace analyzer on without its
+# classify stage; the operator's one edit after init that turns local
+# triage on, so /trace-analyze runs K1 as well as K3
+INSTALL_CORTEX_EDIT = {"traceAnalyzer": {"classify": {
+    "enabled": True, "useLocalTriage": True}}}
+_BACKUP_STAMP = re.compile(r"\.backup-\d{8}-\d{6}$")
+_INSTALL_TIMING = (re.compile(r" in \d+(?:\.\d+)?ms \(\d+ ev/min\)"),
+                   re.compile(r"avg=\S+µs"), re.compile(r"\d+(?:\.\d+)?ms"))
+
+
+class _Loopback:
+    """An HTTP server on 127.0.0.1 (any free port) on a daemon thread; the
+    phase fails if it cannot bind."""
+
+    def _serve(self, handler, name: str) -> None:
+        from http.server import ThreadingHTTPServer
+
+        try:
+            self.server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        except OSError as exc:
+            raise SmokeFailure(f"loopback {name} cannot bind: {exc}")
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name=f"loopback-{name}", daemon=True)
+        self.thread.start()
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.server.server_port}"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(5.0)
+
+
+def _reply_json(handler, body: dict) -> None:
+    data = json.dumps(body).encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", "application/json")
+    handler.send_header("Content-Length", str(len(data)))
+    handler.end_headers()
+    handler.wfile.write(data)
+
+
+class LoopbackHomeserver(_Loopback):
+    """The Matrix client-server calls the 2FA loop makes, on 127.0.0.1:
+    ``PUT .../send/m.room.message/<txn>`` (recorded, with its time) and
+    ``GET .../messages`` (``dir=b`` gives the newest token, ``dir=f``
+    pages forward from ``from``). ``post`` puts an ``m.text`` event in the
+    room; ``gets`` counts the GETs received."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler
+        from urllib.parse import parse_qs, urlparse
+
+        self.sent: list = []
+        self.events: list = []
+        self.gets = 0
+        self.lock = threading.Lock()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_PUT(self):
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                with outer.lock:
+                    outer.sent.append({"path": self.path,
+                                       "t": time.perf_counter(),
+                                       "auth": self.headers.get(
+                                           "Authorization"), **body})
+                    n = len(outer.sent)
+                _reply_json(self, {"event_id": f"$put{n}"})
+
+            def do_GET(self):
+                q = parse_qs(urlparse(self.path).query)
+                limit = int(q.get("limit", ["10"])[0])
+                with outer.lock:
+                    outer.gets += 1
+                    n = len(outer.events)
+                    if q.get("dir") == ["b"]:
+                        chunk, end = outer.events[max(0, n - limit):], n
+                    else:
+                        start = int(q.get("from", ["s0"])[0][1:])
+                        chunk = outer.events[start:start + limit]
+                        end = start + len(chunk)
+                _reply_json(self, {"chunk": chunk, "start": "s0",
+                                   "end": f"s{end}"})
+
+        self._serve(Handler, "homeserver")
+
+    def post(self, body: str, sender: str) -> int:
+        """One ``m.text`` event from ``sender``; returns the GETs counted
+        when it landed."""
+        with self.lock:
+            self.events.append({"type": "m.room.message", "sender": sender,
+                                "event_id": f"$ev{len(self.events)}",
+                                "content": {"msgtype": "m.text",
+                                            "body": body}})
+            return self.gets
+
+    def wait(self, cond, what: str) -> None:
+        deadline = time.perf_counter() + INSTALL_WAIT_S
+        while not cond():
+            check(time.perf_counter() < deadline,
+                  f"governance_install: timed out waiting for {what}")
+            time.sleep(0.002)
+
+    def wait_sent(self, n: int) -> dict:
+        self.wait(lambda: len(self.sent) >= n, f"approval prompt {n}")
+        return self.sent[n - 1]
+
+    def wait_polled(self, gets: int) -> None:
+        """Until a second GET after ``gets``: the poller has read the room
+        past the event posted then and handled what it read."""
+        self.wait(lambda: self.gets >= gets + 2, "the poller")
+
+
+class LoopbackChain(_Loopback):
+    """A JSON-RPC ``eth_call`` endpoint on 127.0.0.1 for the identity
+    registry: ``ownerOf(uint256)`` and ``getAgentProfile(uint256)``
+    answered from ``INSTALL_CHAIN`` (an unknown token has the zero
+    owner); ``calls`` counts the requests."""
+
+    def __init__(self, chain: dict = INSTALL_CHAIN):
+        from http.server import BaseHTTPRequestHandler
+
+        from vainplex_openclaw_tpu_torch.governance.security import erc8004
+
+        self.calls = 0
+        self.lock = threading.Lock()
+        outer = self
+
+        def word(v: int) -> str:
+            return erc8004.encode_uint256(v)
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(length))
+                data = req["params"][0]["data"]
+                entry = chain.get(int(data[10:], 16), (0, 0, 0))
+                if data.startswith(erc8004.SELECTOR_OWNER_OF):
+                    result = "0x" + word(entry[0])
+                else:
+                    result = "0x" + "".join(word(v) for v in entry)
+                with outer.lock:
+                    outer.calls += 1
+                _reply_json(self, {"jsonrpc": "2.0", "id": req["id"],
+                                   "result": result})
+
+        self._serve(Handler, "chain")
+
+
+def install_secret(seed: int = INSTALL_SEED) -> str:
+    """A base32 TOTP secret from ``seed``."""
+    import base64
+    import random
+
+    raw = random.Random(seed).randbytes(20)
+    return base64.b32encode(raw).decode().rstrip("=")
+
+
+def install_governance_config(creds_path: str, rpc_url: str,
+                              secret: str) -> dict:
+    """JAX's governance config with every section on: stage 3 local over
+    ``GATEWAY_FACTS`` (fail closed), a ``2fa`` effect on ``exec``, 2FA
+    through the Matrix room in ``creds_path`` and ERC-8004 at
+    ``rpc_url``."""
+    return {
+        "builtinPolicies": {"rateLimiter": {"maxPerMinute": 1_000_000}},
+        "policies": [{"id": "gate-exec", "rules": [{
+            "id": "exec-2fa", "conditions": [{"type": "tool",
+                                              "name": "exec"}],
+            "effect": {"action": "2fa", "reason": "exec needs approval"}}]}],
+        "validation": {"enabled": True, "facts": GATEWAY_FACTS,
+                       "llmValidator": {"enabled": True, "local": True,
+                                        "failMode": "closed"}},
+        "twoFa": {"enabled": True, "totpSecret": secret,
+                  "approvers": list(INSTALL_APPROVERS),
+                  "matrixCredsPath": creds_path,
+                  "matrixPollIntervalSeconds": INSTALL_POLL_S,
+                  "batchWindowMs": INSTALL_WINDOW_MS, "timeoutSeconds": 60},
+        "erc8004": {"enabled": True, "rpcUrl": rpc_url,
+                    "agentTokens": dict(INSTALL_TOKENS)},
+    }
+
+
+def install_ctx(agent: str) -> dict:
+    return {"agent_id": agent, "session_key": f"agent:{agent}",
+            "channel_id": "twitter"}
+
+
+def install_prompt(sent: dict) -> str:
+    """An approval prompt with its command lines sorted (the threads of a
+    round join their batch in any order)."""
+    lines = sent["body"].split("\n")
+    head = [ln for ln in lines if not re.match(r"\d+\. ", ln)]
+    cmds = sorted(re.sub(r"^\d+\. ", "", ln) for ln in lines
+                  if re.match(r"\d+\. ", ln))
+    return "\n".join(head[:2] + cmds + head[2:])
+
+
+def install_2fa_round(gw, hs, totp, agent: str, n_threads: int,
+                      code_offset: float) -> dict:
+    """``n_threads`` threads each call ``exec`` as ``agent`` at once (one
+    batch), then once more (the session approval); the phase waits for
+    the batch's prompt and posts an approver's code for ``now +
+    code_offset``. Each first call's ms from request to allow, and the
+    prompt's and the code's times."""
+    barrier = threading.Barrier(n_threads + 1)
+    out: list = [None] * n_threads
+    errors: list = []
+
+    def call(i: int) -> None:
+        try:
+            barrier.wait()
+            row = []
+            for k in range(2):
+                t = time.perf_counter()
+                d = gw.before_tool_call(
+                    "exec", {"command": f"deploy {agent} w{i} #{k}"},
+                    install_ctx(agent))
+                row.append([d.blocked, d.block_reason,
+                            (time.perf_counter() - t) * 1e3, t])
+            out[i] = row
+        except Exception as exc:  # noqa: BLE001 — the phase reports it
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=call, args=(i,),
+                                name=f"install-exec-{i}")
+               for i in range(n_threads)]
+    sent0 = len(hs.sent)
+    for t in threads:
+        t.start()
+    barrier.wait()
+    prompt = hs.wait_sent(sent0 + 1)
+    t_code = time.perf_counter()
+    hs.post(totp.generate(time.time() + code_offset), INSTALL_APPROVERS[0])
+    for t in threads:
+        t.join(INSTALL_WAIT_S)
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"governance_install: a 2FA thread hung or failed: {errors[:2]}")
+    check(len(hs.sent) == sent0 + 1, "governance_install: a round sent "
+                                     f"{len(hs.sent) - sent0} prompts")
+    return {"decisions": [[r[:2] for r in row] for row in out],
+            "ms": [row[0][2] for row in out],
+            "to_prompt_ms": (prompt["t"] - min(row[0][3] for row in out))
+            * 1e3, "prompt_to_code_ms": (t_code - prompt["t"]) * 1e3,
+            "prompt": install_prompt(prompt), "path": prompt["path"],
+            "auth": prompt["auth"]}
+
+
+def install_refused_round(gw, hs, plugin, totp, agent: str) -> dict:
+    """One ``exec`` call as ``agent``: the intruder posts a valid code (the
+    call stays blocked, the batch pending), an approver posts a wrong one
+    (one attempt counted), then the batch times out."""
+    out: list = []
+    t = threading.Thread(target=lambda: out.append(gw.before_tool_call(
+        "exec", {"command": f"deploy {agent}"}, install_ctx(agent))),
+        name="install-exec-refused")
+    sent0 = len(hs.sent)
+    t.start()
+    prompt = hs.wait_sent(sent0 + 1)
+    approval = plugin.approval_2fa
+    hs.wait_polled(hs.post(totp.generate(time.time()), INSTALL_INTRUDER))
+    pending_after_intruder = approval.pending_count()
+    alive_after_intruder = t.is_alive()
+    near = {totp.generate(time.time() + d * 30) for d in range(-3, 4)}
+    wrong = next(f"{c:06d}" for c in range(10 ** 6)
+                 if f"{c:06d}" not in near)
+    hs.wait_polled(hs.post(wrong, INSTALL_APPROVERS[1]))
+    batch = approval._batches.get(agent)
+    attempts = batch.attempts if batch is not None else None
+    check(alive_after_intruder and t.is_alive() and batch is not None
+          and pending_after_intruder == 1 and attempts == 1,
+          f"governance_install: the refused round: alive "
+          f"{alive_after_intruder}/{t.is_alive()}, pending "
+          f"{pending_after_intruder}, attempts {attempts}")
+    approval.timeout_batch(batch)
+    t.join(INSTALL_WAIT_S)
+    check(not t.is_alive() and out, "governance_install: the refused call "
+                                    "did not return after its timeout")
+    d = out[0]
+    check(d.blocked and d.block_reason == "2FA approval timed out",
+          f"governance_install: the refused call gave {d.blocked} "
+          f"{d.block_reason!r}")
+    return {"decision": [d.blocked, d.block_reason], "attempts": attempts,
+            "prompt": install_prompt(prompt)}
+
+
+def install_audit(ws: str) -> list:
+    """Each audit record's hook, agent, tool, params, message, verdict and
+    reason, sorted."""
+    back = audit_readback(ws)
+    check(back["corrupt_lines"] == 0 and back["torn_tails"] == 0,
+          "governance_install: audit files torn or corrupt")
+    rows = []
+    for r in back["records"]:
+        c = r["context"]
+        rows.append(json.dumps([c.get("hook"), c.get("agentId"),
+                                c.get("toolName"), c.get("toolParams"),
+                                c.get("messageContent"), r["verdict"],
+                                r["reason"]], sort_keys=True))
+    return sorted(rows)
+
+
+def install_threads_left(before: set) -> list:
+    """The poller and timer threads started since ``before`` that are
+    still alive after a short join."""
+    left = []
+    for t in threading.enumerate():
+        if t.ident in before:
+            continue
+        if t.name == "matrix-2fa-poller" or isinstance(t, threading.Timer):
+            t.join(2.0)
+            if t.is_alive():
+                left.append(t.name)
+    return left
+
+
+def install_governance_run(device, root: str, count=None,
+                           serial: int = INSTALL_SERIAL_TEXTS,
+                           threaded: int = INSTALL_THREAD_TEXTS,
+                           rounds: int = INSTALL_2FA_ROUNDS) -> dict:
+    """Leg A on ``device``: the port's ``Gateway`` with
+    ``install_governance_config`` against a loopback homeserver and
+    chain. ``serial`` external sends one at a time, ``threaded`` from
+    ``INSTALL_THREADS`` threads; ``rounds`` 2FA rounds of
+    ``INSTALL_2FA_THREADS`` threads; the refused round; then
+    ``before_agent_start`` twice for every agent. ``count(reset=...)``
+    reads K1 from just before the first send to just after the last."""
+    from vainplex_openclaw_tpu_torch.core import Gateway
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.governance import GovernancePlugin
+    from vainplex_openclaw_tpu_torch.governance.approval import Totp
+
+    os.makedirs(root)
+    before = {t.ident for t in threading.enumerate()}
+    hs, chain = LoopbackHomeserver(), LoopbackChain()
+    try:
+        creds_path = os.path.join(root, "matrix-creds.json")
+        with open(creds_path, "w", encoding="utf-8") as f:
+            json.dump({"homeserver": hs.url, "accessToken": "syt_loopback",
+                       "roomId": INSTALL_ROOM, "userId": "@claw:loopback"},
+                      f)
+        secret = install_secret()
+        ws = os.path.join(root, "ws")
+        logger = list_logger()
+        gw = Gateway(config={"workspace": ws,
+                             "agents": [{"id": a} for a in INSTALL_AGENTS]},
+                     logger=logger)
+        plugin = GovernancePlugin(device=device)
+        gw.load(plugin, plugin_config=install_governance_config(
+            creds_path, chain.url, secret), logger=logger)
+        gw.start()
+        llm = plugin.engine.output_validator.llm_validator
+        batcher = llm.call_llm.batcher
+        check(plugin.approval_2fa is not None and plugin.erc8004 is not None
+              and "matrix-2fa-poller" in {s.id for _, s in gw.services},
+              "governance_install: 2FA, the poller or ERC-8004 not built")
+        served: list = []
+        call_llm = llm.call_llm
+
+        def recorded(prompt: str) -> str:
+            verdict = call_llm(prompt)
+            served.append([prompt, verdict])
+            return verdict
+
+        llm.call_llm = recorded
+        batcher.submit("warm-up request")
+        batches0 = batcher.batches
+        texts = gateway_texts(serial + threaded, seed=INSTALL_SEED)
+        decide = gateway_call(gw)
+        if count is not None:
+            count(reset=True)
+        got, lat_s, wall_s, errors = serve_round(decide, texts[:serial], 1)
+        check(not errors, f"governance_install: serial sends: {errors[:2]}")
+        got_t, lat_t, wall_t, errors = serve_round(decide, texts[serial:],
+                                                   INSTALL_THREADS)
+        check(not errors, f"governance_install: threaded sends: "
+                          f"{errors[:2]}")
+        launches = count() if count is not None else None
+        batches = batcher.batches - batches0
+        totp = Totp(secret)
+        rounds_out = [install_2fa_round(gw, hs, totp, f"ops{r}",
+                                        INSTALL_2FA_THREADS, 30.0 * (r % 2))
+                      for r in range(rounds)]
+        refused = install_refused_round(gw, hs, plugin, totp, "ops-x")
+        lookups: list = []
+        lookup = plugin.erc8004.lookup_reputation
+
+        def timed_lookup(token_id: int) -> dict:
+            t = time.perf_counter()
+            rep = lookup(token_id)
+            lookups.append([token_id, (time.perf_counter() - t) * 1e3,
+                            bool(rep.get("from_cache"))])
+            return rep
+
+        plugin.erc8004.lookup_reputation = timed_lookup
+        agents = list(INSTALL_AGENTS) + [f"ops{r}" for r in range(rounds)]
+        contexts = [[a, k, [r["prepend_context"] for r in
+                            gw.before_agent_start(install_ctx(a)) if r]]
+                    for k in range(2) for a in agents]
+        rpc_calls = chain.calls
+        warnings = [m for lv, m in logger.records
+                    if lv in ("warn", "error") and "[2fa]" in m]
+        evaluations = gw.call_method("governance.status")["stats"][
+            "totalEvaluations"]
+        gw.stop()
+    finally:
+        hs.close()
+        chain.close()
+    left = install_threads_left(before)
+    check(not left, f"governance_install: threads left after stop: {left}")
+    return {"decisions": dict(zip(texts, got + got_t)), "served": served,
+            "batches": batches, "launches": launches,
+            "serial": latency_summary(lat_s, wall_s),
+            "threaded": latency_summary(lat_t, wall_t),
+            "rounds": rounds_out, "refused": refused,
+            "contexts": contexts, "lookups": lookups, "rpc_calls": rpc_calls,
+            "warnings": warnings, "evaluations": evaluations,
+            "audit": install_audit(ws), "puts": len(hs.sent),
+            "put_auth": sorted({s["auth"] for s in hs.sent})}
+
+
+def install_governance_check(card: dict, host: dict, oracle: dict,
+                             n_layers: int) -> dict:
+    """Leg A on the card against the CPU's run and the one-shot oracle."""
+    leg = "governance_install"
+    for key in ("decisions", "contexts", "audit", "evaluations", "refused",
+                "rpc_calls", "puts", "put_auth"):
+        check(card[key] == host[key], f"{leg}: {key} differ card vs CPU")
+    check([r["decisions"] for r in card["rounds"]]
+          == [r["decisions"] for r in host["rounds"]]
+          and [r["prompt"] for r in card["rounds"]]
+          == [r["prompt"] for r in host["rounds"]],
+          f"{leg}: the 2FA rounds differ card vs CPU")
+    for r in card["rounds"]:
+        check(all(not d[0] for row in r["decisions"] for d in row),
+              f"{leg}: an approved call stayed blocked: {r['decisions']}")
+        check(r["auth"] == "Bearer syt_loopback"
+              and "%21approvals%3Aloopback" in r["path"],
+              f"{leg}: the prompt PUT went to {r['path']}")
+    mismatched = [p for p, v in card["served"] if oracle.get(p) != v]
+    check(card["served"] and not mismatched,
+          f"{leg}: {len(mismatched)} stage-3 verdicts differ from the "
+          "one-shot oracle")
+    check(sorted(card["served"]) == sorted(host["served"]),
+          f"{leg}: stage-3 prompts or verdicts differ card vs CPU")
+    blocked = sum(bool(d[0]) for d in card["decisions"].values())
+    check(0 < blocked < len(card["decisions"]),
+          f"{leg}: {blocked} of {len(card['decisions'])} sends blocked")
+    onchain = [c for _, _, cs in card["contexts"] for c in cs
+               if "onchain=" in c]
+    check(len(onchain) == 2 * len(INSTALL_TOKENS)
+          and card["rpc_calls"] == 2 * len(INSTALL_TOKENS),
+          f"{leg}: {len(onchain)} onchain contexts, {card['rpc_calls']} "
+          "RPC calls")
+    cached = [hit for _, _, hit in card["lookups"]]
+    check(cached == [False] * len(INSTALL_TOKENS) + [True]
+          * len(INSTALL_TOKENS), f"{leg}: lookups cached {cached}")
+    check(any("Unauthorized approval attempt by " + INSTALL_INTRUDER in m
+              for m in card["warnings"]),
+          f"{leg}: no unauthorised attempt logged: {card['warnings']}")
+    if card["launches"] is not None:
+        check(card["launches"]["k1"] == n_layers * card["batches"] > 0,
+              f"{leg}: K1 launches {card['launches']['k1']} != {n_layers} "
+              f"layers x {card['batches']} batches")
+    ms = [m for r in card["rounds"] for m in r["ms"]]
+    return {"blocked": blocked, "sends": len(card["decisions"]),
+            "stage3_verdicts": len(card["served"]),
+            "approval_ms": quantiles_ms(ms),
+            "to_prompt_ms": quantiles_ms([r["to_prompt_ms"]
+                                          for r in card["rounds"]]),
+            "prompt_to_code_ms": quantiles_ms([r["prompt_to_code_ms"]
+                                               for r in card["rounds"]]),
+            "erc_uncached_ms": [m for _, m, hit in card["lookups"]
+                                if not hit],
+            "erc_cached_ms": [m for _, m, hit in card["lookups"] if hit],
+            "onchain": sorted(set(onchain))}
+
+
+def install_messages(n: int, seed: int) -> list:
+    """``n`` seeded messages of ``generate_workload``'s ``msg_in`` and
+    ``msg_out`` ops, as ``(kind, content, agent)``."""
+    from vainplex_openclaw_tpu_torch.slo.workload import generate_workload
+
+    out = []
+    for op in generate_workload(seed, 8 * n, len(INSTALL_AGENTS)):
+        if op.kind in ("msg_in", "msg_out"):
+            out.append((op.kind, op.content, INSTALL_AGENTS[op.tenant]))
+        if len(out) == n:
+            return out
+    raise SmokeFailure(f"governance_install: only {len(out)} messages")
+
+
+def install_text(text: str) -> str:
+    """A command's text less the host's clock: a stage line dropped, each
+    ms and µs figure written as ``<t>``."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.strip().startswith("stages:")]
+    text = "\n".join(lines)
+    for pattern in _INSTALL_TIMING:
+        text = pattern.sub("<t>", text)
+    return text
+
+
+def install_brainplex_run(device, root: str, raws: list, count=None,
+                          n_messages: int = INSTALL_MESSAGES,
+                          n_queries: int = INSTALL_QUERIES) -> dict:
+    """Leg B on ``device``: the port's ``brainplex init --full --yes`` in
+    ``root/home`` (``OPENCLAW_HOME``), over an ``openclaw.json`` that
+    lists ``INSTALL_AGENTS``; a second init; the operator's edit
+    (``INSTALL_CORTEX_EDIT``); then the five port plugins loaded from the
+    written files on a virtual clock, ``n_messages`` messages, an
+    embeddings sync, ``n_queries`` ``/knowledge`` queries,
+    ``/trace-analyze`` over ``raws``, a tool call the credential guard
+    blocks, ``/governance`` and ``/ops``. ``count(reset=...)`` reads K1
+    and K3 from the first message to the last command."""
+    import contextlib
+    import io
+
+    from vainplex_openclaw_tpu_torch.brainplex import cli
+    from vainplex_openclaw_tpu_torch.brainplex.configurator import \
+        validate_generated
+    from vainplex_openclaw_tpu_torch.config.loader import (
+        deep_merge, read_openclaw_config)
+    from vainplex_openclaw_tpu_torch.core import Gateway
+    from vainplex_openclaw_tpu_torch.core.api import list_logger
+    from vainplex_openclaw_tpu_torch.cortex import (CortexPlugin,
+                                                    MemoryTraceSource)
+    from vainplex_openclaw_tpu_torch.events import EventStorePlugin
+    from vainplex_openclaw_tpu_torch.governance import GovernancePlugin
+    from vainplex_openclaw_tpu_torch.knowledge import KnowledgeEnginePlugin
+    from vainplex_openclaw_tpu_torch.sitrep import SitrepPlugin
+    from vainplex_openclaw_tpu_torch.storage import journal
+    from vainplex_openclaw_tpu_torch.storage.atomic import (read_json,
+                                                            write_json_atomic)
+    from vainplex_openclaw_tpu_torch.utils import ids
+
+    leg = "governance_install brainplex"
+    home = os.path.join(root, "home")
+    os.makedirs(home)
+    config_path = os.path.join(home, "openclaw.json")
+    with open(config_path, "w", encoding="utf-8") as f:
+        json.dump({"agents": {"list": [{"id": a} for a in INSTALL_AGENTS]}},
+                  f, indent=2)
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    os.environ["OPENCLAW_HOME"] = home
+    try:
+        argv = ["init", "--full", "--yes", "--config", config_path,
+                "--no-color"]
+        printed = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            code = cli.main(argv)
+        init_ms = (time.perf_counter() - t) * 1e3
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            code_again = cli.main(argv)
+        check(code == 0 and code_again == 0 and "nothing to do"
+              in again.getvalue(), f"{leg}: init exited {code}, then "
+                                   f"{code_again}: {again.getvalue()!r}")
+        written = {_BACKUP_STAMP.sub(".backup-<stamp>", k): v
+                   for k, v in worker_tree(home).items()}
+        merged = read_openclaw_config()
+        plugins = merged.get("plugins") or {}
+        configs = {pid: read_json(entry["configPath"])
+                   for pid, entry in plugins.items()}
+        check(sorted(plugins) == ["cortex", "eventstore", "governance",
+                                  "knowledge-engine", "sitrep"]
+              and all(isinstance(c, dict) for c in configs.values()),
+              f"{leg}: openclaw.json lists {sorted(plugins)}")
+        problems = validate_generated(configs)
+        check(not problems, f"{leg}: generated configs fail the port's "
+                            f"manifests: {problems}")
+        check(any(".backup-" in p for p in written),
+              f"{leg}: no backup of openclaw.json: {sorted(written)}")
+        cortex_path = plugins["cortex"]["configPath"]
+        write_json_atomic(cortex_path, deep_merge(configs["cortex"],
+                                                  INSTALL_CORTEX_EDIT))
+
+        ids._ID_RNG.seed(INSTALL_SEED)
+        clock = VirtualClock(WORKER_START)
+        ws = os.path.join(root, "ws")
+        logger = list_logger()
+        gw = Gateway(config={**merged, "workspace": ws}, logger=logger,
+                     clock=clock)
+        made = {
+            "governance": lambda: GovernancePlugin(
+                workspace=ws, clock=clock, device=device),
+            "cortex": lambda: CortexPlugin(
+                workspace=ws, clock=clock, wall_timers=False,
+                trace_source=MemoryTraceSource(raws), device=device),
+            "eventstore": lambda: EventStorePlugin(clock=clock),
+            "knowledge-engine": lambda: KnowledgeEnginePlugin(
+                workspace=ws, clock=clock, wall_timers=False,
+                device=device),
+            "sitrep": lambda: SitrepPlugin(workspace=ws, clock=clock,
+                                           wall_timers=False)}
+        for pid, entry in plugins.items():
+            gw.load(made[pid](), plugin_config=entry, logger=logger)
+        gw.start()
+        knowledge = gw.plugins["knowledge-engine"].module
+        emb = knowledge.embeddings
+        forwards, searches = [], []
+        embed = emb._embed
+
+        def counted_embed(texts):
+            forwards.append(len(texts))
+            return embed(texts)
+
+        emb._embed = counted_embed
+        emb.search = recording_search(emb, searches)
+        if count is not None:
+            count(reset=True)
+        for agent in INSTALL_AGENTS:
+            gw.session_start(install_ctx(agent))
+        for kind, content, agent in install_messages(n_messages,
+                                                     INSTALL_SEED):
+            clock.t += 1.0
+            if kind == "msg_in":
+                gw.message_received(content, install_ctx(agent))
+            else:
+                gw.message_sent(content, install_ctx(agent))
+        t = time.perf_counter()
+        synced = knowledge.maintenance.run_embeddings_sync()
+        sync_ms = (time.perf_counter() - t) * 1e3
+        texts = [gw.command("/knowledge", args=q)["text"]
+                 for q in knowledge_queries(n_queries, INSTALL_SEED)]
+        trace_text = gw.command("/trace-analyze")["text"]
+        guard = gw.before_tool_call("read", {"file_path": "/app/.env"},
+                                    install_ctx("main"))
+        governance_text = gw.command("/governance")["text"]
+        ops_text = gw.command("/ops")["text"]
+        launches = count() if count is not None else None
+        trace = trace_files(ws)
+        facts = [f.to_dict() for f in knowledge.fact_store.snapshot()]
+        gw.stop()
+        journal.reset_journals()
+    finally:
+        if saved_home is None:
+            os.environ.pop("OPENCLAW_HOME", None)
+        else:
+            os.environ["OPENCLAW_HOME"] = saved_home
+    return {"init_code": code, "printed": printed.getvalue(),
+            "printed_again": again.getvalue(), "init_ms": init_ms,
+            "written": written, "configs": configs, "synced": synced,
+            "sync_ms": sync_ms, "forwards": forwards,
+            "query_forwards": emb.query_cache_misses, "searches": searches,
+            "texts": texts, "trace_text": trace_text,
+            "trace": trace, "findings": len(trace["report"]["findings"]),
+            "guard": [guard.blocked, guard.block_reason],
+            "governance_text": governance_text, "ops_text": ops_text,
+            "facts": facts, "launches": launches}
+
+
+def install_brainplex_check(card: dict, host: dict, n_layers: int,
+                            windows: list) -> dict:
+    """Leg B on the card against the CPU's run: the written files
+    byte-equal, each command's text equal less the host's clock (the
+    /knowledge semantic lines by :func:`knowledge_search_differs`), the
+    credential guard's denial; K1 = n_layers x (sync + uncached query +
+    triage forwards), K3 one launch a window."""
+    leg = "governance_install brainplex"
+    check(card["written"] == host["written"],
+          f"{leg}: written files differ card vs CPU: "
+          f"{sorted(set(card['written']) ^ set(host['written']))}")
+    check(card["printed"] == host["printed"] and "enabled 5 plugins"
+          in card["printed"], f"{leg}: init printed {card['printed']!r}")
+    check(card["synced"] == host["synced"] > 0
+          and card["facts"] == host["facts"],
+          f"{leg}: synced {card['synced']} facts on the card, "
+          f"{host['synced']} on the CPU")
+    lines = [t.split("  semantic:")[0] for t in card["texts"]]
+    check(lines == [t.split("  semantic:")[0] for t in host["texts"]],
+          f"{leg}: the /knowledge fact lines differ card vs CPU")
+    differ = knowledge_search_differs(card, host)
+    check(not differ, f"{leg}: searches differ: {differ[:4]}")
+    for key in ("trace_text", "governance_text", "ops_text"):
+        check(install_text(card[key]) == install_text(host[key]),
+              f"{leg}: {key} differs card vs CPU:\n{card[key][:400]}\n"
+              f"{host[key][:400]}")
+    check(card["trace"] == host["trace"],
+          f"{leg}: the /trace-analyze files differ card vs CPU")
+    check(card["trace_text"].startswith("🔍 trace analysis:")
+          and card["findings"] > 0, f"{leg}: /trace-analyze answered "
+                                    f"{card['trace_text'][:200]!r}")
+    check(card["guard"][0] and "Credential Guard" in str(card["guard"][1]),
+          f"{leg}: the credential guard gave {card['guard']}")
+    sync_forwards = len(card["forwards"]) - card["query_forwards"]
+    check(sync_forwards == 1, f"{leg}: {len(card['forwards'])} forwards "
+                              f"for {card['query_forwards']} queries")
+    if card["launches"] is not None:
+        k1, k3 = card["launches"]["k1"], card["launches"]["k3"]
+        want = n_layers * (len(card["forwards"]) + 1)
+        check(k1 == want, f"{leg}: K1 launches {k1} != {n_layers} layers x "
+                          f"({len(card['forwards'])} embedding + 1 triage "
+                          "forwards)")
+        check(k3 == len(windows), f"{leg}: K3 launches {k3} != "
+                                  f"{len(windows)} windows")
+    return {"synced": card["synced"], "findings": card["findings"],
+            "queries": len(card["texts"]),
+            "query_forwards": card["query_forwards"],
+            "written": sorted(card["written"])}
+
+
+def install_legs(device, root: str, raws: list, count=None,
+                 governance_kw=None, brainplex_kw=None) -> dict:
+    """Both legs on ``device`` and then on the CPU, in this process; each
+    leg's card run held against its CPU run. The brainplex runs share one
+    root, emptied between them, so their paths are equal."""
+    import shutil
+
+    from vainplex_openclaw_tpu_torch.models import serve
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+
+    cfg, _ = load_pretrained(device="cpu")
+    gov = {}
+    for leg, dev, counter in (("card", device, count), ("host", "cpu", None)):
+        gov[leg] = install_governance_run(
+            dev, os.path.join(root, f"governance_{leg}"), counter,
+            **(governance_kw or {}))
+        serve.close_batchers()
+    oracle = one_shot_oracle({p for p, _ in gov["card"]["served"]},
+                             device=device)
+    serve.close_batchers()
+    held_a = install_governance_check(gov["card"], gov["host"], oracle,
+                                      cfg.n_layers)
+    bp = {}
+    bp_root = os.path.join(root, "brainplex")
+    for leg, dev, counter in (("card", device, count), ("host", "cpu", None)):
+        if os.path.exists(bp_root):
+            shutil.rmtree(bp_root)
+        bp[leg] = install_brainplex_run(dev, bp_root, raws, counter,
+                                        **(brainplex_kw or {}))
+    held_b = install_brainplex_check(bp["card"], bp["host"], cfg.n_layers,
+                                     trace_k3_windows(raws))
+    return {"governance": gov, "brainplex": bp, "oracle": oracle,
+            "held_governance": held_a, "held_brainplex": held_b}
+
+
+def install_raws() -> list:
+    """The brainplex leg's trace events: ``INSTALL_TRACE``'s bench chains
+    and doom loops, a day after the trace phases' corpora."""
+    return trace_corpus(0, INSTALL_TRACE["n_bench"], 0,
+                        INSTALL_TRACE["n_doom"],
+                        TRACE_BASE_TS + 2 * TRACE_DAY_MS, INSTALL_SEED)
+
+
+def phase_governance_install(smi: str) -> dict:
+    """The port's governance with every section on, and the configs its
+    own ``brainplex init`` writes served by its five plugins, on the card
+    and then on the CPU (:func:`install_legs`); K1 only at buckets the
+    kernels phase holds."""
+    import tempfile
+
+    import torch
+
+    from vainplex_openclaw_tpu_torch.models.pretrained import load_pretrained
+    from vainplex_openclaw_tpu_torch.ops import flash_attention as fa
+    from vainplex_openclaw_tpu_torch.ops import similarity as sim
+
+    t0 = time.perf_counter()
+    cfg, _ = load_pretrained()
+    raws = install_raws()
+    buckets: list = []
+    forward = fa._forward
+    counting = [False]  # between a leg's reset and its read
+
+    def count(reset: bool = False) -> dict:
+        torch.cuda.synchronize()
+        if reset:
+            fa.launches = sim.launches = 0
+        counting[0] = reset
+        return {"k1": fa.launches, "k3": sim.launches}
+
+    def record_bucket(q, *args, **kwargs):
+        if q.is_cuda and counting[0]:
+            buckets.append(list(q.shape))
+        return forward(q, *args, **kwargs)
+
+    saved_home = os.environ.get("OPENCLAW_HOME")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["OPENCLAW_HOME"] = os.path.join(root, "home")
+        fa._forward = record_bucket
+        try:
+            legs = install_legs(None, root, raws, count)
+        finally:
+            fa._forward = forward
+            if saved_home is None:
+                os.environ.pop("OPENCLAW_HOME", None)
+            else:
+                os.environ["OPENCLAW_HOME"] = saved_home
+    shapes = [list(s) for s in dict.fromkeys(map(tuple, buckets))]
+    unheld = trace_k1_unheld(shapes)
+    check(not unheld, f"governance_install: K1 launched at {unheld}, which "
+                      "no kernels case holds against the plain version")
+    gov, bp = legs["governance"]["card"], legs["brainplex"]["card"]
+    k1 = gov["launches"]["k1"] + bp["launches"]["k1"]
+    k1_by_bucket: dict = {}
+    for shape in buckets:
+        k1_by_bucket[str(shape[0])] = k1_by_bucket.get(str(shape[0]), 0) + 1
+    check(sum(k1_by_bucket.values()) == k1,
+          f"governance_install: K1 by bucket {k1_by_bucket} against {k1} "
+          "launches")
+    a, b = legs["held_governance"], legs["held_brainplex"]
+    record = {
+        "phase": "governance_install", "nvidia_smi": smi,
+        "governance": {
+            "sends": a["sends"], "blocked": a["blocked"],
+            "stage3_verdicts": a["stage3_verdicts"],
+            "oracle_equal": True, "cpu_equal": True,
+            "serial": gov["serial"], "threaded": gov["threaded"],
+            "threads": INSTALL_THREADS,
+            "batches": gov["batches"], "k1_launches": gov["launches"]["k1"],
+            "approval_rounds": len(gov["rounds"]),
+            "approval_threads": INSTALL_2FA_THREADS,
+            "approval_ms": a["approval_ms"],
+            "to_prompt_ms": a["to_prompt_ms"],
+            "prompt_to_code_ms": a["prompt_to_code_ms"],
+            "refused": gov["refused"]["decision"],
+            "refused_attempts": gov["refused"]["attempts"],
+            "erc_uncached_ms": a["erc_uncached_ms"],
+            "erc_cached_ms": a["erc_cached_ms"], "onchain": a["onchain"],
+            "cpu_serial_requests_per_s":
+                legs["governance"]["host"]["serial"]["requests_per_s"],
+            "cpu_threaded_requests_per_s":
+                legs["governance"]["host"]["threaded"]["requests_per_s"]},
+        "brainplex": {
+            "init_ms": bp["init_ms"],
+            "cpu_init_ms": legs["brainplex"]["host"]["init_ms"],
+            "written": b["written"], "operator_edit": INSTALL_CORTEX_EDIT,
+            "synced": b["synced"], "sync_ms": bp["sync_ms"],
+            "cpu_sync_ms": legs["brainplex"]["host"]["sync_ms"],
+            "queries": b["queries"], "query_forwards": b["query_forwards"],
+            "findings": b["findings"], "trace_events": len(raws),
+            "k1_launches": bp["launches"]["k1"],
+            "k3_launches": bp["launches"]["k3"],
+            "k3_windows": trace_k3_windows(raws)},
+        "k1_launches": k1, "k3_launches": bp["launches"]["k3"],
+        "k1_shapes": shapes, "k1_by_bucket": k1_by_bucket,
+        "seconds": time.perf_counter() - t0}
     emit(record)
     return record
 
@@ -7255,8 +8183,8 @@ def served_cases(lengths) -> list:
     ``lengths`` would serve (the pow2 bucket of Lq or Lk is one of
     them), plus the long serve shape: where a searched tile is held
     against the plain version before its row may be written. Not the
-    ``TRACE_TRIAGE_CASES``, ``WORKER_SERVE_CASES`` or
-    ``KNOWLEDGE_SYNC_CASES``: they differ from
+    ``TRACE_TRIAGE_CASES``, ``WORKER_SERVE_CASES``,
+    ``KNOWLEDGE_SYNC_CASES`` or ``INSTALL_SYNC_CASES``: they differ from
     ``serve_path`` only in the batch, which a tile does not see, and the
     search's check walks one (batch, head) slice at a time (65,536 of them
     at B=16384). Nor the wide cases: the wide library has its own tiles."""
@@ -7265,6 +8193,7 @@ def served_cases(lengths) -> list:
     buckets = {pow2_bucket(L) for L in lengths}
     cases = [c for c in KERNEL_CASES if c not in TRACE_TRIAGE_CASES
              and c not in WORKER_SERVE_CASES + KNOWLEDGE_SYNC_CASES
+             + INSTALL_SYNC_CASES
              and c not in WIDE_CASES + WIDE_STREAMED_Q_CASES
              and {pow2_bucket(c[3]), pow2_bucket(c[4])} & buckets]
     B, H, L, Dh = LONG_SERVE
@@ -7772,6 +8701,7 @@ def main() -> int:
         worker = phase_worker_profile(info["nvidia_smi"])
         cluster = phase_cluster(info["nvidia_smi"])
         knowledge = phase_knowledge_slo(info["nvidia_smi"])
+        installed = phase_governance_install(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])
@@ -7828,6 +8758,7 @@ def main() -> int:
             "worker_profile": worker["k1_launches"],
             "cluster": cluster["k1_launches"],
             "knowledge": knowledge["k1_launches"],
+            "governance_install": installed["k1_launches"],
             "chaos": chaos["train"]["k1_launches"]
             + chaos["trace"]["rerun"]["cuda"]["k1_launches"],
             "graft_entry": graft["entry"]["k1_launches"],
@@ -7912,6 +8843,7 @@ def main() -> int:
              "trace_analyzer": sum(traced[run]["card"]["k3_launches"]
                                    for run in TRACE_RUNS),
              "worker_profile": worker["k3_launches"],
+             "governance_install": installed["k3_launches"],
              "chaos": chaos["trace"]["rerun"]["cuda"]["k3_launches"]},
          "trace_analyzer_shape": trace_k3_line(traced),
          "dp_cell_bound_ms": k3["dp_cell_bound_ms"],

@@ -16,9 +16,10 @@ Deviations, each beside the JAX behaviour it departs from: a device error
 from ``call_llm`` propagates out of the port's ``message_sending`` under
 both failModes, where JAX logs it and answers with the failMode verdict;
 a plain error gives identical decisions; a missing card raises at
-``Gateway.load`` where JAX logs "local stage-3 unavailable"; 2FA without
-an approver and ERC-8004 raise at ``register`` in the port (redaction is
-ported: ``tests/test_torch_redaction.py``).
+``Gateway.load`` where JAX logs "local stage-3 unavailable". Each of the
+2FA and ERC-8004 sections, enabled, registers what JAX's registers (their
+flows: ``tests/test_torch_governance_2fa.py``; redaction:
+``tests/test_torch_redaction.py``).
 """
 
 from __future__ import annotations
@@ -412,14 +413,52 @@ def test_missing_card_raises_at_load_where_jax_logs(tmp_path, openclaw_home,
 @pytest.mark.parametrize("section", [
     {"twoFa": {"enabled": True, "totpSecret": "JBSWY3DPEHPK3PXP"}},
     {"erc8004": {"enabled": True}}])
-def test_unported_sections_raise_at_register(tmp_path, openclaw_home,
-                                             section):
-    gw = port_core.Gateway(config={"workspace": str(tmp_path)},
-                           logger=port_api.list_logger(), clock=FakeClock())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        gw.load(GovernancePlugin(workspace=str(tmp_path)),
-                plugin_config=section)
-    assert "governance" not in gw.plugins and not gw.services
+def test_two_fa_and_erc8004_configs_load_as_in_jax(tmp_path, openclaw_home,
+                                                   section):
+    """Each section, enabled, registers the same hooks (priority, plugin,
+    never_shed, handler) and services in both packages, and builds the
+    same approver or provider state."""
+    out = []
+    try:
+        for name, core_mod, api_mod, plugin_cls in (
+                ("jax", jax_core, jax_api, JaxPlugin),
+                ("port", port_core, port_api, GovernancePlugin)):
+            ws = tmp_path / name
+            ws.mkdir()
+            gw = core_mod.Gateway(config={"workspace": str(ws)},
+                                  logger=api_mod.list_logger(),
+                                  clock=FakeClock())
+            plugin = plugin_cls(workspace=str(ws), clock=gw.clock)
+            gw.load(plugin, plugin_config=section)
+            hooks = {hook: [(r.priority, r.plugin_id, r.never_shed,
+                             r.handler.__name__) for r in regs]
+                     for hook, regs in gw.bus._handlers.items()}
+            approval, erc = plugin.approval_2fa, plugin.erc8004
+            state = {
+                "approval": None if approval is None else {
+                    "config": approval.config,
+                    "wall_timers": approval.wall_timers,
+                    "pending": approval.pending_count(),
+                    "key": approval.totp.key,
+                    "notify": approval.notify_fn is not None},
+                "erc8004": None if erc is None else {
+                    "rpc_url": erc.rpc_url, "registry": erc.registry,
+                    "cache": [erc.cache_max, erc.cache_ttl_s]}}
+            out.append((hooks, [(pid, s.id) for pid, s in gw.services],
+                        sorted(gw.commands), state))
+            gw.stop()
+    finally:
+        jax_journal.reset_journals()
+        port_journal.reset_journals()
+    assert out[1] == out[0]
+    hooks, _, _, state = out[0]
+    if "twoFa" in section:
+        assert state["approval"]["config"]["totpSecret"] == "JBSWY3DPEHPK3PXP"
+        assert (100, "governance", True, "handle_2fa_code") in \
+            hooks["message_received"]
+    else:
+        assert state["erc8004"]["rpc_url"] == "https://mainnet.base.org"
+        assert state["approval"] is None
 
 
 def test_an_injected_approver_is_wired_as_in_jax(tmp_path, openclaw_home):

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Any, Optional
 
 from ..core.api import PluginLogger, make_logger
-from ..storage.atomic import write_json_atomic
+from ..storage.atomic import read_json, write_json_atomic
 
 _POINTER_KEYS = {"enabled", "configPath", "config_path"}
 
@@ -93,3 +93,9 @@ def load_plugin_config(
     external_enabled = bool(external.get("enabled", True)) if external else True
     merged["enabled"] = enabled and external_enabled
     return merged
+
+
+def read_openclaw_config(home: Optional[str | Path] = None) -> dict:
+    """Read the gateway-level ``openclaw.json`` (empty dict if absent)."""
+    home = Path(home) if home else Path(os.environ.get("OPENCLAW_HOME") or (Path.home() / ".openclaw"))
+    return read_json(home / "openclaw.json", {}) or {}

@@ -11,9 +11,9 @@ config-only local stage 3 (``validation.llmValidator: {enabled: true,
 local: true}``) serves its verdicts from the port's encoder on the card, or
 on the device ``GovernancePlugin(device=...)`` names; ``redaction/`` runs
 its outbound scan before governance enforces, so stage 3 scores the
-redacted text. Not ported yet: ``approval/`` (2FA, Matrix) and
-``security/`` (ERC-8004); a config that enables one of them raises at
-``register``.
+redacted text. ``approval/`` (2FA, with the Matrix notifier and poller) and
+``security/`` (ERC-8004, AgentProof) are built from the config as in the
+JAX package.
 
 On the stage-3 path the JAX package turns every error into a verdict or a
 log line. The port lets an error of the device (``device.is_device_error``)

@@ -27,11 +27,11 @@ A copy of ``vainplex_openclaw_tpu/governance/plugin.py`` with JAX's
   checkpoint) is logged as there;
 - ``_fail`` re-raises an error of the device, where the JAX package returns
   the failMode result (``None``, allow, under ``failMode: "open"``);
-- ``twoFa`` without an injected approver, and ``erc8004`` are not
-  ported: enabling one raises ``NotImplementedError`` at ``register``. An
-  approver passed as ``approval_2fa=`` is wired as in the JAX package.
-  ``redaction`` is the port's own ``governance/redaction/``, wired as in
-  the JAX package (its hooks, and the audit trail's credential scrubber).
+- ``twoFa`` is the port's own ``governance/approval/`` (TOTP batches, the
+  Matrix notifier and the ``matrix-2fa-poller`` service), ``erc8004`` its
+  own ``governance/security/``, and ``redaction`` its own
+  ``governance/redaction/``: each is wired as in the JAX package, its
+  catches around host work only.
 """
 
 from __future__ import annotations
@@ -151,6 +151,7 @@ class GovernancePlugin:
         self.redaction_state = None
         self.response_gate = None
         self.fact_registry = None
+        self.erc8004 = None
 
     # ── registration ─────────────────────────────────────────────────
 
@@ -160,7 +161,6 @@ class GovernancePlugin:
         if not self.config.get("enabled", True):
             api.logger.info("disabled via config")
             return
-        self._refuse_unported()
         workspace = (self._workspace_override or self.config.get("workspace")
                      or api.config.get("workspace") or ".")
         self.logger = api.logger
@@ -178,6 +178,7 @@ class GovernancePlugin:
         self._init_redaction(api)
         self._init_validation(api)
         self._init_2fa(api)
+        self._init_erc8004(api)
 
         api.on("before_tool_call", self.handle_before_tool_call, priority=1000)
         # never_shed: trust feedback + sub-agent spawn linking feed later
@@ -205,21 +206,6 @@ class GovernancePlugin:
                                     self.engine.get_trust(agent_id, session_key))
 
     # ── subsystem wiring ─────────────────────────────────────────────
-
-    def _refuse_unported(self) -> None:
-        """Raise for a section this port does not carry yet, rather than
-        serve without it (ROADMAP.md, Queue 1 item 2)."""
-        missing = [(section, module) for section, module in (
-            ("twoFa", "governance/approval/ (2FA, Matrix)"),
-            ("erc8004", "governance/security/ (ERC-8004)"))
-            if self.config.get(section, {}).get("enabled")
-            and not (section == "twoFa" and self.approval_2fa is not None)]
-        if missing:
-            raise NotImplementedError(
-                "governance: " + ", ".join(
-                    f"{section} needs {module}" for section, module in missing)
-                + ", not ported to the PyTorch package yet (ROADMAP.md, "
-                "Queue 1 item 2); disable the section or use the JAX package")
 
     def _init_redaction(self, api) -> None:
         if not self.config.get("redaction", {}).get("enabled"):
@@ -281,10 +267,50 @@ class GovernancePlugin:
         self.response_gate = ResponseGate(vcfg.get("responseGate", {}))
 
     def _init_2fa(self, api) -> None:
-        # Only an injected approver reaches here (_refuse_unported).
-        if self.approval_2fa is not None:
-            api.on("message_received", self.handle_2fa_code, priority=100,
-                   never_shed=True)
+        tcfg = self.config.get("twoFa", {})
+        if not tcfg.get("enabled") or self.approval_2fa is not None:
+            if self.approval_2fa is not None:
+                api.on("message_received", self.handle_2fa_code, priority=100,
+                       never_shed=True)
+            return
+        from .approval import Approval2FA
+
+        try:
+            self.approval_2fa = Approval2FA(tcfg, api.logger, clock=self.clock)
+        except ValueError as exc:
+            api.logger.error(f"2FA disabled: {exc}")
+            return
+        api.on("message_received", self.handle_2fa_code, priority=100,
+               never_shed=True)
+        creds_path = tcfg.get("matrixCredsPath")
+        if creds_path:
+            from .approval.matrix import MatrixNotifier
+            from .approval.poller import MatrixPoller, load_matrix_credentials
+
+            creds = load_matrix_credentials(creds_path)
+            if creds:
+                # Outbound: batched approval prompts go INTO the room
+                # (ref hooks.ts:812-874); inbound: the poller reads codes
+                # back out. Together they close the 2FA loop end-to-end.
+                notifier = MatrixNotifier(creds, api.logger, clock=self.clock)
+                self.approval_2fa.set_notify_fn(notifier.notify_fn())
+                poller = MatrixPoller(
+                    creds,
+                    lambda code, sender: self.approval_2fa.try_resolve_any(code, sender),
+                    api.logger,
+                    interval_s=tcfg.get("matrixPollIntervalSeconds", 2.0))
+                api.register_service(PluginService(
+                    id="matrix-2fa-poller",
+                    start=lambda ctx: poller.start(),
+                    stop=lambda ctx: poller.stop()))
+
+    def _init_erc8004(self, api) -> None:
+        ecfg = self.config.get("erc8004", {})
+        if not ecfg.get("enabled"):
+            return
+        from .security import ERC8004Provider
+
+        self.erc8004 = ERC8004Provider(ecfg, api.logger, clock=self.clock)
 
     # ── helpers ──────────────────────────────────────────────────────
 
@@ -442,6 +468,13 @@ class GovernancePlugin:
             agent = trust["agent"]
             context = (f"[governance] agent={agent_id} trust={agent['score']:.0f} "
                        f"tier={agent['tier']}")
+            if self.erc8004 is not None:
+                token_id = (self.config.get("erc8004", {}).get("agentTokens") or {}).get(agent_id)
+                if token_id is not None:
+                    rep = self.erc8004.lookup_reputation(int(token_id))
+                    if rep.get("exists"):
+                        context += (f" onchain={rep['reputation_score']} "
+                                    f"({rep['tier']}, {rep['feedback_count']} reviews)")
             return {"prepend_context": context}
         except Exception as exc:  # noqa: BLE001
             self._fail(exc, "before_agent_start")
