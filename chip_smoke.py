@@ -278,7 +278,12 @@ Versioned serving and the trace analyzer follow:
      ``retire_worker`` before the final drain: every fleet verdict equal
      to the one-shot oracle, none dropped or served twice, routed = served
      + redelivered, every op's final observation with each denial and
-     redaction, no fenced record, ``ProtocolWitness`` clean, and each
+     redaction, no fenced record, ``ProtocolWitness`` clean, the port's
+     ``LockOrderWitness`` over the supervisor's, fleet's, lease table's,
+     lease journal's (commit and buffer) and timer's locks acyclic with
+     the journal's commit→buffer edge (its edge count and cycles printed;
+     the batchers' locks stay out, each under a ``threading.Condition``
+     built before the storm could wrap it), and each
      tenant's tracker files byte-equal to the same storm's on the CPU
      with no kill and no retire. process: 3 workers in their own
      processes (``spawn``; none touches the card) and the fleet in this
@@ -356,6 +361,16 @@ Versioned serving and the trace analyzer follow:
      the CPU run's (a backup's time stamp aside), each command's text
      equal less the host's clock, the search hits tie-aware within 5e-2;
      K1 = n_layers x (embedding forwards + 1 triage forward);
+
+27f. analysis: the port's own gates, ``python -m
+     vainplex_openclaw_tpu_torch.analysis --root <checkout> --json <tmp>``
+     in a child process: exit 0, the ``graftlint:``, ``tracelint:`` and
+     ``protolint:`` lines with active=0 and stale=0, files above 100, the
+     explorer's schedules equal to ``ANALYSIS_SCHEDULES`` (77, JAX's count
+     over the same 7 configurations); then a control, a copy of the port's
+     tree with ``InProcessWorker._ack`` returning its seqs before any
+     commit, must exit 1 with that GL-PROTO-ACK finding its only active
+     one. The phase's wall seconds are printed; it launches no kernel;
 
 27a. chaos: fault plans (``resilience.faults``) on the checkpoint and
      state writers. The train leg trains ``triage-tiny`` at its full width
@@ -6146,6 +6161,47 @@ def warm_replicas(book: dict, device) -> dict:
     return {key: b.batches for key, b in book.items()}
 
 
+# the edge the lease journal's group commit takes (commit, then buffer),
+# which JAX's test_journal_locks_witnessed_acyclic asserts
+JOURNAL_LOCK_EDGE = ("Journal._commit_lock", "Journal._buffer_lock")
+
+
+def cluster_lock_witness(sup, fleet):
+    """The port's ``LockOrderWitness`` over the locks JAX's fleet storm
+    wraps (``tests/test_fleet_serving.py``): the supervisor's, the fleet's,
+    the lease table's, the lease journal's commit and buffer locks, and
+    the supervisor timer's. The replicas' batcher locks stay out: each sits
+    under a ``threading.Condition`` built with the batcher, before the
+    storm could wrap it, so a proxy would see the ``with`` sites and miss
+    the condition's waits."""
+    from vainplex_openclaw_tpu_torch.analysis.witness import LockOrderWitness
+
+    witness = LockOrderWitness()
+    witness.wrap_attr(sup, "_lock", "ClusterSupervisor._lock")
+    witness.wrap_attr(fleet, "_lock", "ReplicaFleet._lock")
+    witness.wrap_attr(sup.leases, "_lock", "LeaseTable._lock")
+    check(sup.leases.journal is not None,
+          "cluster: the lease table has no journal to witness")
+    witness.wrap_attr(sup.leases.journal, "_commit_lock",
+                      "Journal._commit_lock")
+    witness.wrap_attr(sup.leases.journal, "_buffer_lock",
+                      "Journal._buffer_lock")
+    witness.wrap_attr(sup.timer, "_lock", "ClusterSupervisor.timer._lock")
+    return witness
+
+
+def check_lock_order(witness, leg: str) -> dict:
+    """The witnessed lock order of a storm: acyclic, with the journal's
+    commit→buffer edge (so the witness saw the group commit)."""
+    edges = sorted(witness.edges())
+    cycles = witness.cycles()
+    check(not cycles, f"cluster {leg}: lock order has cycles {cycles}")
+    check(JOURNAL_LOCK_EDGE in edges,
+          f"cluster {leg}: no {JOURNAL_LOCK_EDGE} edge among {edges}")
+    return {"edges": len(edges), "cycles": cycles,
+            "edge_list": [list(e) for e in edges]}
+
+
 def cluster_storm(device, root: str, n: int, seed: int, oracle: dict,
                   chaos: bool, count=None) -> dict:
     """JAX's fleet storm shape on the port: a ``ClusterSupervisor`` over 3
@@ -6188,6 +6244,7 @@ def cluster_storm(device, root: str, n: int, seed: int, oracle: dict,
         batches0 = warm_replicas(book, device)
         witness = ProtocolWitness()
         witness.arm_supervisor(sup)
+        locks = cluster_lock_witness(sup, fleet)
         ops = cluster_ops(n, seed, root)
         rng = random.Random(f"clusterstorm:{seed}")
         kill_step = rng.randrange(n // 4, n // 2) if chaos else None
@@ -6243,6 +6300,7 @@ def cluster_storm(device, root: str, n: int, seed: int, oracle: dict,
               f"cluster {leg}: {stats['fencedRecords']} fenced records")
         violations = witness.violations()
         check(not violations, f"cluster {leg}: protocol {violations[:3]}")
+        lock_order = check_lock_order(locks, leg)
         if chaos:
             check(len(stats["failovers"]) == 1 and stats["membership"][
                 "dead"] == [chaos_log[0]["worker"]]
@@ -6260,7 +6318,7 @@ def cluster_storm(device, root: str, n: int, seed: int, oracle: dict,
     return {"leg": leg, "device": str(device), "ops": n, "wall_s": wall,
             "ops_per_s": n / wall, "chaos": chaos_log, "fired": fired,
             **verdicts, **audit, "batches": batches,
-            "replicas_built": len(book),
+            "replicas_built": len(book), "lock_order": lock_order,
             "launches": (None if launches is None else
                          {k: launches[k] - launches0[k] for k in launches}),
             "route_ms": timer["stages_ms"].get("route"),
@@ -6548,6 +6606,8 @@ def phase_cluster(smi: str) -> dict:
               "tenant_files_equal_cpu": len(host.pop("tenant_files")),
               "host_storm_ops_per_s": host["ops_per_s"],
               "host_storm_batches": host["batches"],
+              "lock_order_edges": storm["lock_order"]["edges"],
+              "lock_order_cycles": storm["lock_order"]["cycles"],
               **legs, "k1_launches": sum(k1.values()), "k1_by_leg": k1,
               "k1_shapes": shapes, "seconds": time.perf_counter() - t0}
     emit(record)
@@ -7865,6 +7925,143 @@ def phase_governance_install(smi: str) -> dict:
     return record
 
 
+# ── analysis: the port's static gates on the card's machine ──────────
+
+ANALYSIS_GATES = ("graftlint", "tracelint", "protolint")
+# the interleaving explorer's schedules over its 7 configurations, JAX's
+# count too (tests/test_torch_analysis_gate.py pins the two equal)
+ANALYSIS_SCHEDULES = 77
+ANALYSIS_MIN_FILES = 100
+ANALYSIS_TIMEOUT_S = 600
+_GATE_LINE = re.compile(r"^(graftlint|tracelint|protolint): files=(\d+)"
+                        r"(?: schedules=(\d+))? active=(\d+) "
+                        r"suppressed=(\d+) stale=(\d+)$", re.M)
+# The control runs every family but the explorer: the explorer executes
+# the imported package, not the copy, so it cannot see the injection.
+ANALYSIS_CONTROL_ONLY = ("GL-LOCK,GL-REDOS,GL-DRIFT,GL-TRACE,GL-RETRACE,"
+                         "GL-SHARD,GL-PROTO-EPOCH,GL-PROTO-FENCE,"
+                         "GL-PROTO-ORDER,GL-PROTO-ACK")
+# The ack-without-commit shape: _ack returns the seqs before any journal
+# commit (GL-PROTO-ACK's "release-before-commit").
+ANALYSIS_INJECT_AT = "    def _ack(self) -> list:\n"
+ANALYSIS_INJECTED = "        return list(self._since_ack)\n"
+ANALYSIS_CONTROL_KEY = ("GL-PROTO-ACK::vainplex_openclaw_tpu_torch/cluster/"
+                        "worker.py::InProcessWorker._ack:"
+                        "release-before-commit")
+
+
+def run_gate(root: str, report_path: str, only=None) -> dict:
+    """``python -m vainplex_openclaw_tpu_torch.analysis --root <root>
+    --json <report_path>`` in a child process from this checkout; its
+    exit code, output, summary lines, JSON report and wall seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "vainplex_openclaw_tpu_torch.analysis",
+           "--root", root, "--json", report_path]
+    if only:
+        cmd += ["--only", only]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                          timeout=ANALYSIS_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    gates = {m.group(1): {"files": int(m.group(2)),
+                          "schedules": (None if m.group(3) is None
+                                        else int(m.group(3))),
+                          "active": int(m.group(4)),
+                          "suppressed": int(m.group(5)),
+                          "stale": int(m.group(6))}
+             for m in _GATE_LINE.finditer(proc.stdout)}
+    report = None
+    if os.path.exists(report_path):
+        with open(report_path, encoding="utf-8") as fh:
+            report = json.load(fh)
+    return {"rc": proc.returncode, "stdout": proc.stdout,
+            "stderr": proc.stderr, "gates": gates, "report": report,
+            "seconds": seconds}
+
+
+def analysis_control_tree(dst: str) -> str:
+    """A copy of the port's tree (the package, ``chip_smoke.py`` and
+    ``tests/test_torch_*.py``, whose mesh constructors declare the axes)
+    under ``dst`` with the ack-without-commit violation injected into
+    ``cluster/worker.py``; returns ``dst``."""
+    import glob
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copytree(os.path.join(here, "vainplex_openclaw_tpu_torch"),
+                    os.path.join(dst, "vainplex_openclaw_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(here, "chip_smoke.py"), dst)
+    os.makedirs(os.path.join(dst, "tests"))
+    for path in glob.glob(os.path.join(here, "tests", "test_torch_*.py")):
+        shutil.copy(path, os.path.join(dst, "tests"))
+    worker = os.path.join(dst, "vainplex_openclaw_tpu_torch", "cluster",
+                          "worker.py")
+    with open(worker, encoding="utf-8") as fh:
+        src = fh.read()
+    check(src.count(ANALYSIS_INJECT_AT) == 1,
+          "analysis: the control's injection site is gone from worker.py")
+    with open(worker, "w", encoding="utf-8") as fh:
+        fh.write(src.replace(ANALYSIS_INJECT_AT,
+                             ANALYSIS_INJECT_AT + ANALYSIS_INJECTED))
+    return dst
+
+
+def analysis_leg(tmp: str) -> dict:
+    """The port's gates over this checkout: exit 0, the three summary
+    lines with active=0 and stale=0, files above ``ANALYSIS_MIN_FILES``,
+    schedules equal to ``ANALYSIS_SCHEDULES``; then the control, a copy
+    of the tree with one injected violation, which must exit 1 with that
+    finding its only active one."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    gate = run_gate(here, os.path.join(tmp, "report.json"))
+    check(gate["rc"] == 0, f"analysis: the gate exited {gate['rc']}: "
+          f"{gate['stdout'][-2000:]} {gate['stderr'][-2000:]}")
+    check(sorted(gate["gates"]) == sorted(ANALYSIS_GATES),
+          f"analysis: summary lines {sorted(gate['gates'])}")
+    for name, line in gate["gates"].items():
+        check(line["active"] == 0 and line["stale"] == 0,
+              f"analysis: {name} {line}")
+    for name in ("graftlint", "tracelint"):
+        check(gate["gates"][name]["files"] > ANALYSIS_MIN_FILES,
+              f"analysis: {name} scanned {gate['gates'][name]['files']} "
+              f"files")
+    schedules = gate["gates"]["protolint"]["schedules"]
+    check(schedules == ANALYSIS_SCHEDULES,
+          f"analysis: {schedules} schedules, not {ANALYSIS_SCHEDULES}")
+    check(gate["report"] is not None and gate["report"]["ok"]
+          and not gate["report"]["staleKeys"],
+          "analysis: the JSON report is missing, not ok, or stale")
+    control = run_gate(analysis_control_tree(os.path.join(tmp, "control")),
+                       os.path.join(tmp, "control.json"),
+                       only=ANALYSIS_CONTROL_ONLY)
+    active = ([f["key"] for f in control["report"]["active"]]
+              if control["report"] else None)
+    check(control["rc"] == 1 and active == [ANALYSIS_CONTROL_KEY],
+          f"analysis: the control exited {control['rc']} with active "
+          f"{active}: {control['stderr'][-2000:]}")
+    return {"gates": gate["gates"], "seconds": gate["seconds"],
+            "suppressed": [f["key"] for f in gate["report"]["suppressed"]],
+            "control": {"rc": control["rc"], "active": active,
+                        "gates": control["gates"],
+                        "seconds": control["seconds"]}}
+
+
+def phase_analysis(smi: str) -> dict:
+    """The port's three gates (graftlint, tracelint, protolint) run as a
+    child process on the card's machine, and their control
+    (:func:`analysis_leg`); host work only, so no launch is counted."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        leg = analysis_leg(tmp)
+    record = {"phase": "analysis", "nvidia_smi": smi, **leg,
+              "wall_s": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 # ── chaos: fault plans on the checkpoint and state writers ───────────
 
 CHAOS_STEPS = 60
@@ -8702,6 +8899,7 @@ def main() -> int:
         cluster = phase_cluster(info["nvidia_smi"])
         knowledge = phase_knowledge_slo(info["nvidia_smi"])
         installed = phase_governance_install(info["nvidia_smi"])
+        phase_analysis(info["nvidia_smi"])
         chaos = phase_chaos(info["nvidia_smi"])
         searched = phase_kernel_search(
             info["nvidia_smi"], timing_stats["sfu"]["ex2"]["steps_per_s"])

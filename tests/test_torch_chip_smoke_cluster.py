@@ -2,7 +2,9 @@
 small size: the chaos storm through the port's ``ClusterSupervisor`` with
 the fleet armed (and the same storm with no kill and no retire, whose
 tenant files it must equal), process workers with a real SIGKILL, and two
-workers that own a replica batcher each. The CPU's plain attention counts
+workers that own a replica batcher each. Each storm's locks are under the
+port's ``LockOrderWitness``: acyclic, with the lease journal's
+commit→buffer edge. The CPU's plain attention counts
 no launches, so the kernels' counts are the card's check. Controls: an
 oracle that disagrees on one text, and a storm whose tenant files differ,
 must each fail the phase."""
@@ -54,6 +56,10 @@ def test_cluster_legs_on_the_cpu(tmp_path, monkeypatch, openclaw_home,
     assert storm["launches"] is None
     assert storm["route_ms"] > 0 and storm["recover_ms"] > 0
     assert storm["tenant_files"] == legs["host_storm"]["tenant_files"]
+    for leg in (storm, legs["host_storm"]):   # the port's lock witness
+        assert leg["lock_order"]["cycles"] == [] \
+            and list(chip_smoke.JOURNAL_LOCK_EDGE) in \
+            leg["lock_order"]["edge_list"]
     assert legs["host_storm"]["chaos"] == []
     process = legs["process"]
     assert process["victim"] is not None and process["failover_ms"] >= 0

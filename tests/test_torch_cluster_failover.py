@@ -8,7 +8,8 @@ tenants and 3 workers, JAX's chaos sizes) and returns JAX's duration-free
 summary: per-op results, faults fired, failovers, membership, fenced
 records, redelivered, route faults, leases and the tenants' tracker files
 byte for byte after root normalisation. The two summaries must be equal.
-JAX's ``LockOrderWitness`` watches the port's locks; the port's
+The port's own ``LockOrderWitness`` watches each storm's locks (held
+to JAX's witness in ``tests/test_torch_analysis_witness.py``); the port's
 ``ProtocolWitness`` records each storm, and JAX's reads the same events
 the same way.
 
@@ -118,9 +119,9 @@ def strip_timing(record: dict) -> dict:
 
 
 def lock_witness(sup, extra=()):
-    """JAX's lock-order witness over the supervisor's locks (and the
+    """The port's lock-order witness over the supervisor's locks (and the
     fleet's, given as ``extra``)."""
-    w = jax_witness.LockOrderWitness()
+    w = witness.LockOrderWitness()
     w.wrap_attr(sup, "_lock", "ClusterSupervisor._lock")
     w.wrap_attr(sup.leases, "_lock", "LeaseTable._lock")
     if sup.leases.journal is not None:

@@ -14,8 +14,9 @@ weights carried across and token batches from a numpy seed:
   single-device forward, bf16 with the severity argmax equal and logits
   within 5e-2;
 - ``embeddings_forward`` over dp and ``arena_scores`` at dp in {1, 2, 4,
-  8}; the rule tables, the rule-table check (a copy of JAX's
-  ``validate_rule_table``), rule matching and ``restore_checkpoint`` onto
+  8}; the rule tables, the rule-table check (the port's
+  ``analysis.sharding.validate_rule_table``, which the plans arm, against
+  JAX's), rule matching and ``restore_checkpoint`` onto
   every plan, gathered back bit for bit;
 - verdict strings through ``make_local_call_llm`` on the dp×tp family equal
   JAX's mesh serve on the same checkpoint, and through the real gateway
@@ -54,11 +55,12 @@ from vainplex_openclaw_tpu.parallel import plan as jax_plan
 from vainplex_openclaw_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from vainplex_openclaw_tpu.parallel.pipeline import (
     stack_stage_params as jax_stack)
+from vainplex_openclaw_tpu_torch.analysis import sharding as port_sharding
 from vainplex_openclaw_tpu_torch.models import batching, serve
 from vainplex_openclaw_tpu_torch.models import checkpoint as port_ckpt
 from vainplex_openclaw_tpu_torch.models.encoder import (
     EncoderConfig, flatten_tree, forward, params_from_numpy)
-from vainplex_openclaw_tpu_torch.parallel import plan, rules
+from vainplex_openclaw_tpu_torch.parallel import plan
 from vainplex_openclaw_tpu_torch.parallel import sharded_forward
 from vainplex_openclaw_tpu_torch.parallel.mesh import cached_mesh, make_mesh
 
@@ -332,7 +334,8 @@ def test_validate_rule_table_copy_equals_jax(table):
     for name, params, _ in path_sets():
         paths = plan.param_path_keys(params)
         for regex in (True, False):
-            assert rules.validate_rule_table(table, paths, regex=regex) == \
+            assert port_sharding.validate_rule_table(
+                table, paths, regex=regex) == \
                 jax_sharding.validate_rule_table(table, paths, regex=regex), \
                 (name, regex)
 

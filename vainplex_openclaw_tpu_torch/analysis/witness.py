@@ -1,4 +1,5 @@
-"""The build-and-launch witness: no kernel build in a timed phase.
+"""Runtime witnesses: the build-and-launch, protocol and lock-order
+witnesses, the dynamic halves of the static passes.
 
 Counterpart of ``vainplex_openclaw_tpu/analysis/witness.py::
 RetraceWitness``, with the same method names. JAX pins that a stream of
@@ -21,14 +22,148 @@ event sequence of a real run (the port's ``ClusterSupervisor`` and its
 workers) and asserts the protocol's order invariants over it: grants
 advance the epoch strictly, traffic never precedes recovery at the
 granted epoch, and a handoff never regrants before the release barrier
-returned. The lock-order witness of the JAX module is a framework tool
-that imports no JAX; the port's tests use it as it is.
+returned.
+
+:class:`LockOrderWitness` is the JAX module's too, under the same name: the
+dynamic half of the lock-order pass (:mod:`.lock_order`). The static graph
+sees lexical ``with`` nesting inside one class; it cannot see a
+``StageTimer`` lock taken inside a ``FactStore`` critical section, or any
+order that only materialises through callbacks. Wrap the locks of
+interest, run the real workload (the cluster storms drive every serving
+edge concurrently, on the card too), and every acquisition made while
+holding another wrapped lock records a directed edge with the first
+observing thread. :meth:`LockOrderWitness.cycles` then answers whether two
+threads could have deadlocked on an inverted order, even if the run
+happened to schedule around it: an acyclic witnessed order is the
+schedule-independent property a storm that never deadlocks cannot show.
+
+Wrapped locks proxy ``acquire``/``release``/context-manager use, including
+the non-blocking probe (``acquire(blocking=False)``) the journal's group
+wait uses; re-entrant acquisition of the same wrapped lock (RLock) records
+no self-edge. A lock handed to a ``threading.Condition`` before it was
+wrapped stays raw inside the condition: wrap it before the condition is
+built, or leave that class out. Overhead is one thread-local list op per
+acquire/release plus a dict insert on first-seen edges; nothing imports
+this module at serving time.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, Optional
+
+
+class _WitnessedLock:
+    """Proxy recording acquisition order into its witness."""
+
+    __slots__ = ("_name", "_lock", "_witness")
+
+    def __init__(self, name: str, lock, witness: "LockOrderWitness"):
+        self._name = name
+        self._lock = lock
+        self._witness = witness
+
+    def acquire(self, *args, **kwargs):
+        got = self._lock.acquire(*args, **kwargs)
+        if got:
+            self._witness._note_acquire(self._name)
+        return got
+
+    def release(self):
+        self._witness._note_release(self._name)
+        return self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def locked(self):
+        return self._lock.locked()
+
+
+class LockOrderWitness:
+    """Records per-thread acquisition stacks and the edge set they imply."""
+
+    def __init__(self):
+        self._tls = threading.local()
+        self._edges: dict = {}   # (outer, inner) -> (thread_name, seq)
+        self._seq = 0
+        self._mutex = threading.Lock()
+
+    def wrap(self, name: str, lock) -> _WitnessedLock:
+        return _WitnessedLock(name, lock, self)
+
+    def wrap_attr(self, obj, attr: str, name: Optional[str] = None):
+        """Replace ``obj.attr`` with a witnessed proxy in place:
+        ``witness.wrap_attr(journal, "_commit_lock", "Journal._commit_lock")``."""
+        label = name or f"{type(obj).__name__}.{attr}"
+        wrapped = self.wrap(label, getattr(obj, attr))
+        setattr(obj, attr, wrapped)
+        return wrapped
+
+    # ── recording ────────────────────────────────────────────────────
+
+    def _stack(self) -> list:
+        stack = getattr(self._tls, "stack", None)
+        if stack is None:
+            stack = self._tls.stack = []
+        return stack
+
+    def _note_acquire(self, name: str) -> None:
+        stack = self._stack()
+        if name in stack:
+            # Re-entrant acquire (RLock): the thread already OWNS this lock,
+            # so this acquire can never block — recording edges from the
+            # locks taken in between (A → B → A again) would manufacture a
+            # cycle out of a schedule that cannot deadlock.
+            stack.append(name)
+            return
+        if stack:
+            with self._mutex:
+                for h in stack:
+                    if (h, name) not in self._edges:
+                        self._seq += 1
+                        self._edges[(h, name)] = (
+                            threading.current_thread().name, self._seq)
+        stack.append(name)
+
+    def _note_release(self, name: str) -> None:
+        stack = self._stack()
+        # release() order is the caller's business; drop the NEWEST hold of
+        # this name (matching RLock semantics).
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] == name:
+                del stack[i]
+                return
+
+    # ── reporting ────────────────────────────────────────────────────
+
+    def edges(self) -> dict:
+        with self._mutex:
+            return dict(self._edges)
+
+    def cycles(self) -> list:
+        """Elementary cycles in the witnessed order graph (each as a node
+        list ``[a, b, …, a]``); empty list = acquisition order is a DAG.
+        Shares the DFS with the static pass (lock_order.elementary_cycles)
+        so the two halves can never drift on what counts as a cycle."""
+        from .lock_order import elementary_cycles
+        graph: dict = {}
+        for a, b in self.edges():
+            graph.setdefault(a, set()).add(b)
+        return elementary_cycles(graph)
+
+    def assert_acyclic(self) -> None:
+        cycles = self.cycles()
+        if cycles:
+            pretty = "; ".join(" -> ".join(c) for c in cycles)
+            raise AssertionError(
+                f"lock acquisition order has cycles: {pretty} "
+                f"(edges: {sorted(self.edges())})")
 
 
 def launch_counters() -> dict:

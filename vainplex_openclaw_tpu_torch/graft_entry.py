@@ -60,6 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .analysis.sharding import validate_rule_table
 from .device import DeviceLike, resolve_device
 from .models import train
 from .models.data import TextClassificationData, synthetic_examples
@@ -75,7 +76,6 @@ from .parallel.mesh import Mesh, make_mesh
 from .parallel.pipeline import pipeline_apply, stack_stage_params
 from .parallel.plan_search import launches_per_forward
 from .parallel.ring_attention import dense_attention_reference, ring_attention
-from .parallel.rules import validate_rule_table
 
 ENTRY_TEXTS = ("tool call failed: connection refused",
                "we decided to ship v2 tomorrow")

@@ -247,7 +247,8 @@ def _check_rows(A, B, len_a, len_b) -> None:
     if len_a.shape != (A.shape[0],) or len_b.shape != (A.shape[0],):
         raise ValueError("len_a and len_b must be [N]")
     ts = (A, B, len_a, len_b)
-    if any(t.dtype != torch.int32 for t in ts):
+    if any(dt != torch.int32 for dt in (A.dtype, B.dtype, len_a.dtype,
+                                        len_b.dtype)):
         raise TypeError("levenshtein_rows takes int32 tensors")
     if len({t.device for t in ts}) != 1:
         raise ValueError("A, B, len_a and len_b must lie on one device")

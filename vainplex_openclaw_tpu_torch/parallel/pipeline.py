@@ -58,7 +58,7 @@ def pipeline_apply(stage_params: Sequence, x: torch.Tensor,
         if t >= S - 1:  # the last stage emits microbatch t - (S - 1)
             out[t - (S - 1)] = state[S - 1]
         if t < M + S - 2:  # the hop s → s + 1; none after the final step
-            state = [None] + [None if x is None
-                              else x.to(devices[s + 1], non_blocking=True)
-                              for s, x in enumerate(state[:-1])]
+            state = [None] + [None if h is None
+                              else h.to(devices[i + 1], non_blocking=True)
+                              for i, h in enumerate(state[:-1])]
     return torch.cat(out, dim=0)

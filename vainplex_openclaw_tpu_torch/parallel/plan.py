@@ -7,7 +7,8 @@ one entry per tensor dimension, an axis name or ``None``; ``()`` is fully
 replicated (JAX's ``P()``).
 
 Every family of the JAX ``PLAN_TABLE`` is here with its rule table.
-:func:`plan_shardings` arms the rule-table check (``rules.py``) at every
+:func:`plan_shardings` arms the rule-table check
+(``analysis/sharding.py``'s ``validate_rule_table``, as JAX's does) at every
 placement, so a dead rule, such as the MoE rules over a dense checkpoint,
 fails loudly. The port has no GSPMD: :func:`place_params` cuts every leaf
 by its spec for each position of the plan's grid (:func:`plan_grid`) and
@@ -53,7 +54,6 @@ import torch
 from ..device import backend_family
 from ..ops.similarity import pow2_bucket
 from .mesh import Mesh
-from .rules import validate_rule_table
 
 RUNNERS = ("forward", "pipeline", "long")
 
@@ -614,6 +614,8 @@ def plan_shardings(plan: ShardingPlan, params, mesh: Mesh):
         raise ValueError(
             f"plan {plan.family!r} needs mesh axes {missing} but the mesh "
             f"declares {mesh.axis_names}")
+    from ..analysis.sharding import validate_rule_table
+
     problems = validate_rule_table(plan.rules, param_path_keys(params),
                                    regex=True)
     if problems:

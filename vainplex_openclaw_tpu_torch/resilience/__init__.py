@@ -10,6 +10,7 @@ from .faults import (
     install_plan,
     installed,
     maybe_fail,
+    wrap_clock,
     write_with_faults,
 )
 
@@ -22,5 +23,6 @@ __all__ = [
     "install_plan",
     "installed",
     "maybe_fail",
+    "wrap_clock",
     "write_with_faults",
 ]

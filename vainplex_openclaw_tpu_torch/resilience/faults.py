@@ -25,7 +25,9 @@ at the same places:
   sites where compaction rewrites a snapshot stream
   (:mod:`..storage.journal`);
 - ``"audit.append"`` (torn-capable) where the audit trail appends a day
-  file (:mod:`..governance.audit`).
+  file (:mod:`..governance.audit`);
+- ``"clock"``, the default site of :func:`wrap_clock`, a time source whose
+  chosen ticks raise.
 
 A plan decides failures from ``(seed, site, per-site call index)`` only, so
 a chaos run is bit-reproducible: the same seed gives the same faults on the
@@ -195,3 +197,15 @@ def write_with_faults(site: str, write: Callable, data) -> None:
             write(data[:cut])
         raise FaultError(f"[fault:{site}] torn write at byte {cut}/{len(data)}")
     raise FaultError(f"[fault:{site}] {spec.message}")
+
+
+def wrap_clock(clock: Callable[[], float], site: str = "clock"):
+    """A clock that consults the plan: chosen ticks raise (a time source can
+    fail too — NTP death, VM pause detection). Sites that cache per-second
+    state must survive it."""
+
+    def faulty_clock() -> float:
+        maybe_fail(site)
+        return clock()
+
+    return faulty_clock
