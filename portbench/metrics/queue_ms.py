@@ -1,0 +1,8 @@
+"""The program's StageTimer ``queue`` stage over the window, in ms per
+entry (see ``_stage.py``)."""
+
+from portbench.metrics._stage import mean_ms
+
+
+def read(window, setup_s: float):
+    return mean_ms(window, "queue")
