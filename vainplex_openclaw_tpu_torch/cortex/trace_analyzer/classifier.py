@@ -39,6 +39,7 @@ from ...models.pretrained import load_pretrained
 from ...models.tokenizer import encode_texts
 from ...ops.similarity import pad_rows, pow2_bucket
 from ...utils.llm_json import parse_llm_json
+from ...utils.stage_timer import new_id, span
 from .redactor import redact_chain, redact_text
 
 ACTION_TYPES = ("soul_rule", "governance_policy", "cortex_pattern",
@@ -124,21 +125,41 @@ def finding_text(finding) -> str:
 def keep_logits(findings: list, checkpoint_dir: Optional[str] = None,
                 device: DeviceLike = None) -> torch.Tensor:
     """The keep head's logits ``[len(findings), 2]``, computed on ``device``
-    (default: the card) and returned in fp32 on the CPU."""
-    dev = resolve_device(device)
-    loaded = load_pretrained(checkpoint_dir, device=dev)
-    if loaded is None:
-        cfg = EncoderConfig()
-        params = params_from_numpy(init_params_from_seed(cfg, 7), cfg, dev)
-    else:
-        cfg, params = loaded
-    tokens = encode_texts([finding_text(f) for f in findings], cfg.seq_len,
-                          cfg.vocab_size)
-    # zero-token pad rows pool to nothing and are sliced away below
-    padded = pad_rows(tokens, pow2_bucket(len(findings)))
-    with torch.inference_mode():
-        out = forward(params, torch.from_numpy(padded).to(dev), cfg)
-        return out["keep"][:len(findings)].float().cpu()
+    (default: the card) and returned in fp32 on the CPU.
+
+    While a torch profiler records, the call is the span ``keep_logits``
+    (a fresh call id, ``n`` the findings) and its parts are spans of the
+    same id: ``load`` (device and weights), ``tokenize`` (finding text and
+    ``encode_texts``), ``pad``, ``launch`` (tokens to the device and
+    ``forward`` returning) and ``sync`` (the ``.cpu()`` that waits for the
+    card), one after another; see ``utils/stage_timer.py``."""
+    cid, n = new_id(), len(findings)
+    # the parts follow one another with no gap (``Span.then``) and carry
+    # the thread's CPU seconds; the call's own is theirs summed
+    with span("keep_logits", cid, None, n, cpu=False):
+        part = span("load", cid, None, n)
+        try:
+            dev = resolve_device(device)
+            loaded = load_pretrained(checkpoint_dir, device=dev)
+            if loaded is None:
+                cfg = EncoderConfig()
+                params = params_from_numpy(init_params_from_seed(cfg, 7),
+                                           cfg, dev)
+            else:
+                cfg, params = loaded
+            part = part.then("tokenize")
+            tokens = encode_texts([finding_text(f) for f in findings],
+                                  cfg.seq_len, cfg.vocab_size)
+            part = part.then("pad")
+            # zero-token pad rows pool to nothing and are sliced away below
+            padded = pad_rows(tokens, pow2_bucket(n))
+            with torch.inference_mode():
+                part = part.then("launch")
+                out = forward(params, torch.from_numpy(padded).to(dev), cfg)
+                part = part.then("sync")
+                return out["keep"][:n].float().cpu()
+        finally:
+            part.end()
 
 
 def local_triage(findings: list, min_severity: str = "medium",

@@ -9,10 +9,23 @@ one-shot path (``render_verdict``).
 
 Admission rides :class:`AdmissionController`: a submit landing above the
 shed threshold raises :class:`ServeSheddedError` instead of queueing.
-Per-request attribution lands in a :class:`StageTimer` under four stages:
-``queue`` (enqueue → batch formation), ``batch`` (drain + tokenize + pad),
-``prefill`` (host → device tokens, the batched forward, and the severity
-logits back to the host) and ``decode`` (argmax + verdict render).
+Per-request attribution lands in a :class:`StageTimer` under JAX's four
+stages: ``queue`` (enqueue → batch formation), ``batch`` (drain +
+tokenize + pad), ``prefill`` (host → device tokens, the batched forward,
+and the severity logits back to the host) and ``decode`` (argmax +
+verdict render). The timer is the gateway's ``serve`` edge, so it holds
+these per-request stages alone (a mesh adds ``shard`` and ``gather``,
+below). Each is a :class:`~..utils.stage_timer.Span` of the batch's id,
+so while a torch profiler records it is also an ``openclaw.*`` range and
+a record of the span log. The log alone (no stage) gets the collector's
+``wait`` (queue empty → first ticket) and ``window`` (first ticket →
+drained), and in a checkpoint batch ``tokenize`` (the ``encode_texts``
+call, inside ``batch``) and, on one device, ``launch`` (tokens to the
+device and ``forward`` returning) and ``sync`` (the ``.cpu()`` that
+waits for the card), which together make up ``prefill``; besides, each
+ticket's ``queue`` (enqueue → batch start) and ``wake`` (its
+``done.set()`` → :meth:`ContinuousBatcher.submit` returning on the
+submitter's thread) under its request id, parent the batch id.
 
 Tokens move host → device once per batch, and severity comes back with one
 ``.cpu()``. Every zero-pad row has all its keys masked; the attention
@@ -57,7 +70,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.similarity import pad_rows, pow2_bucket
 from ..parallel import plan as sharding_plan
-from ..utils.stage_timer import StageTimer
+from ..utils.stage_timer import SPANS, Span, StageTimer, new_id, span
 from .encoder import forward
 from .pretrained import DEFAULT_DIR, available, load_pretrained
 from .tokenizer import encode_texts
@@ -99,6 +112,11 @@ class _Pending:
     # version whatever swaps land later ("mis-versioned" means the serving
     # version disagreed with this stamp).
     version: Optional[str] = None
+    # The request's id, the id of the batch that served it, and when the
+    # collector answered it (set only while tracing: the ``wake`` span).
+    rid: Optional[int] = None
+    bid: Optional[int] = None
+    done_at: Optional[float] = None
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -191,11 +209,14 @@ class ContinuousBatcher:
 
     def enqueue(self, text: str, tenant: str = "serve",
                 at: Optional[float] = None,
-                version: Optional[str] = None) -> _Pending:
+                version: Optional[str] = None,
+                rid: Optional[int] = None) -> _Pending:
         """Queue one request WITHOUT waiting; returns the ticket. ``at``
         overrides the enqueue timestamp (virtual-time drivers such as the
         fleet router); ``version`` pre-stamps the serving version, else an
-        attached registry resolves it here (pin > canary > active)."""
+        attached registry resolves it here (pin > canary > active);
+        ``rid`` is the request id the caller's spans carry (a fresh one
+        by default)."""
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher closed")
@@ -213,7 +234,8 @@ class ContinuousBatcher:
             self.registry.shadow_note(text)
         req = _Pending(text=text, tenant=tenant,
                        enqueued_at=self._clock() if at is None else at,
-                       version=version)
+                       version=version,
+                       rid=new_id() if rid is None else rid)
         with self._nonempty:
             self._queue.append(req)
             self._nonempty.notify()
@@ -221,13 +243,19 @@ class ContinuousBatcher:
 
     def submit(self, text: str, tenant: str = "serve",
                timeout_s: float = 60.0,
-               version: Optional[str] = None) -> str:
+               version: Optional[str] = None,
+               rid: Optional[int] = None) -> str:
         """Serve one extracted message text; blocks until its batch ran.
         Raises :class:`ServeSheddedError` when admission sheds, whatever
-        the batch worker raised when serving failed."""
-        req = self.enqueue(text, tenant, version=version)
+        the batch worker raised when serving failed. ``rid`` is the
+        request's id (a fresh one by default); where its batch ran while
+        tracing, its ``wake`` is logged under that id, parent the batch
+        id."""
+        req = self.enqueue(text, tenant, version=version, rid=rid)
         if not req.done.wait(timeout_s):
             raise TimeoutError(f"serve request not batched in {timeout_s}s")
+        if req.done_at is not None:
+            SPANS.add("wake", req.done_at, self._clock(), req.rid, req.bid, 1)
         if req.error is not None:
             raise req.error
         return req.result
@@ -270,7 +298,7 @@ class ContinuousBatcher:
         batch = self._drain()
         if not batch:
             return 0
-        self._serve(batch)
+        self._serve(batch, new_id())
         return len(batch)
 
     def drain(self) -> int:
@@ -291,13 +319,26 @@ class ContinuousBatcher:
                     "oldestAt": self._queue[0].enqueued_at
                     if self._queue else None}
 
+    def _span(self, name: str, bid: Optional[int],
+              n: Optional[int] = None) -> Span:
+        """A stage of the batch ``bid`` on the batcher's timer, timed on
+        the batcher's clock (virtual in simulations), not the timer's."""
+        return Span(name, self.timer, bid, None, n, self._clock)
+
     def _collector(self) -> None:
         while True:
+            # waiting for work and forming the batch are no stage of a
+            # request: log-only spans, off the serve edge's timer
+            bid = new_id()
+            waiting = span("wait", bid)
             with self._nonempty:
                 while not self._queue and not self._closed:
                     self._nonempty.wait(0.1)
-                if self._closed and not self._queue:
-                    return
+                closing = self._closed and not self._queue
+            if closing:
+                waiting.end()
+                return
+            window = waiting.then("window")
             # batching window: let concurrent submitters land before the
             # drain — bounded, so a lone request pays ≤ window_ms extra.
             if self.window_ms > 0:
@@ -308,9 +349,10 @@ class ContinuousBatcher:
                             break
                     time.sleep(0.0002)
             batch = self._drain()
+            window.end()
             if batch:
                 try:
-                    self._serve(batch)
+                    self._serve(batch, bid)
                 except BaseException:  # noqa: BLE001 — answered per ticket
                     # Not re-raised, as in the JAX batcher: in this thread
                     # it would only end the collector and strand every
@@ -319,10 +361,13 @@ class ContinuousBatcher:
 
     # ── the batched serve step ───────────────────────────────────────
 
-    def _serve(self, batch: list) -> None:
-        """Run one batch. On any failure, even SystemExit or
-        KeyboardInterrupt, every ticket not yet answered gets the error
-        rather than waiting out its timeout; then the error is raised."""
+    def _serve(self, batch: list, bid: int) -> None:
+        """Run one batch under the batch id ``bid``. On any failure, even
+        SystemExit or KeyboardInterrupt, every ticket not yet answered gets
+        the error rather than waiting out its timeout; then the error is
+        raised."""
+        for req in batch:
+            req.bid = bid
         try:
             self._run_batch(batch)
         except BaseException as exc:
@@ -333,63 +378,80 @@ class ContinuousBatcher:
             raise
 
     def _run_batch(self, batch: list) -> None:
-        t0 = self._clock()
+        bid, n = batch[0].bid, len(batch)
+        part = self._span("batch", bid, n)
+        t0 = part.t0
         for req in batch:
             self.timer.add("queue", (t0 - req.enqueued_at) * 1e3)
+        if part.traced:
+            for req in batch:
+                SPANS.add("queue", req.enqueued_at, t0, req.rid, bid, 1)
         batch_version = batch[0].version
-        if self.model_fn is not None:
-            t1 = self._clock()
-            self.timer.add("batch", (t1 - t0) * 1e3)
-            texts = [r.text for r in batch]
-            classes = self.model_fn(texts) if self.registry is None \
-                else self.model_fn(texts, batch_version)
-            t2 = self._clock()
-            self.timer.add("prefill", (t2 - t1) * 1e3)
-        else:
+        try:
+            if self.model_fn is not None:
+                part = part.then("prefill")
+                texts = [r.text for r in batch]
+                classes = self.model_fn(texts) if self.registry is None \
+                    else self.model_fn(texts, batch_version)
+                part = part.then("decode")
+            else:
+                if self.registry is not None:
+                    # The stamped version decides the tree; a checkout
+                    # that raises fails this batch, never falls back.
+                    cfg, params, key = self.registry.checkout(batch_version)
+                else:
+                    loaded = load_pretrained(self.checkpoint_dir,
+                                             device=self.device)
+                    if loaded is None:
+                        raise RuntimeError(
+                            "continuous serve: checkpoint no longer loadable")
+                    cfg, params = loaded
+                    key = os.path.abspath(self.checkpoint_dir or DEFAULT_DIR)
+                with span("tokenize", bid, None, n):
+                    tokens = encode_texts([r.text for r in batch],
+                                          cfg.seq_len, cfg.vocab_size)
+                if self.mesh is not None:
+                    severity, part = self._run_mesh(tokens, cfg, params,
+                                                    key, part)
+                else:
+                    padded = pad_rows(tokens, pow2_bucket(n))
+                    part = part.then("prefill")
+                    with torch.inference_mode():
+                        with span("launch", bid, None, n):
+                            out = forward(
+                                params,
+                                torch.from_numpy(padded).to(self.device), cfg)
+                        with span("sync", bid, None, n):  # waits for the card
+                            severity = out["severity"].cpu()
+                part = part.then("decode")
+                classes = severity[:n].argmax(dim=-1).tolist()
+            for req, cls in zip(batch, classes):
+                req.result = render_verdict(int(cls))
+                if part.traced:
+                    req.done_at = self._clock()
+                req.done.set()
+            with self._lock:
+                self.served += n
+                self.batches += 1
             if self.registry is not None:
-                # The stamped version decides the tree; a checkout that
-                # raises fails this batch, never falls back.
-                cfg, params, key = self.registry.checkout(batch_version)
-            else:
-                loaded = load_pretrained(self.checkpoint_dir,
-                                         device=self.device)
-                if loaded is None:
-                    raise RuntimeError(
-                        "continuous serve: checkpoint no longer loadable")
-                cfg, params = loaded
-                key = os.path.abspath(self.checkpoint_dir or DEFAULT_DIR)
-            tokens = encode_texts([r.text for r in batch], cfg.seq_len,
-                                  cfg.vocab_size)
-            if self.mesh is not None:
-                severity, t2 = self._run_mesh(tokens, cfg, params, key, t0)
-            else:
-                padded = pad_rows(tokens, pow2_bucket(len(batch)))
-                t1 = self._clock()
-                self.timer.add("batch", (t1 - t0) * 1e3)
-                with torch.inference_mode():
-                    out = forward(params,
-                                  torch.from_numpy(padded).to(self.device),
-                                  cfg)
-                    severity = out["severity"].cpu()  # waits for the device
-                t2 = self._clock()
-                self.timer.add("prefill", (t2 - t1) * 1e3)
-            classes = severity[:len(batch)].argmax(dim=-1).tolist()
-        for req, cls in zip(batch, classes):
-            req.result = render_verdict(int(cls))
-            req.done.set()
-        with self._lock:
-            self.served += len(batch)
-            self.batches += 1
-        if self.registry is not None:
-            self.registry.note_served(batch_version, len(batch))
-        self.timer.add("decode", (self._clock() - t2) * 1e3)
+                self.registry.note_served(batch_version, n)
+            # The batch's tensors are freed inside ``decode``, not as the
+            # frame returns: freeing a tensor lets the sessions just
+            # answered take the interpreter lock, and that wait is part of
+            # the batch.
+            out = severity = None  # noqa: F841
+        except BaseException:
+            part.end(timed=False)  # a failed stage is no sample of it
+            raise
+        part.end()
 
     def _run_mesh(self, tokens: np.ndarray, cfg, params, key: str,
-                  t0: float):
+                  staged: Span):
         """The mesh-served step: route rows by real-token occupancy (with a
         ``"long"`` plan), bucket each sub-batch, place (``shard``), run,
-        and bring severity back (``gather``). Returns (severity [n, C] on
-        the CPU, the clock after gather)."""
+        and bring severity back (``gather``); ``staged`` is the batch's
+        ``batch`` span, ended once the sub-batches are padded. Returns
+        (severity [n, C] on the CPU, the ``gather`` span, still open)."""
         plan = sharding_plan.resolve_plan(self.plan_family, self.mesh,
                                           searched=self.searched_plans)
         subs = []  # (row indices, sub-plan, padded tokens)
@@ -412,41 +474,42 @@ class ContinuousBatcher:
         with self._lock:
             for _, sub_plan, _ in subs:
                 self.mesh_runs[sub_plan.runner] += 1
-        t1 = self._clock()
-        self.timer.add("batch", (t1 - t0) * 1e3)
-        placed = [(idx, sub_plan,
-                   sharding_plan.sharded_params(key, params, self.mesh,
-                                                sub_plan),
-                   sharding_plan.place_tokens(padded, self.mesh, sub_plan))
-                  for idx, sub_plan, padded in subs]
-        t_sh = self._clock()
-        self.timer.add("shard", (t_sh - t1) * 1e3)
-        with torch.inference_mode():
-            outs = [(idx, sharding_plan.serve_forward(
-                sub_params, shards, cfg, self.mesh, sub_plan))
-                for idx, sub_plan, sub_params, shards in placed]
-            self._sync()
-        t2 = self._clock()
-        self.timer.add("prefill", (t2 - t_sh) * 1e3)
-        if plan.runner == "pipeline" and plan.microbatches:
-            # the wavefront's prefill, shared evenly by its microbatches
-            per_mb = (t2 - t_sh) * 1e3 / plan.microbatches
-            for _ in range(plan.microbatches):
-                self.timer.add("microbatch", per_mb)
-        severity = torch.zeros((len(tokens), cfg.n_severity),
-                               dtype=torch.float32)
-        for idx, out in outs:
-            severity[torch.from_numpy(idx)] = \
-                out["severity"][:idx.size].float().cpu()
-        if cfg.n_experts > 0 and outs:
-            aux = float(outs[0][1]["moe_aux"])
-            with self._lock:
-                self._moe_aux_last = aux
-                self._moe_aux_sum += aux
-                self._moe_batches += 1
-        t_g = self._clock()
-        self.timer.add("gather", (t_g - t2) * 1e3)
-        return severity, t_g
+        part = staged.then("shard")
+        try:
+            placed = [(idx, sub_plan,
+                       sharding_plan.sharded_params(key, params, self.mesh,
+                                                    sub_plan),
+                       sharding_plan.place_tokens(padded, self.mesh,
+                                                  sub_plan))
+                      for idx, sub_plan, padded in subs]
+            part = part.then("prefill")
+            prefill_t0 = part.t0
+            with torch.inference_mode():
+                outs = [(idx, sharding_plan.serve_forward(
+                    sub_params, shards, cfg, self.mesh, sub_plan))
+                    for idx, sub_plan, sub_params, shards in placed]
+                self._sync()
+            part = part.then("gather")
+            if plan.runner == "pipeline" and plan.microbatches:
+                # the wavefront's prefill, shared evenly by its microbatches
+                per_mb = (part.t0 - prefill_t0) * 1e3 / plan.microbatches
+                for _ in range(plan.microbatches):
+                    self.timer.add("microbatch", per_mb)
+            severity = torch.zeros((len(tokens), cfg.n_severity),
+                                   dtype=torch.float32)
+            for idx, out in outs:
+                severity[torch.from_numpy(idx)] = \
+                    out["severity"][:idx.size].float().cpu()
+            if cfg.n_experts > 0 and outs:
+                aux = float(outs[0][1]["moe_aux"])
+                with self._lock:
+                    self._moe_aux_last = aux
+                    self._moe_aux_sum += aux
+                    self._moe_batches += 1
+        except BaseException:
+            part.end(timed=False)
+            raise
+        return severity, part
 
     def _sync(self) -> None:
         """Wait for every card this batcher serves on."""

@@ -29,12 +29,19 @@ serves from a :class:`~.registry.ModelRegistry` on the batcher's device,
 with the construction checkpoint registered as the incumbent ``"v0"``:
 ``call.batcher.registry`` takes more versions, canaries and promotions,
 and ``call.batcher.swap_to`` hot-swaps between them.
+
+While a torch profiler records, the continuous seam gives each call a
+request id (``stage_timer.new_id``), logs its ``extract``
+(``_extract_message``) under that id and carries the id into the
+batcher's ticket, whose ``queue`` and ``wake`` carry it too and name the
+batch that served it.
 """
 
 from __future__ import annotations
 
 import atexit
 import threading
+import time
 from typing import Callable, Optional
 
 import torch
@@ -44,6 +51,7 @@ from ..device import DeviceLike, is_device_error, resolve_device
 from ..parallel.mesh import _factor, available_devices, cached_mesh
 from ..parallel.plan import preferred_mesh_shape, searched_plans_enabled
 from ..resilience.admission import AdmissionController
+from ..utils.stage_timer import SPANS, new_id, tracing
 from .batching import ContinuousBatcher, render_verdict
 from .encoder import forward
 from .pretrained import available, load_pretrained
@@ -247,7 +255,12 @@ def make_local_call_llm(checkpoint_dir: Optional[str] = None,
         batcher = shared_batcher(checkpoint_dir, scfg, device=dev)
 
         def call(prompt: str) -> str:
-            return batcher.submit(_extract_message(prompt))
+            if not tracing():
+                return batcher.submit(_extract_message(prompt))
+            rid, t0 = new_id(), time.perf_counter()
+            text = _extract_message(prompt)
+            SPANS.add("extract", t0, time.perf_counter(), rid, None, 1)
+            return batcher.submit(text, rid=rid)
 
         call.batcher = batcher
         return call

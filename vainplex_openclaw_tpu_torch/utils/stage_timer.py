@@ -13,15 +13,46 @@ surfaces and the SLO harness can read p50/p95/p99 per stage instead of
 only means. ``snapshot()`` returns everything — accumulated ms, counts,
 quantiles — under ONE lock round-trip, replacing the torn
 ``stages_ms()``-then-``counts()`` read pattern on status paths.
+
+**Spans and the process span log.** ``StageTimer.stage()`` returns a
+:class:`Span`: one interval of work on a thread, which adds its
+milliseconds to the timer's stage when it ends. :func:`span` makes one
+without a stage. Tracing is on exactly while a torch profiler records
+(``torch.profiler.profile``, read through the profiler's own Python-level
+flag); there is no switch of its own. While it is on, every span also
+
+- lands in :data:`SPANS`, a bounded in-memory log (the newest
+  ``SPAN_LOG_CAPACITY`` records): name, start and end on
+  ``time.perf_counter``, thread, id (request, batch or call), parent id,
+  rows, and the thread's CPU seconds inside the span
+  (``time.thread_time``), so wall − CPU is the time it did not run
+  (waiting on a lock, the card or the interpreter lock);
+- is entered as a profiler range named ``openclaw.<name>`` on its
+  thread (torch's ``_RecordFunctionFast``; see ``_profiler_range``).
+
+So an operator who runs the served path under ``torch.profiler`` gets
+the program's spans (``openclaw.wait``, ``openclaw.batch``,
+``openclaw.tokenize``, ``openclaw.launch``, ``openclaw.sync``,
+``openclaw.keep_logits``, …) as ranges on the profiler's own timeline,
+on the thread that ran them and above the kernels they launched, in
+``prof.events()`` and in ``export_chrome_trace``; and
+``SPANS.between(t0, t1)`` gives the records of any stretch of that run,
+with the request ids the traces cannot carry. A request's intervals
+(its ``queue`` and ``wake``, the seam's ``extract``), which no thread
+runs from start to end, land in the log alone (``SpanLog.add``). With no
+profiler a stage costs a ``StageTimer.add`` and two clock reads, as it
+always has, and a span without a stage one read of the flag.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import math
+import sys
 import threading
 import time
-from contextlib import contextmanager
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple, Optional
 
 # Log2 histogram geometry. Bucket ``i`` covers [2^(e-1), 2^e) milliseconds
 # with e = i + _HIST_MIN_EXP; bucket 0 additionally absorbs everything
@@ -118,13 +149,12 @@ class StageTimer:
         self._counts: dict[str, int] = {}
         self._hist: dict[str, list] = {}
 
-    @contextmanager
-    def stage(self, name: str):
-        t0 = self._clock()
-        try:
-            yield
-        finally:
-            self.add(name, (self._clock() - t0) * 1000.0)
+    def stage(self, name: str, id: Optional[int] = None,
+              parent: Optional[int] = None,
+              n: Optional[int] = None) -> "Span":
+        """Time one stage: a :class:`Span` on this timer's clock, used as
+        ``with timer.stage(name):`` or chained with ``Span.then``."""
+        return Span(name, self, id, parent, n, self._clock)
 
     def add(self, name: str, ms: float) -> None:
         # ``_bucket_of`` inlined (one frexp, outside the lock): this is
@@ -241,3 +271,203 @@ class StageTimer:
             "quantiles": {k: estimate_quantiles(h, qs)
                           for k, h in hists.items()},
         }
+
+
+# ── spans ────────────────────────────────────────────────────────────
+
+SPAN_LOG_CAPACITY = 1 << 20
+
+
+def tracing() -> bool:
+    """True while a torch profiler records: the profiler's Python-level
+    flag. No profiler can record before torch's profiler module is
+    imported, so this module imports nothing of torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    t0: float            # time.perf_counter seconds
+    t1: float
+    thread: int          # threading.get_ident() of the thread that logged it
+    id: Optional[int]    # the request, batch or call id
+    parent: Optional[int]
+    n: Optional[int]     # rows the span worked on
+    cpu_s: Optional[float]  # the thread's CPU seconds inside (serving spans)
+
+
+class SpanLog:
+    """The bounded log of span records, newest kept. A ``deque`` with a
+    ``maxlen``: its appends, its copy and its ``clear`` are each one step
+    under the interpreter lock, so no lock of its own, which the serving
+    thread would otherwise queue on behind every session's ``wake``."""
+
+    def __init__(self, capacity: int = SPAN_LOG_CAPACITY):
+        self._records: collections.deque = collections.deque(maxlen=capacity)
+
+    def add(self, name: str, t0: float, t1: float, id: Optional[int] = None,
+            parent: Optional[int] = None, n: Optional[int] = None,
+            cpu_s: Optional[float] = None) -> None:
+        self._records.append(
+            (name, t0, t1, threading.get_ident(), id, parent, n, cpu_s))
+
+    def between(self, t0: float, t1: float) -> list:
+        """The records lying inside ``[t0, t1]``, in the order logged."""
+        return [SpanRecord._make(r) for r in list(self._records)
+                if r[1] >= t0 and r[2] <= t1]
+
+    def clear(self) -> None:
+        self._records.clear()
+
+    def __len__(self) -> int:
+        return len(self._records)
+
+
+SPANS = SpanLog()
+_ids = itertools.count(1)
+
+
+def new_id() -> int:
+    """A fresh id for a request, batch or call, unique in the process."""
+    return next(_ids)
+
+
+def _profiler_range(name: str):
+    """A profiler range named ``name`` on the calling thread: torch's
+    ``_RecordFunctionFast``. It records the range ``record_function``
+    does, but ``record_function`` enters and leaves through the op
+    dispatcher, which hands the interpreter lock to any thread waiting for
+    it at both ends: on the collector, with its sessions waiting, that
+    would add the very off-CPU time the spans measure."""
+    from torch._C._profiler import _RecordFunctionFast
+
+    return _RecordFunctionFast(name)
+
+
+class Span:
+    """One interval of work on a serving thread, started at construction
+    and ended by :meth:`end`, by leaving its ``with`` block, or by
+    :meth:`then`, which starts the next span at the same instant. Adds its
+    ms to ``timer`` under ``name`` when given (``StageTimer.stage``
+    returns one); while tracing, is a profiler range and a log record with
+    the thread's CPU seconds (``cpu=False``: none, for a span whose parts
+    tile it, so that its CPU time is theirs summed and no read of the CPU
+    clock falls between its ends and theirs)."""
+
+    __slots__ = ("name", "timer", "id", "parent", "n", "t0", "_clock",
+                 "_range", "_cpu0")
+
+    def __init__(self, name: str, timer: Optional[StageTimer] = None,
+                 id: Optional[int] = None, parent: Optional[int] = None,
+                 n: Optional[int] = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 cpu: bool = True):
+        self.name, self.timer, self.id, self.parent, self.n = \
+            name, timer, id, parent, n
+        self._clock = clock
+        traced = tracing()
+        self._arm(traced, cpu)
+        if traced:
+            # entered before the start is read: a name's first range
+            # costs tens of µs more than the next
+            self._range.__enter__()
+        self.t0 = clock()
+
+    def _arm(self, traced: bool, cpu: bool) -> None:
+        """Ready the span to start: while tracing, its profiler range made
+        and the thread's CPU clock read (a system call, µs on some hosts),
+        so that only entering the range lies between the start and the end
+        of the span before it."""
+        self._range = _profiler_range("openclaw." + self.name) \
+            if traced else None
+        self._cpu0 = time.thread_time() if traced and cpu else None
+
+    def _stop(self, cpu1: Optional[float]) -> tuple:
+        """Read the end and leave the range: (t1, CPU seconds or None)."""
+        cpu_s = None if self._cpu0 is None else cpu1 - self._cpu0
+        t1 = self._clock()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        return t1, cpu_s
+
+    @property
+    def traced(self) -> bool:
+        """Whether this span lands in the log (tracing was on at start)."""
+        return self._range is not None
+
+    def end(self, timed: bool = True) -> float:
+        """Close the span; returns its end on ``clock``. ``timed=False``
+        leaves its stage out (a step that failed is no sample of it)."""
+        t1, cpu_s = self._stop(
+            None if self._cpu0 is None else time.thread_time())
+        self._record(t1, cpu_s, timed)
+        self._close()
+        return t1
+
+    def then(self, name: str) -> "Span":
+        """Close this span and start ``name`` (same timer, ids, rows and
+        clock) where it ended: no gap between the two stages, one read of
+        the CPU clock for both, and the next profiler range opens right as
+        this one closes, before either's bookkeeping."""
+        traced = self._range is not None
+        nxt = Span.__new__(Span)
+        nxt.name, nxt.timer, nxt.id, nxt.parent, nxt.n, nxt._clock = \
+            name, self.timer, self.id, self.parent, self.n, self._clock
+        nxt._arm(traced, True)
+        t1, cpu_s = self._stop(nxt._cpu0)
+        nxt.t0 = t1
+        if traced:
+            nxt._range.__enter__()
+        self._record(t1, cpu_s, True)
+        self._close()
+        return nxt
+
+    def _close(self) -> None:
+        """Ended: a later ``end`` records nothing (an error handler may
+        end a span that a chain has already closed)."""
+        self._range = self.timer = self._cpu0 = None
+
+    def _record(self, t1: float, cpu_s: Optional[float],
+                timed: bool) -> None:
+        if self._range is not None:
+            SPANS.add(self.name, self.t0, t1, self.id, self.parent, self.n,
+                      cpu_s)
+        if timed and self.timer is not None:
+            self.timer.add(self.name, (t1 - self.t0) * 1e3)
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end()
+
+
+class _NoSpan:
+    """What :func:`span` hands back with no stage and no profiler."""
+
+    traced = False
+
+    def end(self, timed: bool = True) -> None:
+        return None
+
+    def then(self, name: str) -> "_NoSpan":
+        return self
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, id: Optional[int] = None, parent: Optional[int] = None,
+         n: Optional[int] = None, cpu: bool = True):
+    """A :class:`Span` without a stage: while tracing, a profiler range and
+    a log record; otherwise a shared no-op."""
+    if not tracing():
+        return _NO_SPAN
+    return Span(name, None, id, parent, n, cpu=cpu)
