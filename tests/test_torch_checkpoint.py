@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import json
 import os
+import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +29,17 @@ from vainplex_openclaw_tpu_torch.models import checkpoint as port_ckpt
 from vainplex_openclaw_tpu_torch.models import pretrained as port_pretrained
 from vainplex_openclaw_tpu_torch.models.encoder import (
     EncoderConfig, flatten_tree, params_from_numpy)
+from vainplex_openclaw_tpu_torch.models import tokenizer as port_tokenizer
 from vainplex_openclaw_tpu_torch.models.tokenizer import encode_texts
+from vainplex_openclaw_tpu_torch.ops import _build
 from vainplex_openclaw_tpu_torch.ops import similarity as port_similarity
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from portbench.reference.text import finding_text  # noqa: E402
+from portbench.traffic import generator as traffic  # noqa: E402
 
 MULTILINGUAL = [
     "Der Build ist fehlgeschlagen: Verbindung abgelehnt",
@@ -76,6 +87,203 @@ class TestTokenizer:
         assert (ids[:, 0] == 1).all()           # CLS
         assert (ids[1, 1:] == 0).all()          # PAD
         assert (ids[0, 1:3] >= 2).all()         # hashed words skip 0/1
+
+
+def python_ids(texts, seq_len, vocab):
+    """The port's Python loop over every row, as with no compiled pass."""
+    out = np.zeros((len(texts), seq_len), np.int32)
+    port_tokenizer._encode_python(texts, range(len(texts)), out, seq_len,
+                                  vocab)
+    return out
+
+
+def counted(texts, seq_len, vocab):
+    """``encode_texts`` and the rows it gave (compiled, Python)."""
+    c0, p0 = port_tokenizer.compiled_rows, port_tokenizer.python_rows
+    got = encode_texts(texts, seq_len, vocab)
+    return got, (port_tokenizer.compiled_rows - c0,
+                 port_tokenizer.python_rows - p0)
+
+
+@pytest.fixture(scope="module")
+def corpora():
+    """The ``stage3_chat`` mix's 4,096 messages (3 to 3,840 words, most
+    past 63) and 20,000 ``bulk_triage`` finding texts."""
+    with open(os.path.join(REPO, "portbench", "traffic",
+                           "stage3_chat.json")) as f:
+        chat = traffic.generate(json.load(f), 0)
+    found = traffic.findings(20000, traffic.rng_of(0, 2))
+    return {"chat": chat, "bulk": [finding_text(f) for f in found]}
+
+
+# Text the fuzz cases read: each names a case where lowering, \w, \s or
+# UTF-8 could part the compiled pass from the regex.
+UNICODE_CASES = {
+    "final_sigma": "ΟΔΟΣ ΣΑΣ Σ. ΑΣ-ΣΑ",
+    "dotted_i": "İstanbul İİ İ-i",
+    "nbsp": "a\u00a0b\u00a0\u00a0c",
+    "line_separator": "one\u2028two\u2029three",
+    "info_separators": "a\x1cb\x1dc\x1ed\x1ff",
+    "combining_marks": "cafe\u0301 n\u0303o \u0301alone \u20dd",
+    "cjk": "部署失败了，请检查 api-server 的日志。デプロイ",
+    "super_and_fractions": "x² ½ ³⁄₄ ⅷ ①",
+    "arabic": "فشل النشر: مرفوض ٣ مرات",
+    "zwj": "a\u200db \u200c \ufeff x\u200dy",
+    "empty": "",
+    "spaces": " \t\n\r\x0b\x0c\x85\u3000",
+    "punctuation": "$HOME/.ssh @ops #42 a/b.c-d ... !!?? «»",
+}
+SEQ_VOCAB = [(1, 2048), (2, 2048), (64, 2048), (128, 8192)]
+
+
+class TestCompiledTokenizer:
+    """The compiled pass (``ops/csrc/tokenizer.cpp``) against the port's
+    Python loop and JAX's ``encode_texts``, byte for byte."""
+
+    @pytest.mark.parametrize("seq_len,vocab",
+                             SEQ_VOCAB + [(64, 8192), (128, 2048)])
+    @pytest.mark.parametrize("corpus", ["chat", "bulk"])
+    def test_mix_byte_equal(self, corpora, corpus, seq_len, vocab):
+        texts = corpora[corpus]
+        got, (compiled, python) = counted(texts, seq_len, vocab)
+        assert (compiled, python) == (len(texts), 0)
+        assert got.dtype == np.int32
+        assert got.tobytes() == python_ids(texts, seq_len, vocab).tobytes()
+        assert got.tobytes() == jax_encode_texts(texts, seq_len,
+                                                 vocab).tobytes()
+
+    @pytest.mark.parametrize("seq_len,vocab", SEQ_VOCAB)
+    @pytest.mark.parametrize("case", sorted(UNICODE_CASES))
+    def test_unicode_byte_equal(self, case, seq_len, vocab):
+        texts = [UNICODE_CASES[case], UNICODE_CASES[case].upper(),
+                 (UNICODE_CASES[case] + " w") * 40]
+        got, (compiled, python) = counted(texts, seq_len, vocab)
+        assert (compiled, python) == (3, 0)
+        assert got.tobytes() == python_ids(texts, seq_len, vocab).tobytes()
+        assert got.tobytes() == jax_encode_texts(texts, seq_len,
+                                                 vocab).tobytes()
+
+    @pytest.mark.parametrize("text,taken", [
+        ("deploy \U0001F680 failed", False),
+        ("\U0001F4A5", False),
+        ("w " * 70 + "\U0001F680", True),   # past the last kept word
+        ("𝐀𝐁 bold", False),                  # astral letters are \w
+    ])
+    def test_astral_rows_fall_back_and_count(self, text, taken):
+        texts = ["before", text, "after"]
+        got, rows = counted(texts, 64, 2048)
+        assert rows == ((3, 0) if taken else (2, 1))
+        assert got.tobytes() == python_ids(texts, 64, 2048).tobytes()
+        assert got.tobytes() == jax_encode_texts(texts, 64, 2048).tobytes()
+
+    @pytest.mark.parametrize("text", ["a\ud800b", "ok \udfff", "\ud83d"])
+    def test_lone_surrogate_raises_as_before(self, text):
+        with pytest.raises(UnicodeEncodeError):
+            jax_encode_texts(["fine", text], 64, 2048)
+        with pytest.raises(UnicodeEncodeError):
+            encode_texts(["fine", text], 64, 2048)
+
+    def test_lone_surrogate_past_the_cut_encodes_as_before(self):
+        texts = ["fine", "w " * 70 + "\ud800"]
+        got, rows = counted(texts, 64, 2048)
+        assert rows == (1, 1)
+        assert got.tobytes() == jax_encode_texts(texts, 64, 2048).tobytes()
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_random_code_points_byte_equal(self, seed):
+        """Rows of code points drawn over the BMP (no surrogates) and a
+        few astral ones, short words and runs of spaces between them."""
+        rng = np.random.default_rng(seed)
+        pool = np.concatenate([np.arange(0x20, 0x80), np.arange(0x80, 0xD800),
+                               np.arange(0xE000, 0x10000),
+                               np.array([0x1F680, 0x1D400, 0x20000])])
+        texts = []
+        for _ in range(400):
+            cps = rng.choice(pool, size=int(rng.integers(0, 120)))
+            cuts = rng.random(len(cps)) < 0.2
+            texts.append("".join(" " if cut else chr(cp)
+                                 for cp, cut in zip(cps, cuts)))
+        got = encode_texts(texts, 64, 8192)
+        assert got.tobytes() == python_ids(texts, 64, 8192).tobytes()
+        assert got.tobytes() == jax_encode_texts(texts, 64, 8192).tobytes()
+
+    def test_class_table_agrees_with_the_regex(self):
+        """Each BMP code point's class as ``_WORD_RE`` reads a pair of it:
+        one token (WORD), none (SPACE) or two (OTHER)."""
+        table = port_tokenizer.class_table()
+        assert len(table) == 0x10000
+        want = {1: port_tokenizer.WORD, 0: port_tokenizer.SPACE,
+                2: port_tokenizer.OTHER}
+        bad = [cp for cp in range(0x10000)
+               if want[len(port_tokenizer._WORD_RE.findall(chr(cp) * 2))]
+               != table[cp]]
+        assert bad == []
+
+    def test_eight_threads_give_the_serial_result(self, corpora):
+        texts = corpora["chat"][:1024]
+        batches = [texts[i::8] for i in range(8)]
+        serial = [encode_texts(b, 64, 2048) for b in batches]
+        got = [None] * 8
+        start = threading.Barrier(8)
+
+        def work(i):
+            start.wait(timeout=30)
+            for _ in range(5):
+                out = encode_texts(batches[i], 64, 2048)
+                assert out.tobytes() == serial[i].tobytes()
+            got[i] = out
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        assert all(g is not None and g.tobytes() == s.tobytes()
+                   for g, s in zip(got, serial))
+
+    @pytest.mark.parametrize("failure", ["no_compiler", "compiler_fails"])
+    def test_failed_build_falls_back(self, monkeypatch, tmp_path, corpora,
+                                     failure):
+        monkeypatch.setattr(port_tokenizer, "_native", None)
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+        if failure == "no_compiler":
+            def none():
+                raise _build.DeviceError("no host C++ compiler")
+            monkeypatch.setattr(_build, "host_compiler", none)
+        else:
+            monkeypatch.setattr(_build, "HOST_FLAGS",
+                                _build.HOST_FLAGS + ("-DTOKENIZER_BROKEN",
+                                                     "-include", "absent.h"))
+        texts = corpora["bulk"][:500] + ["deploy \U0001F680", ""]
+        got, rows = counted(texts, 64, 2048)
+        assert rows == (0, len(texts))
+        assert got.tobytes() == jax_encode_texts(texts, 64, 2048).tobytes()
+        assert port_tokenizer._native is False   # tried once, not per call
+        assert os.listdir(tmp_path) == []         # no library, no temp file
+
+    def test_library_builds_once_under_its_hash(self, monkeypatch, tmp_path):
+        """Four threads build into an empty directory at once: one file
+        named by the source's hash, no temporary left; a second call finds
+        it and builds nothing."""
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+        paths = []
+        threads = [threading.Thread(
+            target=lambda: paths.append(_build.build_host("tokenizer")))
+            for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        want = _build.host_library_path("tokenizer", _build.host_compiler())
+        assert paths == [want] * 4
+        assert os.listdir(tmp_path) == [os.path.basename(want)]
+        assert os.path.basename(want).startswith("libtokenizer-")
+        mtime = os.stat(want).st_mtime_ns
+        assert _build.build_host("tokenizer") == want
+        assert os.stat(want).st_mtime_ns == mtime
 
 
 class TestCheckpointReader:

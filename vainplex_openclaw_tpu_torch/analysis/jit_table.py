@@ -128,10 +128,11 @@ JIT_TABLE: tuple[JitEntry, ...] = (
     ),
     JitEntry(
         # The build and load sites themselves (no JAX row: JAX's cache is
-        # jit's). load_library memoizes per (name, defines) under a lock,
-        # and builds only a library that is not on disk yet.
+        # jit's). load_library memoizes per (name, defines) and
+        # load_host_library per name, under one lock, and each builds only
+        # a library that is not on disk yet.
         module=f"{_PKG}/ops/_build.py",
-        builders=("build", "load_library"),
+        builders=("build", "load_library", "load_host_library"),
         shape_policy=FIXED,
         rationale="libraries are keyed by (source, defines); the defines "
                   "come from the tiles of the searched block table or the "

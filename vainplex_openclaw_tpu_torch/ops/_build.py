@@ -20,6 +20,12 @@ defines too. The default tiles add no define, and their library keeps the
 path it has without one. The flash kernels above head dim 128 are one more
 library of the same source, built with :data:`WIDE_DEFINES` and holding
 only those kernels; the kernel search never builds it.
+
+Host code in ``csrc/<name>.cpp`` (the tokenizer's pass) builds the same
+way with the host C++ compiler instead of ``nvcc``
+(:func:`load_host_library`), on any machine that has one, card or not::
+
+    c++ -std=c++17 -O3 -shared -fPIC -o build/torch_kernels/lib<name>-<hash>.so <name>.cpp
 """
 
 from __future__ import annotations
@@ -63,6 +69,16 @@ SIGNATURES = {
     # times; no path of the port calls it.
     "sfu_probe": {
         "sfu_probe": ([_I] * 4 + [_P] * 2, _I),
+    },
+}
+
+# The host libraries (``csrc/<name>.cpp``), built by the host C++ compiler.
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+_L = ctypes.c_longlong
+HOST_SIGNATURES = {
+    "tokenizer": {
+        "tokenize_rows": ([ctypes.c_char_p, _P, _L, _I, _L, _P, _P, _P],
+                          None),
     },
 }
 
@@ -210,6 +226,66 @@ def build(names: Optional[list] = None, defines: tuple = ()) -> dict:
     if failures:
         raise DeviceError("kernel build failed:\n" + "\n".join(failures))
     return results
+
+
+def host_compiler() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise DeviceError("no host C++ compiler (c++ or g++) on PATH")
+
+
+def host_library_path(name: str, compiler: str) -> str:
+    """Where ``csrc/<name>.cpp`` builds to: keyed by a hash of the
+    compiler, its flags and the source."""
+    h = hashlib.sha256(" ".join((compiler, *HOST_FLAGS)).encode())
+    with open(os.path.join(CSRC_DIR, f"{name}.cpp"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler unless its
+    library is there; returns the library's path. The compiler writes a
+    temporary file that is renamed into place, so processes that build at
+    once each rename a whole library. Raises ``DeviceError`` (a
+    ``RuntimeError``) with the compiler's output when the build fails."""
+    compiler = host_compiler()
+    out = host_library_path(name, compiler)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [compiler, *HOST_FLAGS, "-o", tmp,
+             os.path.join(CSRC_DIR, f"{name}.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise DeviceError(f"{name}: {compiler} exited "
+                              f"{proc.returncode}\n{proc.stdout}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cpp``, built first if needed;
+    cached per name."""
+    key = (name, "host")
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(name))
+            for fn, (argtypes, restype) in HOST_SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[key] = lib
+    return lib
 
 
 def load_library(name: str, tiles=None, defines: tuple = ()) -> ctypes.CDLL:
